@@ -1,0 +1,18 @@
+"""Semiring sparse linear algebra with adaptive kernel selection."""
+from repro_torch.core.semiring import (  # noqa: F401
+    BOOL_OR_AND, MIN_PLUS, MIN_TIMES, PLUS_AND, PLUS_TIMES, SEMIRINGS,
+    Semiring,
+)
+from repro_torch.core.formats import (  # noqa: F401
+    COOMatrix, CSCMatrix, CSRMatrix, PaddedBSR, build_bsr_padded, build_coo,
+    build_csc, build_csr,
+)
+from repro_torch.core.spmv import spmv, spmv_coo, spmv_csr  # noqa: F401
+from repro_torch.core.spmspv import (  # noqa: F401
+    Frontier, frontier_from_dense, spmspv, spmspv_coo_masked,
+    spmspv_csc_gather, spmspv_csr_masked,
+)
+from repro_torch.core.adaptive import (  # noqa: F401
+    DecisionStump, GraphFeatures, adaptive_matvec, fit_decision_stump,
+    select_kernel,
+)

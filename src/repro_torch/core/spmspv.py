@@ -1,0 +1,129 @@
+"""Semiring SpMSpV: y = A ⊕.⊗ x with a compressed sparse input vector
+(paper §4.1).
+
+* ``spmspv_csr_masked`` / ``spmspv_coo_masked`` scan every stored nonzero
+  and mask by frontier membership (the paper's CSR/COO variants);
+* ``spmspv_csc_gather`` gathers only the active columns' slices (the
+  paper's winning family);
+* PaddedBSR visits only column tiles with an active entry (the tile
+  kernel, ``kernels/spmspv_tiles.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.formats import COOMatrix, CSCMatrix, CSRMatrix, PaddedBSR
+from repro_torch.core.semiring import Semiring
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class Frontier:
+    """Compressed sparse vector: indices int32 [f_max] (pad = n, out of
+    range), values [f_max] (pad = semiring zero), count 0-dim int32."""
+
+    indices: Tensor
+    values: Tensor
+    count: Tensor
+    n: int
+
+    @property
+    def f_max(self) -> int:
+        return self.indices.shape[0]
+
+    def density(self) -> Tensor:
+        """Non-zeros / n as f32: the paper's switching signal (§4.2)."""
+        return self.count.to(torch.float32) / torch.tensor(
+            float(self.n), dtype=torch.float32, device=self.count.device)
+
+    def to_dense(self, sr: Semiring) -> Tensor:
+        dev = self.indices.device
+        dense = torch.full((self.n,), sr.zero, dtype=sr.dtype, device=dev)
+        ok = self.indices < self.n
+        safe = torch.where(ok, self.indices, 0).long()
+        # pad entries carry the ⊕-identity to index 0, a no-op in every mode
+        val = torch.where(ok, self.values.to(sr.dtype), sr.zero)
+        return dense.scatter_reduce_(0, safe, val, reduce=sr.scatter_mode(),
+                                     include_self=True)
+
+
+def frontier_from_dense(x: Tensor, sr: Semiring, f_max: int | None = None) -> Frontier:
+    """Compress a dense vector: a stable partition brings non-zeros first.
+    ``f_max`` defaults to n (always lossless)."""
+    n = x.shape[0]
+    f_max = f_max or n
+    is_nz = x != sr.zero
+    count = is_nz.to(torch.int32).sum().to(torch.int32)
+    order = torch.argsort((~is_nz).to(torch.int8), stable=True)
+    ar = torch.arange(n, device=x.device)
+    idx = torch.where(ar < count, order, n)[:f_max].to(torch.int32)
+    ok = idx < n
+    vals = torch.where(ok, x[torch.where(ok, idx, 0).long()].to(sr.dtype), sr.zero)
+    return Frontier(idx, vals, torch.clamp(count, max=f_max), n)
+
+
+def spmspv_csr_masked(a: CSRMatrix, x: Frontier, sr: Semiring) -> Tensor:
+    """Paper's CSR-SpMSpV: touches every stored nonzero, masking inactive
+    columns through the dense scatter of the frontier."""
+    m, _ = a.shape
+    x_dense = x.to_dense(sr)
+    ok = a.seg_ids < m
+    xj = x_dense[torch.where(ok, a.cols, 0).long()]
+    prod = sr.mul(a.vals.to(sr.dtype), xj)
+    prod = torch.where(ok & (xj != sr.zero), prod, sr.zero)
+    return sr.segment_reduce(prod, a.seg_ids, m)
+
+
+def spmspv_csc_gather(a: CSCMatrix, x: Frontier, sr: Semiring) -> Tensor:
+    """Paper's CSC-SpMSpV: for each frontier entry j, slice column j's
+    (rows, vals) (≤ max_col_nnz entries) and ⊕-scatter a_ij ⊗ x_j into y."""
+    m, n = a.shape
+    dev = x.indices.device
+    ok_col = x.indices < n
+    safe_j = torch.where(ok_col, x.indices, 0).long()
+    start = a.col_ptr[safe_j]
+    length = a.col_ptr[safe_j + 1] - start
+    offs = torch.arange(a.max_col_nnz, dtype=torch.int32, device=dev)
+    gidx = start[:, None] + offs[None, :]
+    in_col = offs[None, :] < length[:, None]
+    gidx = torch.where(in_col, gidx, a.nnz_max - 1).long()
+    rows = a.rows[gidx]
+    vals = a.vals[gidx].to(sr.dtype)
+    prod = sr.mul(vals, x.values.to(sr.dtype)[:, None])
+    valid = in_col & ok_col[:, None]
+    prod = torch.where(valid, prod, sr.zero)
+    seg = torch.where(valid, rows, m)
+    return sr.segment_reduce(prod.reshape(-1), seg.reshape(-1), m)
+
+
+def spmspv_coo_masked(a: COOMatrix, x: Frontier, sr: Semiring) -> Tensor:
+    """Paper's COO-SpMSpV: full nnz scan masked by frontier membership."""
+    m, _ = a.shape
+    x_dense = x.to_dense(sr)
+    ok = a.rows < m
+    xj = x_dense[torch.where(ok, a.cols, 0).long()]
+    prod = sr.mul(a.vals.to(sr.dtype), xj)
+    prod = torch.where(ok & (xj != sr.zero), prod, sr.zero)
+    return sr.segment_reduce(prod, torch.where(ok, a.rows, m), m)
+
+
+def spmspv(a, x: Frontier, sr: Semiring, impl: str = "auto") -> Tensor:
+    if isinstance(a, COOMatrix):
+        return spmspv_coo_masked(a, x, sr)
+    if isinstance(a, CSRMatrix):
+        return spmspv_csr_masked(a, x, sr)
+    if isinstance(a, CSCMatrix):
+        return spmspv_csc_gather(a, x, sr)
+    if isinstance(a, PaddedBSR):
+        from repro_torch.kernels import ops
+
+        if impl == "ref":
+            return ops.semiring_spmspv_ref(a, x, sr)
+        if impl == "fused":
+            raise NotImplementedError(
+                "impl='fused' waits for the fused tile kernels (ROADMAP §2, kernel 5)")
+        return ops.semiring_spmspv(a, x, sr)
+    raise TypeError(type(a))

@@ -1,0 +1,51 @@
+"""Semiring SpMV: y = A ⊕.⊗ x with a dense input vector (paper §3).
+
+COO/CSR run as gather + ⊕-segment-reduce. PaddedBSR goes through the tile
+kernel's front door (``kernels/ops.py``): a hand-written CUDA kernel on the
+card, its plain PyTorch version on the host.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import COOMatrix, CSRMatrix, PaddedBSR
+from repro_torch.core.semiring import Semiring
+
+Tensor = torch.Tensor
+
+
+def spmv_coo(a: COOMatrix, x: Tensor, sr: Semiring) -> Tensor:
+    """y_i = ⊕_{(i,j)∈A} a_ij ⊗ x_j; padded entries (row = M) are dropped."""
+    m, _ = a.shape
+    ok = a.rows < m
+    xj = x[torch.where(ok, a.cols, 0).long()]
+    prod = sr.mul(a.vals.to(sr.dtype), xj.to(sr.dtype))
+    prod = torch.where(ok, prod, sr.zero)
+    return sr.segment_reduce(prod, torch.where(ok, a.rows, m), m)
+
+
+def spmv_csr(a: CSRMatrix, x: Tensor, sr: Semiring) -> Tensor:
+    """CSR uses the precomputed expanded segment ids; same math as COO."""
+    m, _ = a.shape
+    ok = a.seg_ids < m
+    xj = x[torch.where(ok, a.cols, 0).long()]
+    prod = sr.mul(a.vals.to(sr.dtype), xj.to(sr.dtype))
+    prod = torch.where(ok, prod, sr.zero)
+    return sr.segment_reduce(prod, a.seg_ids, m)
+
+
+def spmv(a, x: Tensor, sr: Semiring, impl: str = "auto") -> Tensor:
+    if isinstance(a, COOMatrix):
+        return spmv_coo(a, x, sr)
+    if isinstance(a, CSRMatrix):
+        return spmv_csr(a, x, sr)
+    if isinstance(a, PaddedBSR):
+        from repro_torch.kernels import ops
+
+        if impl == "ref":
+            return ops.semiring_spmv_ref(a, x, sr)
+        if impl == "fused":
+            raise NotImplementedError(
+                "impl='fused' waits for the fused tile kernels (ROADMAP §2, kernel 3)")
+        return ops.semiring_spmv(a, x, sr)
+    raise TypeError(type(a))

@@ -1,0 +1,12 @@
+"""Linear-algebraic frontier traversals (BFS/SSSP/PPR) on the core engine."""
+from repro_torch.graphs.bfs import BFSResult, bfs, bfs_reference  # noqa: F401
+from repro_torch.graphs.cost_model import trained_stump, training_corpus  # noqa: F401
+from repro_torch.graphs.datasets import (  # noqa: F401
+    TABLE2, Graph, GraphSpec, generate, largest_component_source, rmat_graph,
+    road_graph, uniform_graph,
+)
+from repro_torch.graphs.engine import GraphEngine, build_engine  # noqa: F401
+from repro_torch.graphs.ppr import (  # noqa: F401
+    PPRResult, pagerank, pagerank_reference, ppr, ppr_reference,
+)
+from repro_torch.graphs.sssp import SSSPResult, sssp, sssp_reference  # noqa: F401

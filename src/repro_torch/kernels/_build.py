@@ -1,0 +1,88 @@
+"""Builds the CUDA tile kernels with nvcc at first use and loads them with
+ctypes.
+
+Each source under ``csrc/`` becomes its own shared library with a plain C
+interface, compiled for ``sm_90a``. All sources that are not built yet are
+compiled together, one nvcc process each. A library's file name carries a
+hash of its sources and flags, so an edited source is rebuilt and a stale
+library is never loaded. The output directory, ``kernels/build/``, is
+listed in ``.gitignore``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "build"
+SOURCES = ("semiring_spmv.cu", "spmspv_tiles.cu")
+HEADERS = ("tile_fold.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+# nvcc's stderr (ptxas registers, spills, shared memory) per source built
+# by this process
+build_log: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the tile kernels")
+    return path
+
+
+def _target(source: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in (source, *HEADERS):
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> None:
+    """Compile every source whose library is missing, all nvcc processes
+    started together; raise with nvcc's output if one fails."""
+    with _lock:
+        pending = [s for s in SOURCES if not _target(s).exists()]
+        if not pending:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for s in pending:
+            tmp = _target(s).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
+            procs.append((s, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for s, tmp, p in procs:
+            out, err = p.communicate()
+            build_log[s] = out + err
+            if p.returncode != 0:
+                failed.append(f"nvcc failed on {s} (exit {p.returncode}):\n{out}{err}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, _target(s))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def tile_kernel(source: str, symbol: str):
+    """The C entry point ``symbol`` of ``source``, built if needed. Every
+    tile kernel takes (tiles, index, x, y, mb, T, bm, bn, semiring code,
+    stream) and returns the launch's cudaError_t."""
+    build_all()
+    fn = getattr(ctypes.CDLL(str(_target(source))), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn

@@ -11,3 +11,5 @@ def pytest_configure(config):
         "markers",
         "timeout(seconds): per-test watchdog (enforced by pytest-timeout "
         "in CI; inert locally when the plugin is absent)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none")
