@@ -18,10 +18,28 @@ Phases:
   4. Main path: BFS on full-size r-TX (regular, n=1,087,849), levels
      held to the oracle clipped to max_iters.
   5. Per traversal: wall ms, iterations, launches per kernel, peak memory.
+  6. Fused path on full-size cit-HP at 128×128 for all five semirings,
+     through ``core.spmv.spmv(impl="fused")``, ``ops.semiring_spmv_sliced``
+     (sell-C-σ from ``autotune_sell``) and ``core.spmspv.spmspv(impl=
+     "fused")`` at densities 0.1%, 5%, 60%, each also with ``chunks=2``.
+     Kernels 3 and 4 are held to their plain versions and with
+     ``torch.equal`` to kernel 1, kernel 5 to its plain version and to
+     kernel 2 (x is finite and nonzero, so pad ⊗ x is the ⊕-identity).
+     Kernel, plain, bound (the ported ``*_stream_stats`` bytes) and
+     (⟨+,×⟩) library times.
+  7. Fused path on full-size r-TX (⟨∨,∧⟩): kernels 3 and 5 against 1 and 2.
+  8. sell-C-σ on full-size graph500-scale18 (g-18, n=174,147), whose
+     ELL-of-tiles copy (106 GB) does not fit the card: kernel 4 for ⟨+,×⟩
+     on integer values, equal to a numpy integer oracle, and for ⟨∨,∧⟩,
+     equal to the CSR SpMV; both also held to the plain version.
 
-The launch counters are set to 0 before phase 3 and read after phase 4;
-the run fails unless both kernels launched there. Any mismatch raises,
-so the run exits non-zero without the final ``{"ok": true, ...}`` line.
+Launch counters: all five are set to 0 before phase 3 and kernels 1–2
+read after phase 4. In phases 6–8 every call of the fused path runs with
+all five counters set to 0 just before it and read just after; the
+comparisons and timings in between are not counted. The run fails unless
+kernels 1–2 launched in phases 3–4 and kernels 3–5 in phases 6–8. Any
+mismatch raises, so the run exits non-zero without the final
+``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -54,7 +72,10 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
 
-    from repro_torch.core import SEMIRINGS, build_bsr_padded, frontier_from_dense
+    from repro_torch.core import (
+        SEMIRINGS, autotune_sell, build_bsr_padded, build_csr, frontier_from_dense, spmspv,
+        spmv, spmv_csr,
+    )
     from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, PLUS_TIMES
     from repro_torch.graphs import (
         bfs, bfs_reference, build_engine, generate, largest_component_source, ppr,
@@ -62,11 +83,19 @@ def main() -> int:
     )
     from repro_torch.graphs.engine import edge_values
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.semiring_spmv import semiring_spmv_padded
-    from repro_torch.kernels.spmspv_tiles import semiring_spmspv_padded
+    from repro_torch.graphs.cost_model import kernel_stream_cost
+    from repro_torch.kernels.semiring_spmv import (
+        semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
+    )
+    from repro_torch.kernels.spmspv_tiles import (
+        semiring_spmspv_fused_padded, semiring_spmspv_padded,
+    )
 
     dev = torch.device("cuda")
     kernels = (semiring_spmv_padded, semiring_spmspv_padded)
+    fused_kernels = (semiring_spmv_fused_padded, semiring_spmv_sell,
+                     semiring_spmspv_fused_padded)
+    all_kernels = kernels + fused_kernels
 
     # ---------------------------------------------------------------- 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -112,10 +141,24 @@ def main() -> int:
         diff = (y.double() - y_plain.double()).abs()[fin]
         return float(diff.max()) if diff.numel() else 0.0
 
-    def transposed(g, sr, block, weighted=False, normalize=False):
-        vals = edge_values(g, sr, weighted=weighted, seed=5, normalize=normalize)
+    weighted = {"min_plus": True, "min_times": True}
+
+    def values(g, sr):
+        """Edge values per semiring: integer weights for the min
+        semirings, column-stochastic for ⟨+,×⟩, ones otherwise."""
+        return edge_values(g, sr, weighted=weighted.get(sr.name, False), seed=5,
+                           normalize=sr.name == "plus_times")
+
+    def transposed(g, sr, block, vals):
         return build_bsr_padded(g.cols.astype(np.int32), g.rows.astype(np.int32), vals,
                                 (g.n, g.n), sr, block=block, device=dev)
+
+    def transposed_sell(g, sr, vals):
+        """sell-C-σ of the transposed adjacency at the engine's 128×128
+        tile, with the (C, σ) sweep of benchmarks/roofline.py."""
+        return autotune_sell(g.cols.astype(np.int32), g.rows.astype(np.int32), vals,
+                             (g.n, g.n), sr, blocks=((128, 128),), cs=(4, 8, 16),
+                             sigmas=(None, 64), device=dev)
 
     def random_x(rng, sr, n):
         if sr.dtype == torch.int32:
@@ -152,10 +195,8 @@ def main() -> int:
     cit = generate("cit-HP", 1.0, SEED)
     worst = {k.__name__: 0.0 for k in kernels}
     summary = {}
-    weighted = {"min_plus": True, "min_times": True}
     for name, sr in SEMIRINGS.items():
-        a = transposed(cit, sr, (128, 128), weighted=weighted.get(name, False),
-                       normalize=name == "plus_times")
+        a = transposed(cit, sr, (128, 128), values(cit, sr))
         mb, t, bm, bn = a.tiles.shape
         x = random_x(rng, sr, a.shape[1])
         lib = library_bsr(a, sr) if name == "plus_times" else None
@@ -203,8 +244,7 @@ def main() -> int:
 
     caq = generate("ca-Q", 1.0, SEED)
     for name, sr in SEMIRINGS.items():
-        a = transposed(caq, sr, (16, 16), weighted=weighted.get(name, False),
-                       normalize=name == "plus_times")
+        a = transposed(caq, sr, (16, 16), values(caq, sr))
         x = random_x(rng, sr, a.shape[1])
         err = compare(semiring_spmv_padded(a.tiles, a.tile_cols, x, sr=sr),
                       ref.spmv_padded_ref(a.tiles, a.tile_cols, x, sr), sr,
@@ -223,7 +263,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 3, 4
     stump = trained_stump()
-    for k in kernels:
+    for k in all_kernels:
         k.launches = 0
     traversals = []
 
@@ -281,12 +321,196 @@ def main() -> int:
     for k in kernels:
         check(k.launches > 0, f"{k.__name__} was not launched on the main path")
 
+    # ---------------------------------------------------------------- 6, 7, 8
+    tally = {k.__name__: 0 for k in all_kernels}
+
+    def main_path(fn):
+        """Run ``fn`` with every launch counter set to 0 just before it,
+        read the counters just after it and add them to the tally."""
+        for k in all_kernels:
+            k.launches = 0
+        out = fn()
+        for k in all_kernels:
+            tally[k.__name__] += k.launches
+        return out
+
+    def same(y, y_ref, what: str) -> None:
+        torch.cuda.synchronize()
+        check(torch.equal(y, y_ref), what)
+
+    def fused_bound(stats: dict, index_entries: int) -> tuple[float, str]:
+        """The ported stream stats' fused bytes plus the index entries the
+        kernel reads, against the fp32 rate for the real slots' operations."""
+        return bound(stats["fused_bytes"] + 4 * index_entries, stats["ops"])
+
+    for k in fused_kernels:
+        worst[k.__name__] = 0.0
+    for name, sr in SEMIRINGS.items():
+        vals = values(cit, sr)
+        a = transposed(cit, sr, (128, 128), vals)
+        sell, report = transposed_sell(cit, sr, vals)
+        mb, t, bm, bn = a.tiles.shape
+        x = random_x(rng, sr, a.shape[1])
+        fronts = [frontier_from_dense(sparse_x(rng, sr, x, cit.n, d)[: cit.n], sr)
+                  for d in DENSITIES]
+        y3, y3c, y4, y4c, y5s = main_path(lambda: (
+            spmv(a, x, sr, impl="fused"), ops.semiring_spmv_fused(a, x, sr, chunks=2),
+            ops.semiring_spmv_sliced(sell, x, sr), ops.semiring_spmv_sliced(sell, x, sr, chunks=2),
+            [(spmspv(a, f, sr, impl="fused"), ops.semiring_spmspv_fused(a, f, sr, chunks=2))
+             for f in fronts]))
+        y1 = semiring_spmv_padded(a.tiles, a.tile_cols, x, sr=sr)
+        meta3 = ops._spmv_fused_meta(a)
+        for y, yc, k in ((y3, y3c, "semiring_spmv_fused_padded"), (y4, y4c, "semiring_spmv_sell")):
+            same(y, y1, f"{k} {name} cit-HP is not equal to kernel 1")
+            same(yc, y1.view(2, -1), f"{k} {name} cit-HP chunks=2 is not kernel 1's rows")
+        err3 = compare(y3, ref.spmv_fused_padded_ref(a.tiles, meta3, x, sr), sr,
+                       f"fused spmv {name} cit-HP")
+        err4 = compare(y4, ref.spmv_sell_ref(sell.tiles, sell.tile_cols, sell.row_meta, x, sr),
+                       sr, f"sell spmv {name} cit-HP")
+        worst["semiring_spmv_fused_padded"] = max(worst["semiring_spmv_fused_padded"], err3)
+        worst["semiring_spmv_sell"] = max(worst["semiring_spmv_sell"], err4)
+        lib = library_bsr(a, sr) if name == "plus_times" else None
+        lib_ms = time_ms(lambda: lib @ x[:, None]) if lib is not None else None
+        st3, st4 = ops.spmv_stream_stats(a), ops.sell_stream_stats(sell, a)
+        real = sell.real_slots
+        bound3, by3 = fused_bound(st3, mb + real)
+        bound4, by4 = fused_bound(st4, 3 * mb + real)
+        rows = [
+            {"kernel": "semiring_spmv_fused_padded", "semiring": name, "graph": "cit-HP",
+             "real_slots": real, "ell_slots": mb * t, "max_abs_err": err3,
+             "ms": time_ms(lambda: semiring_spmv_fused_padded(a.tiles, meta3, x, sr=sr)),
+             "kernel1_ms": time_ms(lambda: semiring_spmv_padded(a.tiles, a.tile_cols, x, sr=sr)),
+             "plain_ms": time_ms(lambda: ref.spmv_fused_padded_ref(a.tiles, meta3, x, sr)),
+             "bound_ms": bound3, "bound_by": by3, "library_ms": lib_ms},
+            {"kernel": "semiring_spmv_sell", "semiring": name, "graph": "cit-HP",
+             "c": sell.slice_height, "sigma": sell.sigma, "slot_total": sell.slot_total,
+             "real_slots": real, "sell_bytes": sell.tiles.numel() * 4,
+             "ell_bytes": a.tiles.numel() * 4, "max_abs_err": err4,
+             "ms": time_ms(lambda: semiring_spmv_sell(sell.tiles, sell.tile_cols, sell.row_meta,
+                                                      x, sr=sr)),
+             "plain_ms": time_ms(lambda: ref.spmv_sell_ref(sell.tiles, sell.tile_cols,
+                                                           sell.row_meta, x, sr)),
+             "bound_ms": bound4, "bound_by": by4, "library_ms": lib_ms}]
+        for f, d, (y5, y5c) in zip(fronts, DENSITIES, y5s):
+            meta, xd = ops._spmspv_meta(a, f, sr), ops._dense_frontier(a, f, sr)
+            same(y5, semiring_spmspv_padded(a.tiles, meta, xd, sr=sr),
+                 f"fused spmspv {name} cit-HP density {d} is not equal to kernel 2")
+            same(y5c, y5.view(2, -1), f"fused spmspv {name} cit-HP density {d} chunks=2")
+            err5 = compare(y5, ref.spmspv_padded_ref(a.tiles, meta, xd, sr), sr,
+                           f"fused spmspv {name} cit-HP density {d}")
+            worst["semiring_spmspv_fused_padded"] = max(worst["semiring_spmspv_fused_padded"],
+                                                        err5)
+            n_active = int(meta[:, 0].sum())
+            bound5, by5 = fused_bound(ops.spmspv_stream_stats(a, f, sr), mb + 2 * n_active)
+            rows.append(
+                {"kernel": "semiring_spmspv_fused_padded", "semiring": name, "graph": "cit-HP",
+                 "density": d, "n_active": n_active, "max_abs_err": err5,
+                 "ms": time_ms(lambda: semiring_spmspv_fused_padded(a.tiles, meta, xd, sr=sr)),
+                 "plain_ms": time_ms(lambda: ref.spmspv_padded_ref(a.tiles, meta, xd, sr)),
+                 "bound_ms": bound5, "bound_by": by5,
+                 "library_ms": time_ms(lambda: lib @ xd[:, None]) if lib is not None else None})
+        for row in rows:
+            print(json.dumps(row))
+            if name == "plus_times" and row.get("density", 0.05) == 0.05:
+                summary[row["kernel"]] = row
+        del a, sell, x, fronts, y1, y3, y3c, y4, y4c, y5s, lib
+        torch.cuda.empty_cache()
+    print("phase 6: cit-HP kernels 3 and 4 equal kernel 1 and kernel 5 equals kernel 2 for "
+          "all five semirings, chunks=2 included; all three match their plain versions")
+
+    sr = BOOL_OR_AND
+    a = transposed(rtx, sr, (128, 128), values(rtx, sr))
+    x = random_x(rng, sr, a.shape[1])
+    fronts = [frontier_from_dense(sparse_x(rng, sr, x, rtx.n, d)[: rtx.n], sr) for d in DENSITIES]
+    y3, y5s = main_path(lambda: (spmv(a, x, sr, impl="fused"),
+                                 [spmspv(a, f, sr, impl="fused") for f in fronts]))
+    same(y3, semiring_spmv_padded(a.tiles, a.tile_cols, x, sr=sr),
+         "fused spmv r-TX is not equal to kernel 1")
+    compare(y3, ref.spmv_fused_padded_ref(a.tiles, ops._spmv_fused_meta(a), x, sr), sr,
+            "fused spmv r-TX")
+    for f, d, y5 in zip(fronts, DENSITIES, y5s):
+        meta, xd = ops._spmspv_meta(a, f, sr), ops._dense_frontier(a, f, sr)
+        same(y5, semiring_spmspv_padded(a.tiles, meta, xd, sr=sr),
+             f"fused spmspv r-TX density {d} is not equal to kernel 2")
+        compare(y5, ref.spmspv_padded_ref(a.tiles, meta, xd, sr), sr, f"fused spmspv r-TX {d}")
+    print(f"phase 7: r-TX {tuple(a.tiles.shape)} bool_or_and: kernel 3 equals kernel 1, "
+          "kernel 5 equals kernel 2 at every density")
+    del a, x, fronts, y3, y5s
+    torch.cuda.empty_cache()
+
+    g18 = generate("g-18", 1.0, SEED)
+    rows_np, cols_np = g18.cols.astype(np.int64), g18.rows.astype(np.int64)
+    for sr in (PLUS_TIMES, BOOL_OR_AND):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if sr is PLUS_TIMES:
+            vals = rng.integers(1, 9, g18.nnz).astype(np.float32)
+        else:
+            vals = values(g18, sr)
+        sell, report = transposed_sell(g18, sr, vals)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        mb, (bm, bn) = sell.n_block_rows, sell.block
+        n_pad = sell.shape[1]
+        if sr is PLUS_TIMES:
+            xv = rng.integers(0, 9, n_pad).astype(np.float32)
+        else:
+            xv = rng.integers(0, 2, n_pad).astype(np.int32)
+        x = torch.from_numpy(xv).to(dev)
+        y4 = main_path(lambda: ops.semiring_spmv_sliced(sell, x, sr))
+        if sr is PLUS_TIMES:
+            oracle = np.zeros(n_pad, np.float32)
+            np.add.at(oracle, rows_np, vals * xv[cols_np])
+            same(y4, torch.from_numpy(oracle).to(dev),
+                 "sell spmv g-18 plus_times differs from the integer numpy oracle")
+        else:
+            csr = build_csr(rows_np.astype(np.int32), cols_np.astype(np.int32), vals,
+                            (g18.n, g18.n), sr, device=dev)
+            same(y4[: g18.n], spmv_csr(csr, x[: g18.n], sr),
+                 "sell spmv g-18 bool_or_and differs from the CSR SpMV")
+            check(not y4[g18.n:].any(), "sell spmv g-18: rows past n are not zero")
+            del csr
+        err4 = compare(y4, ref.spmv_sell_ref(sell.tiles, sell.tile_cols, sell.row_meta, x, sr),
+                       sr, f"sell spmv {sr.name} g-18")
+        worst["semiring_spmv_sell"] = max(worst["semiring_spmv_sell"], err4)
+        real = sell.real_slots
+        width = int(sell.row_meta[:, 2].max())
+        cost = kernel_stream_cost(mb, width, real, sell.block, n_pad)
+        bound4, by4 = bound(cost["fused_bytes"] + 4 * (real + 3 * mb), 2 * real * bm * bn)
+        row = {"kernel": "semiring_spmv_sell", "semiring": sr.name, "graph": "g-18",
+               "n": g18.n, "nnz": g18.nnz, "mb": mb, "ell_width": width,
+               "c": sell.slice_height, "sigma": sell.sigma, "slot_total": sell.slot_total,
+               "real_slots": real, "ell_bytes_needed": mb * width * bm * bn * 4,
+               "sell_bytes": sell.tiles.numel() * 4, "build_s": build_s,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(), "max_abs_err": err4,
+               "ms": time_ms(lambda: semiring_spmv_sell(sell.tiles, sell.tile_cols,
+                                                        sell.row_meta, x, sr=sr)),
+               "plain_ms": time_ms(lambda: ref.spmv_sell_ref(sell.tiles, sell.tile_cols,
+                                                             sell.row_meta, x, sr), reps=3),
+               "bound_ms": bound4, "bound_by": by4, "library_ms": None}
+        print(json.dumps(row))
+        del sell, x, y4
+        torch.cuda.empty_cache()
+    print("phase 8: g-18 sell-C-σ matches the integer oracle (plus_times) and the CSR SpMV "
+          "(bool_or_and); no library time: a BSR copy of the real tiles is another 40 GB")
+
+    print(f"phases 6-8: launches on the fused path {json.dumps(tally)}")
+    for k in fused_kernels:
+        check(tally[k.__name__] > 0, f"{k.__name__} was not launched on the fused path")
+        launches[k.__name__] = tally[k.__name__]
+
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
                                         "src/repro/kernels/semiring_spmv.py:56"),
                "semiring_spmspv_padded": ("src/repro_torch/kernels/csrc/spmspv_tiles.cu",
-                                          "src/repro/kernels/spmspv_tiles.py:71")}
+                                          "src/repro/kernels/spmspv_tiles.py:71"),
+               "semiring_spmv_fused_padded": ("src/repro_torch/kernels/csrc/semiring_spmv_fused.cu",
+                                              "src/repro/kernels/semiring_spmv.py:170"),
+               "semiring_spmv_sell": ("src/repro_torch/kernels/csrc/semiring_spmv_sell.cu",
+                                      "src/repro/kernels/semiring_spmv.py:209"),
+               "semiring_spmspv_fused_padded": ("src/repro_torch/kernels/csrc/spmspv_fused.cu",
+                                                "src/repro/kernels/spmspv_tiles.py:108")}
     line = []
-    for k in kernels:
+    for k in all_kernels:
         row = summary[k.__name__]
         line.append({"name": k.__name__, "route": "cuda", "source": sources[k.__name__][0],
                      "replaces": sources[k.__name__][1], "launches": launches[k.__name__],

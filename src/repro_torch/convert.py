@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.formats import COOMatrix, CSCMatrix, CSRMatrix, PaddedBSR
+from repro_torch.core.formats import (
+    BSRMatrix, COOMatrix, CSCMatrix, CSRMatrix, PaddedBSR, SlicedELL,
+)
 
 
 def _t(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -28,6 +30,22 @@ def padded_bsr_from_numpy(tiles: np.ndarray, tile_cols: np.ndarray,
     device = resolve_device(device)
     return PaddedBSR(_t(tiles, device), _t(np.asarray(tile_cols, np.int32), device),
                      tuple(shape), tuple(block))
+
+
+def sliced_ell_from_numpy(tiles: np.ndarray, tile_cols: np.ndarray, row_meta: np.ndarray,
+                          shape: Tuple[int, int], block: Tuple[int, int], slice_height: int,
+                          sigma: int, device=None) -> SlicedELL:
+    device = resolve_device(device)
+    return SlicedELL(_t(tiles, device), _t(np.asarray(tile_cols, np.int32), device),
+                     _t(np.asarray(row_meta, np.int32), device), tuple(shape), tuple(block),
+                     int(slice_height), int(sigma))
+
+
+def bsr_from_numpy(tiles: np.ndarray, tile_cols: np.ndarray, tile_row_ptr: np.ndarray,
+                   shape: Tuple[int, int], block: Tuple[int, int], device=None) -> BSRMatrix:
+    device = resolve_device(device)
+    return BSRMatrix(_t(tiles, device), _t(np.asarray(tile_cols, np.int32), device),
+                     _t(np.asarray(tile_row_ptr, np.int32), device), tuple(shape), tuple(block))
 
 
 def coo_from_numpy(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, nnz,

@@ -4,10 +4,11 @@ from repro_torch.core.semiring import (  # noqa: F401
     Semiring,
 )
 from repro_torch.core.formats import (  # noqa: F401
-    COOMatrix, CSCMatrix, CSRMatrix, PaddedBSR, build_bsr_padded, build_coo,
-    build_csc, build_csr,
+    BSRMatrix, COOMatrix, CSCMatrix, CSRMatrix, PaddedBSR, SlicedELL,
+    autotune_sell, build_bsr, build_bsr_padded, build_coo, build_csc,
+    build_csr, build_sell, sell_stream_cost,
 )
-from repro_torch.core.spmv import spmv, spmv_coo, spmv_csr  # noqa: F401
+from repro_torch.core.spmv import spmv, spmv_bsr_ref, spmv_coo, spmv_csr  # noqa: F401
 from repro_torch.core.spmspv import (  # noqa: F401
     Frontier, frontier_from_dense, spmspv, spmspv_coo_masked,
     spmspv_csc_gather, spmspv_csr_masked,

@@ -6,7 +6,8 @@
 * ``spmspv_csc_gather`` gathers only the active columns' slices (the
   paper's winning family);
 * PaddedBSR visits only column tiles with an active entry (the tile
-  kernel, ``kernels/spmspv_tiles.py``).
+  kernels, ``kernels/spmspv_tiles.py``; ``impl="fused"`` takes the fused
+  one).
 """
 from __future__ import annotations
 
@@ -123,7 +124,6 @@ def spmspv(a, x: Frontier, sr: Semiring, impl: str = "auto") -> Tensor:
         if impl == "ref":
             return ops.semiring_spmspv_ref(a, x, sr)
         if impl == "fused":
-            raise NotImplementedError(
-                "impl='fused' waits for the fused tile kernels (ROADMAP §2, kernel 5)")
+            return ops.semiring_spmspv_fused(a, x, sr)
         return ops.semiring_spmspv(a, x, sr)
     raise TypeError(type(a))

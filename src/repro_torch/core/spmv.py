@@ -1,15 +1,18 @@
 """Semiring SpMV: y = A ⊕.⊗ x with a dense input vector (paper §3).
 
-COO/CSR run as gather + ⊕-segment-reduce. PaddedBSR goes through the tile
-kernel's front door (``kernels/ops.py``): a hand-written CUDA kernel on the
-card, its plain PyTorch version on the host.
+COO/CSR run as gather + ⊕-segment-reduce; BSRMatrix as a plain PyTorch
+tile fold (``spmv_bsr_ref``). PaddedBSR goes through the tile kernels'
+front door (``kernels/ops.py``): a hand-written CUDA kernel on the card,
+its plain PyTorch version on the host. ``impl="fused"`` takes the fused
+kernel, which streams only each block row's real tiles.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import COOMatrix, CSRMatrix, PaddedBSR
+from repro_torch.core.formats import BSRMatrix, COOMatrix, CSRMatrix, PaddedBSR
 from repro_torch.core.semiring import Semiring
+from repro_torch.kernels.ref import fold_rows
 
 Tensor = torch.Tensor
 
@@ -34,18 +37,29 @@ def spmv_csr(a: CSRMatrix, x: Tensor, sr: Semiring) -> Tensor:
     return sr.segment_reduce(prod, a.seg_ids, m)
 
 
+def spmv_bsr_ref(a: BSRMatrix, x: Tensor, sr: Semiring) -> Tensor:
+    """Plain tile fold over the CSR-of-tiles list: block row i ⊕-folds its
+    stored tiles' dense matvecs in tile order; pad tiles are not read."""
+    ptr = a.tile_row_ptr.long()
+    cols = a.tile_cols.long()
+    y = fold_rows(a.tiles, ptr[1:] - ptr[:-1], lambda rows, j: ptr[rows] + j,
+                  lambda rows, j: cols[ptr[rows] + j], x, sr)
+    return y.reshape(-1)
+
+
 def spmv(a, x: Tensor, sr: Semiring, impl: str = "auto") -> Tensor:
     if isinstance(a, COOMatrix):
         return spmv_coo(a, x, sr)
     if isinstance(a, CSRMatrix):
         return spmv_csr(a, x, sr)
+    if isinstance(a, BSRMatrix):
+        return spmv_bsr_ref(a, x, sr)
     if isinstance(a, PaddedBSR):
         from repro_torch.kernels import ops
 
         if impl == "ref":
             return ops.semiring_spmv_ref(a, x, sr)
         if impl == "fused":
-            raise NotImplementedError(
-                "impl='fused' waits for the fused tile kernels (ROADMAP §2, kernel 3)")
+            return ops.semiring_spmv_fused(a, x, sr)
         return ops.semiring_spmv(a, x, sr)
     raise TypeError(type(a))

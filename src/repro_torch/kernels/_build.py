@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("semiring_spmv.cu", "spmspv_tiles.cu")
+SOURCES = ("semiring_spmv.cu", "spmspv_tiles.cu", "semiring_spmv_fused.cu",
+           "semiring_spmv_sell.cu", "spmspv_fused.cu")
 HEADERS = ("tile_fold.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -77,12 +78,14 @@ def build_all() -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def tile_kernel(source: str, symbol: str):
-    """The C entry point ``symbol`` of ``source``, built if needed. Every
-    tile kernel takes (tiles, index, x, y, mb, T, bm, bn, semiring code,
-    stream) and returns the launch's cudaError_t."""
+def tile_kernel(source: str, symbol: str, n_index: int = 1):
+    """The C entry point ``symbol`` of ``source``, built if needed. A tile
+    kernel takes (tiles, ``n_index`` index arrays, x, y, mb, T, bm, bn,
+    semiring code, stream) and returns the launch's cudaError_t. The sell
+    kernel has two index arrays (tile_cols, row_meta) and takes slot_total
+    as T; the others have one."""
     build_all()
     fn = getattr(ctypes.CDLL(str(_target(source))), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * (3 + n_index) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

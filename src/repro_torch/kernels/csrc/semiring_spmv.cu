@@ -21,6 +21,6 @@
 extern "C" int semiring_spmv_padded(const void* tiles, const void* tile_cols,
                                     const void* x, void* y, int mb, int t_slots,
                                     int bm, int bn, int sr_code, void* stream) {
-  return tilefold::launch<false>(tiles, tile_cols, x, y, mb, t_slots, bm, bn, sr_code,
-                                 static_cast<cudaStream_t>(stream));
+  return tilefold::launch<tilefold::kEll>(tiles, tile_cols, nullptr, x, y, mb, t_slots, bm, bn,
+                                          sr_code, static_cast<cudaStream_t>(stream));
 }

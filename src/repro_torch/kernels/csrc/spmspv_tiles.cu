@@ -21,6 +21,6 @@
 extern "C" int semiring_spmspv_padded(const void* tiles, const void* meta,
                                       const void* x, void* y, int mb, int t_slots,
                                       int bm, int bn, int sr_code, void* stream) {
-  return tilefold::launch<true>(tiles, meta, x, y, mb, t_slots, bm, bn, sr_code,
-                                static_cast<cudaStream_t>(stream));
+  return tilefold::launch<tilefold::kActive>(tiles, meta, nullptr, x, y, mb, t_slots, bm, bn,
+                                             sr_code, static_cast<cudaStream_t>(stream));
 }

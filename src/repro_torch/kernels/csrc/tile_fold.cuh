@@ -1,11 +1,21 @@
-// Shared device code of the two tile kernels (semiring_spmv.cu,
-// spmspv_tiles.cu): the five semirings and the per-block-row fold.
+// Shared device code of the tile kernels (semiring_spmv.cu,
+// spmspv_tiles.cu, semiring_spmv_fused.cu, semiring_spmv_sell.cu,
+// spmspv_fused.cu): the five semirings and the per-block-row fold.
 //
-// Layout (ELL-of-tiles, repro_torch.core.formats.PaddedBSR):
-//   tiles     T_val [mb, T, bm, bn]  pad slots hold the ⊕-identity tile
-//   tile_cols int32 [mb, T]          (SpMV) tile-column of every slot
-//   meta      int32 [mb, 1 + 2T]     (SpMSpV) n_active | slot permutation |
-//                                    tile-column of every permuted slot
+// Layouts (Layout below):
+//   kEll     tiles T_val [mb, T, bm, bn]  ELL-of-tiles (PaddedBSR), pad
+//            slots hold the ⊕-identity tile; index int32 [mb, T], the
+//            tile-column of every slot; all T slots are folded
+//   kActive  the same tiles; index int32 [mb, 1 + 2T] = n_active | slot
+//            permutation | tile-column of every permuted slot; the first
+//            n_active permuted slots are folded
+//   kReal    the same tiles; index int32 [mb, 1 + T] = n_real | tile_cols;
+//            the first n_real slots are folded
+//   kSell    tiles T_val [slot_total, bm, bn] flat (SlicedELL); index
+//            int32 [slot_total], the tile-column of every slot; row_meta
+//            int32 [mb, 3] = (out_block, base, n_real) in compute order:
+//            grid row i folds tiles[base : base + n_real] into output
+//            block out_block
 //   x         T_val [nb * bn]        dense input vector
 //   y         T_val [mb * bm]        output
 //
@@ -17,7 +27,9 @@
 // tile row is owned by one warp, which folds the row's slots in slot order
 // into a register accumulator: no atomics, no shared memory, and the
 // result does not depend on scheduling. Slots are taken kUnroll at a time
-// so a warp keeps that many tile-row loads in flight.
+// so a warp keeps that many tile-row loads in flight. Every layout folds a
+// slot's tile row the same way, so two layouts that list the same tiles in
+// the same order give bit-identical rows.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -112,13 +124,14 @@ constexpr int kThreads = 256;       // 8 warps per block
 constexpr int kRowsPerBlock = 16;   // tile rows per block (2 per warp)
 constexpr int kUnroll = 8;          // slots in flight per warp
 
-// SPARSE = false: SpMV, slots 0..T-1 in order, columns from tile_cols.
-// SPARSE = true:  SpMSpV, the first n_active permuted slots from meta.
+enum Layout { kEll = 0, kActive = 1, kReal = 2, kSell = 3 };
+
 // ONE_CHUNK: bn / VEC <= 32, so each lane reads at most one chunk per row.
-template <int SR, int VEC, bool SPARSE, bool ONE_CHUNK>
+template <int SR, int VEC, int LAYOUT, bool ONE_CHUNK>
 __global__ void __launch_bounds__(kThreads)
 tile_fold_kernel(const typename Ops<SR>::T* __restrict__ tiles,
                  const int* __restrict__ index,
+                 const int* __restrict__ row_meta,
                  const typename Ops<SR>::T* __restrict__ x,
                  typename Ops<SR>::T* __restrict__ y,
                  int t_slots, int bm, int bn) {
@@ -131,14 +144,38 @@ tile_fold_kernel(const typename Ops<SR>::T* __restrict__ tiles,
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
   const int n_chunks = bn / VEC;
-
-  const int* row_index = SPARSE ? index + (size_t)i * (1 + 2 * t_slots)
-                                : index + (size_t)i * t_slots;
-  const int n_slots = SPARSE ? row_index[0] : t_slots;
-  const int* slot_of = SPARSE ? row_index + 1 : nullptr;
-  const int* col_of = SPARSE ? row_index + 1 + t_slots : row_index;
   const size_t tile_elems = (size_t)bm * bn;
-  const T* row_tiles = tiles + (size_t)i * t_slots * tile_elems;
+
+  // Per block row: how many slots, where slot j's tile and column are, and
+  // which output block the row writes. Offsets into the tiles are size_t:
+  // a sell payload can hold more than 2^31 elements.
+  int n_slots, out_block = i;
+  const int* slot_of = nullptr;   // kActive only: the slot permutation
+  const int* col_of;
+  const T* row_tiles;
+  if constexpr (LAYOUT == kSell) {
+    const int* m = row_meta + (size_t)i * 3;
+    out_block = m[0];
+    const int base = m[1];
+    n_slots = m[2];
+    col_of = index + base;
+    row_tiles = tiles + (size_t)base * tile_elems;
+  } else {
+    row_tiles = tiles + (size_t)i * t_slots * tile_elems;
+    if constexpr (LAYOUT == kEll) {
+      n_slots = t_slots;
+      col_of = index + (size_t)i * t_slots;
+    } else if constexpr (LAYOUT == kActive) {
+      const int* m = index + (size_t)i * (1 + 2 * t_slots);
+      n_slots = m[0];
+      slot_of = m + 1;
+      col_of = m + 1 + t_slots;
+    } else {
+      const int* m = index + (size_t)i * (1 + t_slots);
+      n_slots = m[0];
+      col_of = m + 1;
+    }
+  }
 
   const int row0 = static_cast<int>(blockIdx.y) * kRowsPerBlock;
   const int r_end = min(bm, row0 + kRowsPerBlock);
@@ -151,7 +188,7 @@ tile_fold_kernel(const typename Ops<SR>::T* __restrict__ tiles,
         const int j = j0 + u;
         part[u] = O::zero();
         if (j < n_slots) {
-          const int slot = SPARSE ? slot_of[j] : j;
+          const int slot = LAYOUT == kActive ? slot_of[j] : j;
           const V* a = reinterpret_cast<const V*>(
               row_tiles + (size_t)slot * tile_elems + (size_t)r * bn);
           const V* xb = reinterpret_cast<const V*>(x + (size_t)col_of[j] * bn);
@@ -169,47 +206,53 @@ tile_fold_kernel(const typename Ops<SR>::T* __restrict__ tiles,
         if (j0 + u < n_slots) acc = O::add(acc, warp_fold<O>(part[u]));
       }
     }
-    if (lane == 0) y[(size_t)i * bm + r] = acc;
+    if (lane == 0) y[(size_t)out_block * bm + r] = acc;
   }
 }
 
-template <int SR, bool SPARSE>
-int launch_semiring(const void* tiles, const void* index, const void* x, void* y,
-                    int mb, int t_slots, int bm, int bn, cudaStream_t stream) {
+template <int SR, int LAYOUT>
+int launch_semiring(const void* tiles, const void* index, const void* row_meta,
+                    const void* x, void* y, int mb, int t_slots, int bm, int bn,
+                    cudaStream_t stream) {
   using T = typename Ops<SR>::T;
   const T* a = static_cast<const T*>(tiles);
   const int* idx = static_cast<const int*>(index);
+  const int* meta = static_cast<const int*>(row_meta);
   const T* xv = static_cast<const T*>(x);
   T* yv = static_cast<T*>(y);
+  // Every tile row starts at a multiple of bn elements from the tiles'
+  // base pointer (slot · bm · bn + r · bn in every layout), so an aligned
+  // base and bn % 4 == 0 make every row's vector loads aligned.
   const bool vec4 = bn % 4 == 0 &&
       ((reinterpret_cast<uintptr_t>(tiles) | reinterpret_cast<uintptr_t>(x)) % 16) == 0;
   const int n_chunks = vec4 ? bn / 4 : bn;
   const bool one = n_chunks <= 32;
   const dim3 grid(mb, (bm + kRowsPerBlock - 1) / kRowsPerBlock), block(kThreads);
   if (vec4 && one) {
-    tile_fold_kernel<SR, 4, SPARSE, true><<<grid, block, 0, stream>>>(a, idx, xv, yv, t_slots, bm, bn);
+    tile_fold_kernel<SR, 4, LAYOUT, true><<<grid, block, 0, stream>>>(a, idx, meta, xv, yv, t_slots, bm, bn);
   } else if (vec4) {
-    tile_fold_kernel<SR, 4, SPARSE, false><<<grid, block, 0, stream>>>(a, idx, xv, yv, t_slots, bm, bn);
+    tile_fold_kernel<SR, 4, LAYOUT, false><<<grid, block, 0, stream>>>(a, idx, meta, xv, yv, t_slots, bm, bn);
   } else if (one) {
-    tile_fold_kernel<SR, 1, SPARSE, true><<<grid, block, 0, stream>>>(a, idx, xv, yv, t_slots, bm, bn);
+    tile_fold_kernel<SR, 1, LAYOUT, true><<<grid, block, 0, stream>>>(a, idx, meta, xv, yv, t_slots, bm, bn);
   } else {
-    tile_fold_kernel<SR, 1, SPARSE, false><<<grid, block, 0, stream>>>(a, idx, xv, yv, t_slots, bm, bn);
+    tile_fold_kernel<SR, 1, LAYOUT, false><<<grid, block, 0, stream>>>(a, idx, meta, xv, yv, t_slots, bm, bn);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Returns the cudaError_t of the launch (0 = success); an unknown semiring
-// code returns cudaErrorInvalidValue without launching.
-template <bool SPARSE>
-int launch(const void* tiles, const void* index, const void* x, void* y,
-           int mb, int t_slots, int bm, int bn, int sr_code, cudaStream_t stream) {
+// code returns cudaErrorInvalidValue without launching. row_meta is read by
+// kSell only.
+template <int LAYOUT>
+int launch(const void* tiles, const void* index, const void* row_meta, const void* x,
+           void* y, int mb, int t_slots, int bm, int bn, int sr_code, cudaStream_t stream) {
   if (mb == 0 || bm == 0) return 0;
   switch (sr_code) {
-    case kBoolOrAnd: return launch_semiring<kBoolOrAnd, SPARSE>(tiles, index, x, y, mb, t_slots, bm, bn, stream);
-    case kMinPlus: return launch_semiring<kMinPlus, SPARSE>(tiles, index, x, y, mb, t_slots, bm, bn, stream);
-    case kPlusTimes: return launch_semiring<kPlusTimes, SPARSE>(tiles, index, x, y, mb, t_slots, bm, bn, stream);
-    case kMinTimes: return launch_semiring<kMinTimes, SPARSE>(tiles, index, x, y, mb, t_slots, bm, bn, stream);
-    case kPlusAnd: return launch_semiring<kPlusAnd, SPARSE>(tiles, index, x, y, mb, t_slots, bm, bn, stream);
+    case kBoolOrAnd: return launch_semiring<kBoolOrAnd, LAYOUT>(tiles, index, row_meta, x, y, mb, t_slots, bm, bn, stream);
+    case kMinPlus: return launch_semiring<kMinPlus, LAYOUT>(tiles, index, row_meta, x, y, mb, t_slots, bm, bn, stream);
+    case kPlusTimes: return launch_semiring<kPlusTimes, LAYOUT>(tiles, index, row_meta, x, y, mb, t_slots, bm, bn, stream);
+    case kMinTimes: return launch_semiring<kMinTimes, LAYOUT>(tiles, index, row_meta, x, y, mb, t_slots, bm, bn, stream);
+    case kPlusAnd: return launch_semiring<kPlusAnd, LAYOUT>(tiles, index, row_meta, x, y, mb, t_slots, bm, bn, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,25 +1,67 @@
 """Front door of the tile kernels, as ``repro.kernels.ops`` is for the TPU
-kernels: operand preparation (dtype casts, the SpMSpV metadata, the dense
-frontier) and the plain ``*_ref`` counterparts of each kernel call."""
+kernels: operand preparation (dtype casts, the fused and SpMSpV metadata,
+the dense frontier), the plain ``*_ref`` counterparts of the unfused
+calls, and the bytes each kernel moves (``*_stream_stats``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.core.formats import PaddedBSR
+from repro_torch.core.formats import PaddedBSR, SlicedELL
 from repro_torch.core.semiring import Semiring
 from repro_torch.core.spmspv import Frontier
 from repro_torch.kernels import ref
-from repro_torch.kernels.semiring_spmv import semiring_spmv_padded
-from repro_torch.kernels.spmspv_tiles import semiring_spmspv_padded
+from repro_torch.kernels.semiring_spmv import (
+    semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
+)
+from repro_torch.kernels.spmspv_tiles import (
+    semiring_spmspv_fused_padded, semiring_spmspv_padded,
+)
 
 Tensor = torch.Tensor
 
 
 def semiring_spmv(a: PaddedBSR, x: Tensor, sr: Semiring) -> Tensor:
     """y = A ⊕.⊗ x (dense x). x length must be a.shape[1] (padded)."""
-    if x.shape[0] != a.shape[1]:
-        raise ValueError(f"x has {x.shape[0]} entries, the matrix {a.shape[1]} columns")
+    _check_x(x, a.shape)
     return semiring_spmv_padded(a.tiles, a.tile_cols, x.to(sr.dtype).contiguous(), sr=sr)
+
+
+def _check_x(x: Tensor, shape) -> None:
+    if x.shape[0] != shape[1]:
+        raise ValueError(f"x has {x.shape[0]} entries, the matrix {shape[1]} columns")
+
+
+def _ell_n_real(tile_cols: Tensor) -> Tensor:
+    """Real (non-pad) slots per block row, from the metadata alone: the
+    builder stores real tiles first in strictly increasing tile-column order
+    and pads repeat tile-column 0, so n_real = 1 + #strict increases. A row
+    with no real tile comes out as 1: it streams one pad slot."""
+    return (1 + (tile_cols[:, 1:] > tile_cols[:, :-1]).sum(dim=1)).to(torch.int32)
+
+
+def _spmv_fused_meta(a: PaddedBSR) -> Tensor:
+    """int32 [mb, 1+T] = (n_real | tile_cols) for the fused SpMV kernel."""
+    return torch.cat([_ell_n_real(a.tile_cols)[:, None], a.tile_cols], dim=1)
+
+
+def semiring_spmv_fused(a: PaddedBSR, x: Tensor, sr: Semiring,
+                        chunks: int | None = None) -> Tensor:
+    """Fused Load+Kernel SpMV: only each block row's real slots are read.
+    Equal to ``semiring_spmv`` where pad ⊗ x is the ⊕-identity; with
+    ``chunks=d`` the output is chunk-major [d, m/d]."""
+    _check_x(x, a.shape)
+    return semiring_spmv_fused_padded(a.tiles, _spmv_fused_meta(a),
+                                      x.to(sr.dtype).contiguous(), sr=sr, chunks=chunks)
+
+
+def semiring_spmv_sliced(s: SlicedELL, x: Tensor, sr: Semiring,
+                         chunks: int | None = None) -> Tensor:
+    """Fused SpMV over the sell-C-σ layout, output in the original row
+    order."""
+    _check_x(x, s.shape)
+    return semiring_spmv_sell(s.tiles, s.tile_cols, s.row_meta, x.to(sr.dtype).contiguous(),
+                              sr=sr, chunks=chunks)
 
 
 def _spmspv_meta(a: PaddedBSR, f: Frontier, sr: Semiring) -> Tensor:
@@ -58,6 +100,14 @@ def semiring_spmspv(a: PaddedBSR, f: Frontier, sr: Semiring) -> Tensor:
                                   _dense_frontier(a, f, sr), sr=sr)
 
 
+def semiring_spmspv_fused(a: PaddedBSR, f: Frontier, sr: Semiring,
+                          chunks: int | None = None) -> Tensor:
+    """Fused SpMSpV: ``semiring_spmspv``'s function through the fused
+    kernel, optionally chunk-major."""
+    return semiring_spmspv_fused_padded(a.tiles, _spmspv_meta(a, f, sr),
+                                        _dense_frontier(a, f, sr), sr=sr, chunks=chunks)
+
+
 def semiring_spmv_ref(a: PaddedBSR, x: Tensor, sr: Semiring) -> Tensor:
     return ref.spmv_padded_ref(a.tiles, a.tile_cols, x.to(sr.dtype), sr)
 
@@ -65,3 +115,77 @@ def semiring_spmv_ref(a: PaddedBSR, x: Tensor, sr: Semiring) -> Tensor:
 def semiring_spmspv_ref(a: PaddedBSR, f: Frontier, sr: Semiring) -> Tensor:
     return ref.spmspv_padded_ref(a.tiles, _spmspv_meta(a, f, sr),
                                  _dense_frontier(a, f, sr), sr)
+
+
+# ---------------------------------------------------------------------------
+# Bytes each kernel moves, counted on the host from the metadata that drives
+# it, as the JAX package counts them for the TPU: the unfused kernels move a
+# tile per grid step and an x block whenever its index changes between
+# consecutive steps; the fused kernels move each real (or active) tile once
+# and x once. Useful operations are one ⊗ and one ⊕ per element of every
+# real slot. ``fused_bytes`` is the bytes bound of kernels 3, 4 and 5.
+# ---------------------------------------------------------------------------
+
+
+def _block_changes(idx: np.ndarray) -> int:
+    """Copies for a sequence of per-step block indices [steps, k]: one for
+    the first step plus one per change between consecutive steps."""
+    if idx.shape[0] == 0:
+        return 0
+    return 1 + int(np.any(idx[1:] != idx[:-1], axis=1).sum())
+
+
+def _stream_stats(tile_dmas_unfused: int, x_dmas_unfused: int,
+                  tile_dmas_fused: int, x_elems_fused: int,
+                  real_slots: int, mb: int, block, esize: int) -> dict:
+    bm, bn = block
+    tile_b = bm * bn * esize
+    y_b = mb * bm * esize
+    ops = 2 * real_slots * bm * bn
+    unfused_b = tile_dmas_unfused * tile_b + x_dmas_unfused * bn * esize + y_b
+    fused_b = tile_dmas_fused * tile_b + x_elems_fused * esize + y_b
+    return {
+        "ops": ops,
+        "unfused_bytes": unfused_b,
+        "fused_bytes": fused_b,
+        "unfused_ai": ops / max(1, unfused_b),
+        "fused_ai": ops / max(1, fused_b),
+        "bytes_saved": unfused_b - fused_b,
+    }
+
+
+def spmv_stream_stats(a: PaddedBSR) -> dict:
+    """Bytes moved by the unfused against the fused SpMV on this matrix."""
+    mb, t = a.tile_cols.shape
+    cols = a.tile_cols.cpu().numpy()
+    real = int(_ell_n_real(a.tile_cols).sum())
+    return _stream_stats(mb * t, _block_changes(cols.reshape(-1, 1)), real,
+                         a.shape[1] // a.block[1] * a.block[1], real, mb, a.block,
+                         a.tiles.element_size())
+
+
+def sell_stream_stats(s: SlicedELL, a: PaddedBSR) -> dict:
+    """The fused sell-C-σ SpMV against the unfused ELL kernel on the same
+    edge list."""
+    mb, t = a.tile_cols.shape
+    cols = a.tile_cols.cpu().numpy()
+    real = s.real_slots
+    return _stream_stats(mb * t, _block_changes(cols.reshape(-1, 1)), real, s.shape[1],
+                         real, mb, s.block, s.tiles.element_size())
+
+
+def spmspv_stream_stats(a: PaddedBSR, f: Frontier, sr: Semiring) -> dict:
+    """Bytes moved by the unfused against the fused SpMSpV for this
+    frontier. The unfused TPU kernel's masked steps re-read a resident slot,
+    so its copies follow the block-change rule on the permuted slots."""
+    mb, t = a.tile_cols.shape
+    meta = _spmspv_meta(a, f, sr).cpu().numpy()
+    n_active = meta[:, 0]
+    perm, cols_p = meta[:, 1:1 + t], meta[:, 1 + t:]
+    ok = np.arange(t)[None, :] < n_active[:, None]
+    slot_seq = np.where(ok, perm, perm[:, :1])
+    tile_idx = np.stack([np.repeat(np.arange(mb), t), slot_seq.reshape(-1)], 1)
+    x_seq = np.where(ok, cols_p, cols_p[:, :1]).reshape(-1, 1)
+    active = int(n_active.sum())
+    return _stream_stats(_block_changes(tile_idx), _block_changes(x_seq), active, a.shape[1],
+                         active, mb, a.block, a.tiles.element_size())

@@ -7,6 +7,7 @@ counterpart).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.semiring import Semiring
@@ -30,7 +31,8 @@ def spmv_padded_ref(tiles: Tensor, tile_cols: Tensor, x: Tensor, sr: Semiring) -
 def spmspv_padded_ref(tiles: Tensor, meta: Tensor, x: Tensor, sr: Semiring) -> Tensor:
     """Frontier-filtered fold. meta int32 [mb, 1+2T] = (n_active,
     slot permutation, permuted tile-cols); only the first n_active
-    permuted slots of each row contribute."""
+    permuted slots of each row contribute. The plain version of both
+    SpMSpV kernels: the fused one computes the same function."""
     mb, t, bm, bn = tiles.shape
     x_blocks = x.view(-1, bn).to(sr.dtype)
     n_active = meta[:, 0]
@@ -44,3 +46,48 @@ def spmspv_padded_ref(tiles: Tensor, meta: Tensor, x: Tensor, sr: Semiring) -> T
         contrib = sr.add_reduce(sr.mul(a, x_blocks[cols[:, j]][:, None, :]), dim=2)
         y = torch.where((j < n_active)[:, None], sr.add(y, contrib), y)
     return y.reshape(-1).to(x.dtype)
+
+
+def fold_rows(tiles: Tensor, n: Tensor, slot, col, x: Tensor, sr: Semiring) -> Tensor:
+    """y [mb, bm]: row i ⊕-folds tiles[slot(i, j)] ⊗ x_block[col(i, j)]
+    for j < n[i], in j order. tiles [S, bm, bn] flat; ``slot`` and ``col``
+    map (rows, j) to int64 indices. Rows are taken longest first, so the
+    rows still folding at step j are a prefix and each step gathers only
+    their tiles: no padded copy of the matrix is made."""
+    _, bm, bn = tiles.shape
+    mb = n.shape[0]
+    x_blocks = x.view(-1, bn).to(sr.dtype)
+    y = torch.full((mb, bm), sr.zero, dtype=sr.dtype, device=tiles.device)
+    order = torch.argsort(n, descending=True, stable=True)
+    live = np.bincount(n.cpu().numpy().astype(np.int64), minlength=1)[::-1].cumsum()[::-1]
+    for j in range(1, live.shape[0]):
+        rows = order[: int(live[j])]
+        contrib = sr.add_reduce(sr.mul(tiles[slot(rows, j - 1)],
+                                       x_blocks[col(rows, j - 1)][:, None, :]), dim=2)
+        y[rows] = sr.add(y[rows], contrib)
+    return y
+
+
+def spmv_fused_padded_ref(tiles: Tensor, meta: Tensor, x: Tensor, sr: Semiring) -> Tensor:
+    """Plain version of the fused SpMV: meta int32 [mb, 1+T] = (n_real |
+    tile_cols); only the first n_real slots of each row are folded."""
+    mb, t, bm, bn = tiles.shape
+    cols = meta[:, 1:].long()
+    y = fold_rows(tiles.reshape(-1, bm, bn), meta[:, 0],
+                  lambda rows, j: rows * t + j, lambda rows, j: cols[rows, j], x, sr)
+    return y.reshape(-1).to(x.dtype)
+
+
+def spmv_sell_ref(tiles: Tensor, tile_cols: Tensor, row_meta: Tensor, x: Tensor,
+                  sr: Semiring) -> Tensor:
+    """Plain version of the sell-C-σ SpMV: tiles [slot_total, bm, bn];
+    row_meta int32 [mb, 3] = (out_block, base, n_real) in compute order.
+    Row i folds tiles[base : base + n_real] and lands in block out_block;
+    a row with n_real = 0 is the ⊕-identity. Offsets are int64."""
+    base = row_meta[:, 1].long()
+    cols = tile_cols.long()
+    y = fold_rows(tiles, row_meta[:, 2], lambda rows, j: base[rows] + j,
+                  lambda rows, j: cols[base[rows] + j], x, sr)
+    out = torch.empty_like(y)
+    out[row_meta[:, 0].long()] = y
+    return out.reshape(-1).to(x.dtype)

@@ -1,12 +1,19 @@
-"""Wrapper of the CUDA tile SpMV kernel (``csrc/semiring_spmv.cu``), the
-port of the TPU kernel ``repro.kernels.semiring_spmv.semiring_spmv_padded``.
+"""Wrappers of the CUDA tile SpMV kernels, the ports of the TPU kernels in
+``repro.kernels.semiring_spmv``:
 
-y = A ⊕.⊗ x over the ELL-of-tiles layout: for each block row, every one of
-the T slots (pads included) is ⊕-folded in slot order.
+* ``semiring_spmv_padded`` (``csrc/semiring_spmv.cu``): y = A ⊕.⊗ x over
+  the ELL-of-tiles layout; every one of a block row's T slots, pads
+  included, is ⊕-folded in slot order.
+* ``semiring_spmv_fused_padded`` (``csrc/semiring_spmv_fused.cu``): the
+  same layout, only the first n_real slots of each row.
+* ``semiring_spmv_sell`` (``csrc/semiring_spmv_sell.cu``): the sell-C-σ
+  layout, each row's real tiles only, written to its permuted output block.
 
-On a CUDA tensor the wrapper launches the kernel on the current stream or
+On a CUDA tensor a wrapper launches its kernel on the current stream or
 raises; on a CPU tensor it runs the plain version from ``kernels/ref.py``.
-``semiring_spmv_padded.launches`` counts the kernel launches.
+Each wrapper's ``.launches`` counts its kernel launches. With ``chunks=d``
+the fused wrappers return the output chunk-major, [d, m/d]: the flat
+output's memory order, viewed.
 """
 from __future__ import annotations
 
@@ -18,43 +25,68 @@ from repro_torch.kernels import _build, ref
 Tensor = torch.Tensor
 
 
-def check_tile_operands(name: str, tiles: Tensor, index: Tensor, index_cols: int,
-                        x: Tensor, sr: Semiring) -> None:
-    """Raise unless the operands are what a tile kernel takes: one device,
-    contiguous, ``sr.dtype`` payloads, an int32 index of ``index_cols``
-    columns per block row, and x a whole number of column blocks."""
-    if tiles.dim() != 4:
-        raise ValueError(f"{name}: tiles must be [mb, T, bm, bn], got {tuple(tiles.shape)}")
-    mb, _, _, bn = tiles.shape
-    if tiles.dtype != sr.dtype or x.dtype != sr.dtype:
-        raise TypeError(f"{name}: tiles and x must be {sr.dtype} for {sr.name}, "
-                        f"got {tiles.dtype} and {x.dtype}")
-    if index.dtype != torch.int32 or tuple(index.shape) != (mb, index_cols):
-        raise ValueError(f"{name}: index must be int32 [{mb}, {index_cols}], "
-                         f"got {index.dtype} {tuple(index.shape)}")
+def _check_payload(name: str, tiles: Tensor, indices: tuple[Tensor, ...], x: Tensor) -> None:
+    bn = tiles.shape[-1]
     if x.dim() != 1 or x.shape[0] % bn:
         raise ValueError(f"{name}: x must be 1-D with a multiple of bn={bn} entries, "
                          f"got {tuple(x.shape)}")
-    if not (tiles.device == index.device == x.device):
-        raise ValueError(f"{name}: operands on {tiles.device}, {index.device}, {x.device}")
-    if not (tiles.is_contiguous() and index.is_contiguous() and x.is_contiguous()):
+    tensors = (tiles, *indices, x)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: operands on {', '.join(str(t.device) for t in tensors)}")
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: operands must be contiguous")
-    if max(tiles.shape) >= 2**31 or index.numel() >= 2**31:
+    if max(tiles.shape) >= 2**31 or max(i.numel() for i in indices) >= 2**31:
         raise ValueError(f"{name}: shapes exceed the kernel's int32 arguments")
 
 
-def launch_tile_kernel(source: str, symbol: str, tiles: Tensor, index: Tensor,
-                       x: Tensor, sr: Semiring) -> Tensor:
-    """Allocate y and launch a tile kernel on the tensors' current stream."""
+def _check_dtypes(name: str, tiles: Tensor, x: Tensor, sr: Semiring) -> None:
+    if tiles.dtype != sr.dtype or x.dtype != sr.dtype:
+        raise TypeError(f"{name}: tiles and x must be {sr.dtype} for {sr.name}, "
+                        f"got {tiles.dtype} and {x.dtype}")
+
+
+def _check_index(name: str, label: str, index: Tensor, shape: tuple[int, ...]) -> None:
+    if index.dtype != torch.int32 or tuple(index.shape) != shape:
+        raise ValueError(f"{name}: {label} must be int32 {list(shape)}, "
+                         f"got {index.dtype} {tuple(index.shape)}")
+
+
+def check_tile_operands(name: str, tiles: Tensor, index: Tensor, index_cols: int,
+                        x: Tensor, sr: Semiring) -> None:
+    """Raise unless the operands are what an ELL-of-tiles kernel takes: one
+    device, contiguous, ``sr.dtype`` payloads [mb, T, bm, bn], an int32
+    index of ``index_cols`` columns per block row, and x a whole number of
+    column blocks."""
+    if tiles.dim() != 4:
+        raise ValueError(f"{name}: tiles must be [mb, T, bm, bn], got {tuple(tiles.shape)}")
+    _check_dtypes(name, tiles, x, sr)
+    _check_index(name, "index", index, (tiles.shape[0], index_cols))
+    _check_payload(name, tiles, (index,), x)
+
+
+def check_chunks(name: str, mb: int, chunks: int | None) -> None:
+    if chunks is not None and (chunks < 1 or mb % chunks):
+        raise ValueError(f"{name}: chunks={chunks} must divide the {mb} block rows")
+
+
+def chunk_major(y: Tensor, chunks: int | None) -> Tensor:
+    """The flat output [mb·bm] as [chunks, mb·bm/chunks] (same memory)."""
+    return y if chunks is None else y.view(chunks, -1)
+
+
+def launch_tile_kernel(source: str, symbol: str, tiles: Tensor, indices: tuple[Tensor, ...],
+                       x: Tensor, sr: Semiring, mb: int, t: int) -> Tensor:
+    """Allocate y [mb·bm] and launch a tile kernel on the tensors' current
+    stream; ``t`` is the kernel's slot argument (T, or slot_total)."""
     if tiles.device.type != "cuda":
         raise ValueError(f"{symbol}: no kernel for device {tiles.device}")
-    mb, t, bm, bn = tiles.shape
+    bm, bn = tiles.shape[-2:]
     y = torch.empty(mb * bm, dtype=sr.dtype, device=tiles.device)
-    fn = _build.tile_kernel(source, symbol)
+    fn = _build.tile_kernel(source, symbol, len(indices))
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(tiles.data_ptr(), index.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 mb, t, bm, bn, sr.code, stream)
+        err = fn(tiles.data_ptr(), *(i.data_ptr() for i in indices), x.data_ptr(),
+                 y.data_ptr(), mb, t, bm, bn, sr.code, stream)
     if err:
         raise RuntimeError(f"{symbol}: kernel launch failed with cudaError_t {err}")
     return y
@@ -67,9 +99,55 @@ def semiring_spmv_padded(tiles: Tensor, tile_cols: Tensor, x: Tensor, *,
     check_tile_operands("semiring_spmv_padded", tiles, tile_cols, tiles.shape[1], x, sr)
     if tiles.device.type == "cpu":
         return ref.spmv_padded_ref(tiles, tile_cols, x, sr)
-    y = launch_tile_kernel("semiring_spmv.cu", "semiring_spmv_padded", tiles, tile_cols, x, sr)
+    y = launch_tile_kernel("semiring_spmv.cu", "semiring_spmv_padded", tiles, (tile_cols,), x,
+                           sr, *tiles.shape[:2])
     semiring_spmv_padded.launches += 1
     return y
 
 
 semiring_spmv_padded.launches = 0
+
+
+def semiring_spmv_fused_padded(tiles: Tensor, meta: Tensor, x: Tensor, *, sr: Semiring,
+                               chunks: int | None = None) -> Tensor:
+    """y = A ⊕.⊗ x over the first n_real slots of each block row only.
+    tiles [mb, T, bm, bn]; meta int32 [mb, 1+T] = (n_real | tile_cols), as
+    ``ops._spmv_fused_meta`` builds it; y [mb·bm], or [chunks, mb·bm/chunks]."""
+    name = "semiring_spmv_fused_padded"
+    check_tile_operands(name, tiles, meta, 1 + tiles.shape[1], x, sr)
+    check_chunks(name, tiles.shape[0], chunks)
+    if tiles.device.type == "cpu":
+        return chunk_major(ref.spmv_fused_padded_ref(tiles, meta, x, sr), chunks)
+    y = launch_tile_kernel("semiring_spmv_fused.cu", name, tiles, (meta,), x, sr,
+                           *tiles.shape[:2])
+    semiring_spmv_fused_padded.launches += 1
+    return chunk_major(y, chunks)
+
+
+semiring_spmv_fused_padded.launches = 0
+
+
+def semiring_spmv_sell(tiles: Tensor, tile_cols: Tensor, row_meta: Tensor, x: Tensor, *,
+                       sr: Semiring, chunks: int | None = None) -> Tensor:
+    """y = A ⊕.⊗ x over the sell-C-σ layout: tiles [slot_total, bm, bn];
+    tile_cols int32 [slot_total]; row_meta int32 [mb, 3] = (out_block,
+    base, n_real) in compute order, as ``core.formats.build_sell`` builds
+    it. y comes back in the original row order: [mb·bm], or chunk-major."""
+    name = "semiring_spmv_sell"
+    if tiles.dim() != 3:
+        raise ValueError(f"{name}: tiles must be [slot_total, bm, bn], got {tuple(tiles.shape)}")
+    _check_dtypes(name, tiles, x, sr)
+    _check_index(name, "tile_cols", tile_cols, (tiles.shape[0],))
+    _check_index(name, "row_meta", row_meta, (row_meta.shape[0], 3))
+    _check_payload(name, tiles, (tile_cols, row_meta), x)
+    mb = row_meta.shape[0]
+    check_chunks(name, mb, chunks)
+    if tiles.device.type == "cpu":
+        return chunk_major(ref.spmv_sell_ref(tiles, tile_cols, row_meta, x, sr), chunks)
+    y = launch_tile_kernel("semiring_spmv_sell.cu", name, tiles, (tile_cols, row_meta), x, sr,
+                           mb, tiles.shape[0])
+    semiring_spmv_sell.launches += 1
+    return chunk_major(y, chunks)
+
+
+semiring_spmv_sell.launches = 0

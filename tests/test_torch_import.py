@@ -51,8 +51,10 @@ def test_no_jax_or_repro_import(path):
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
-    from repro_torch.convert import padded_bsr_from_numpy
-    from repro_torch.core import PLUS_TIMES, build_bsr_padded, build_csr
+    from repro_torch.convert import bsr_from_numpy, padded_bsr_from_numpy, sliced_ell_from_numpy
+    from repro_torch.core import (
+        PLUS_TIMES, autotune_sell, build_bsr, build_bsr_padded, build_csr, build_sell,
+    )
     from repro_torch.graphs import build_engine, generate
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -70,6 +72,18 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         padded_bsr_from_numpy(np.zeros((1, 1, 2, 2), np.float32), np.zeros((1, 1), np.int32),
                               (2, 2), (2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_sell(rows, cols, vals, (g.n, g.n), PLUS_TIMES)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autotune_sell(rows, cols, vals, (g.n, g.n), PLUS_TIMES)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_bsr(rows, cols, vals, (g.n, g.n), PLUS_TIMES)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sliced_ell_from_numpy(np.zeros((1, 2, 2), np.float32), np.zeros(1, np.int32),
+                              np.zeros((1, 3), np.int32), (2, 2), (2, 2), 1, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bsr_from_numpy(np.zeros((1, 2, 2), np.float32), np.zeros(1, np.int32),
+                       np.zeros(2, np.int32), (2, 2), (2, 2))
     eng = build_engine(g, PLUS_TIMES, device="cpu")
     assert eng.device.type == "cpu"
 

@@ -148,18 +148,6 @@ def test_element_formats_match_jax(name):
         assert_match(spmspv(tm, tf, tsr), jspmspv.spmspv(jm, jf, jsr), name)
 
 
-def test_fused_impl_is_not_ported_yet():
-    from repro_torch.core.spmspv import spmspv
-
-    _, ta, x, _ = problem("bool_or_and", (16, 16))
-    sr = tsemiring.BOOL_OR_AND
-    xp = torch.from_numpy(padded(x, ta.shape[1], 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmv(ta, xp, sr, impl="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmspv(ta, tspmspv.frontier_from_dense(xp, sr), sr, impl="fused")
-
-
 @pytest.mark.parametrize("name", NAMES)
 def test_semiring_ops_match_jax(name):
     """add_reduce, segment_reduce (empty segments come back as zero) and
