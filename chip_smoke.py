@@ -32,14 +32,31 @@ Phases:
      ELL-of-tiles copy (106 GB) does not fit the card: kernel 4 for ⟨+,×⟩
      on integer values, equal to a numpy integer oracle, and for ⟨∨,∧⟩,
      equal to the CSR SpMV; both also held to the plain version.
+  9. Masked tile SpGEMM (kernel 6) against its plain version on full-size
+     ca-Q (n=5,242): A its adjacency, B dense [n, n] and a mask of density
+     0.4, in each semiring's safe domain, masked and unmasked, at 16×16,
+     64×64 and 128×128 tiles, plus a case for ⟨+,×⟩ and ⟨min,×⟩ where the
+     pad products are NaN. Exact (NaN where NaN) for the integer and min
+     semirings, ⟨+,×⟩ within rtol 1e-5, atol 1e-6. Kernel and plain times
+     on the 64×64 ⟨+,∧⟩ masked case.
+ 10. Whole-graph analytics on full-size cit-HP: ``triangle_count(impl=
+     "bsr", block=(64, 64))`` (total equal to ``triangle_reference``,
+     per-edge counts equal to scipy's exact (L·Lᵀ) ⊙ L and to the dense
+     fp32 matmul yardstick), and through ``build_engine(fmt="bsr")``
+     connected components (⟨min,×⟩, equal to ``cc_reference``), k-core
+     (⟨+,×⟩, equal to ``kcore_reference``) and PageRank (within rtol
+     1e-3, atol 1e-6 of ``pagerank_reference``). Per app: wall ms,
+     iterations, launches of kernels 1 and 6, peak memory. Kernel 6's time
+     (median of 3), bound and the matmul's time on the triangle operands.
 
-Launch counters: all five are set to 0 before phase 3 and kernels 1–2
-read after phase 4. In phases 6–8 every call of the fused path runs with
-all five counters set to 0 just before it and read just after; the
-comparisons and timings in between are not counted. The run fails unless
-kernels 1–2 launched in phases 3–4 and kernels 3–5 in phases 6–8. Any
-mismatch raises, so the run exits non-zero without the final
-``{"ok": true, ...}`` line.
+Launch counters: all six are set to 0 before phase 3 and kernels 1–2
+read after phase 4. In phases 6–8 every call of the fused path, and in
+phase 10 every app, runs with all six counters set to 0 just before it
+and read just after; the comparisons and timings in between are not
+counted. The run fails unless kernels 1–2 launched in phases 3–4, kernels
+3–5 in phases 6–8, kernel 6 on phase 10's triangle path and kernel 1 on
+its CC and k-core paths. Any mismatch raises, so the run exits non-zero
+without the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -53,6 +70,9 @@ from pathlib import Path
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+# H100 SXM int32 on the CUDA cores: 64 INT32 lanes per SM per clock
+# (Hopper architecture white paper) × 132 SMs × 1.98 GHz
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 DENSITIES = (0.001, 0.05, 0.6)
 RTX_MAX_ITERS = 256
 
@@ -71,22 +91,26 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
+    import scipy.sparse
 
     from repro_torch.core import (
         SEMIRINGS, autotune_sell, build_bsr_padded, build_csr, frontier_from_dense, spmspv,
         spmv, spmv_csr,
     )
-    from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, PLUS_TIMES
+    from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, MIN_TIMES, PLUS_AND, PLUS_TIMES
     from repro_torch.graphs import (
-        bfs, bfs_reference, build_engine, generate, largest_component_source, ppr,
-        ppr_reference, sssp, sssp_reference, trained_stump,
+        bfs, bfs_reference, build_engine, cc_reference, connected_components, generate, kcore,
+        kcore_reference, largest_component_source, pagerank, pagerank_reference, ppr,
+        ppr_reference, sssp, sssp_reference, trained_stump, triangle_count, triangle_reference,
     )
+    from repro_torch.graphs.analytics import lower_triangle, triangle_problem
     from repro_torch.graphs.engine import edge_values
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.graphs.cost_model import kernel_stream_cost
     from repro_torch.kernels.semiring_spmv import (
         semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
     )
+    from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
     from repro_torch.kernels.spmspv_tiles import (
         semiring_spmspv_fused_padded, semiring_spmspv_padded,
     )
@@ -95,7 +119,7 @@ def main() -> int:
     kernels = (semiring_spmv_padded, semiring_spmspv_padded)
     fused_kernels = (semiring_spmv_fused_padded, semiring_spmv_sell,
                      semiring_spmspv_fused_padded)
-    all_kernels = kernels + fused_kernels
+    all_kernels = kernels + fused_kernels + (semiring_spgemm_padded,)
 
     # ---------------------------------------------------------------- 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -112,9 +136,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    def time_ms(fn, reps: int = 10) -> float:
+    def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         """Median of ``reps`` single-call CUDA-event timings after warm-up."""
-        for _ in range(2):
+        for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         ts = []
@@ -128,12 +152,15 @@ def main() -> int:
             ts.append(start.elapsed_time(end))
         return statistics.median(ts)
 
-    def compare(y, y_plain, sr, what: str) -> float:
-        """Hold a kernel output to its plain version; max |diff| over
-        entries finite in both."""
+    def compare(y, y_plain, sr, what: str, nan: bool = False) -> float:
+        """Hold a kernel output to its plain version (``nan``: NaN where it
+        is NaN); max |diff| over entries finite in both."""
         torch.cuda.synchronize()
         if sr.name == "plus_times":
             torch.testing.assert_close(y, y_plain, rtol=1e-5, atol=1e-6, equal_nan=True,
+                                       msg=lambda m: f"{what}: {m}")
+        elif nan:
+            torch.testing.assert_close(y, y_plain, rtol=0, atol=0, equal_nan=True,
                                        msg=lambda m: f"{what}: {m}")
         else:
             check(torch.equal(y, y_plain), f"{what}: kernel differs from the plain version")
@@ -176,10 +203,10 @@ def main() -> int:
         xs[~keep] = sr.zero
         return xs
 
-    def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    def bound(nbytes: int, ops: int, rate: float = FP32_OPS_PER_S) -> tuple[float, str]:
         """Least time for the work, in ms, and what sets it: the bytes over
-        the memory rate or the operations over the fp32 rate."""
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        the memory rate or the operations over ``rate`` (fp32 by default)."""
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
     def library_bsr(a, sr):
@@ -499,6 +526,176 @@ def main() -> int:
         check(tally[k.__name__] > 0, f"{k.__name__} was not launched on the fused path")
         launches[k.__name__] = tally[k.__name__]
 
+    # ---------------------------------------------------------------- 9
+    def spgemm_bound(a, bp, mk, meta, sr) -> tuple[float, str, int]:
+        """Bound of one masked tile SpGEMM: tiles, meta, the active list, B,
+        the mask and the output once each, against 2 operations per ⊗/⊕
+        pair over every slot (pads included) of every active output tile,
+        at the int32 or fp32 rate of the CUDA cores."""
+        mb, t, bm, bk = a.tiles.shape
+        n_active = int(meta[:, t:].sum())
+        nbytes = 4 * (a.tiles.numel() + meta.numel() + 2 * n_active + bp.numel() + 2 * mk.numel())
+        rate = INT32_OPS_PER_S if sr.dtype == torch.int32 else FP32_OPS_PER_S
+        return (*bound(nbytes, 2 * n_active * t * bm * bk * bm, rate), n_active)
+
+    def spgemm_domain(sr, n: int, gen):
+        """A's values, a dense B [n, n] and a mask [n, n] of density 0.4 in
+        the semiring's safe domain, as tests/test_spgemm.py::make_problem
+        makes them (min_times operands stay strictly positive)."""
+        def u():
+            return torch.rand((n, n), generator=gen, device=dev)
+
+        if sr.collective == "pmin":
+            vals = rng.integers(1, 9, caq.nnz).astype(np.float32)
+            b = torch.randint(1, 9, (n, n), generator=gen, device=dev).float()
+            mask = torch.where(u() < 0.4, 1.0, float("inf"))
+        elif sr.dtype == torch.int32:
+            vals = np.ones(caq.nnz, np.int32)
+            b, mask = (u() < 0.4).int(), (u() < 0.4).int()
+        else:
+            vals = rng.random(caq.nnz).astype(np.float32)
+            b, mask = u(), (u() < 0.4).float()
+        return vals, b, mask
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst["semiring_spgemm_padded"] = 0.0
+    for name, sr in SEMIRINGS.items():
+        vals, b, mask = spgemm_domain(sr, caq.n, gen)
+        for block in ((16, 16), (64, 64), (128, 128)):
+            a = build_bsr_padded(caq.rows.astype(np.int32), caq.cols.astype(np.int32), vals,
+                                 (caq.n, caq.n), sr, block=block, device=dev)
+            bpad = torch.full((a.shape[1], caq.n), sr.one, dtype=sr.dtype, device=dev)
+            bpad[: caq.n] = b
+            mpad = torch.full((a.shape[0], caq.n), sr.zero, dtype=sr.dtype, device=dev)
+            mpad[: caq.n] = mask
+            cases = [("masked", bpad, mpad), ("unmasked", bpad, None)]
+            if name in ("plus_times", "min_times") and block == (64, 64):
+                # a row of B under tile-column 0 where pad ⊗ b is NaN
+                bnan = bpad.clone()
+                bnan[3, ::7] = float("inf") if name == "plus_times" else 0.0
+                cases.append(("pad-nan", bnan, mpad))
+            for label, bb, mm in cases:
+                bp, mk, meta, bn, _ = ops._spgemm_operands(a, bb, sr, mm)
+                y = semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr, bn=bn)
+                y_plain = ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn)
+                what = f"spgemm {name} ca-Q {block} {label}"
+                err = compare(y, y_plain, sr, what, nan=label == "pad-nan")
+                worst["semiring_spgemm_padded"] = max(worst["semiring_spgemm_padded"], err)
+                if label == "pad-nan":
+                    check(bool(torch.isnan(y).any()), f"{what}: no NaN")
+                if name == "plus_and" and block == (64, 64) and label == "masked":
+                    bound_ms, bound_by, n_active = spgemm_bound(a, bp, mk, meta, sr)
+                    row = {"kernel": "semiring_spgemm_padded", "semiring": name, "graph": "ca-Q",
+                           "tiles": list(a.tiles.shape), "n_active": n_active,
+                           "max_abs_err": err,
+                           "ms": time_ms(lambda: semiring_spgemm_padded(a.tiles, meta, bp, mk,
+                                                                        sr=sr, bn=bn)),
+                           "plain_ms": time_ms(lambda: ref.spgemm_padded_ref(a.tiles, meta, bp,
+                                                                            mk, sr, bn), reps=3),
+                           "bound_ms": bound_ms, "bound_by": bound_by}
+                    print(json.dumps(row))
+                    spgemm_plain_ms = row["plain_ms"]
+                del bp, mk, meta, y, y_plain
+            del a, bpad, mpad, cases
+        print(f"phase 9: ca-Q kernel 6 {name}: masked, unmasked at 16x16, 64x64, 128x128 "
+              "match the plain version")
+        del b, mask
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 10
+    torch.backends.cuda.matmul.allow_tf32 = False   # the yardstick matmul in full fp32
+    apps = {}
+
+    def run_app(label, sr, app, **build_kw):
+        """Build the tile-route engine (sr given) or nothing (sr None) and
+        run ``app``, with every launch counter set to 0 just before and read
+        just after."""
+        for k in all_kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = None if sr is None else build_engine(cit, sr, stump, fmt_spmv="bsr",
+                                                   fmt_spmspv="bsr", **build_kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = app(eng)
+        torch.cuda.synchronize()
+        row = {"app": label, "graph": cit.name, "n": cit.n, "nnz": cit.nnz, "build_s": build_s,
+               "wall_ms": (time.perf_counter() - t0) * 1e3,
+               "iterations": getattr(res, "iterations", None),
+               "launches": {k.__name__: k.launches for k in (semiring_spmv_padded,
+                                                             semiring_spgemm_padded)},
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        for k in all_kernels:
+            tally[k.__name__] += k.launches
+        apps[label] = row
+        print(json.dumps(row))
+        del eng
+        torch.cuda.empty_cache()
+        return res
+
+    tally = {k.__name__: 0 for k in all_kernels}
+    tri = run_app("triangle_count", None,
+                  lambda _: triangle_count(cit, impl="bsr", block=(64, 64), device=dev))
+    check(apps["triangle_count"]["launches"]["semiring_spgemm_padded"] > 0,
+          "kernel 6 was not launched on the triangle path")
+    want_total = triangle_reference(cit.rows, cit.cols, cit.n)
+    check(int(tri.total) == want_total,
+          f"cit-HP triangles {int(tri.total)} != triangle_reference {want_total}")
+    lr, lc = lower_triangle(cit)
+    lmat = scipy.sparse.csr_matrix((np.ones(lr.shape[0], np.int64), (lr, lc)),
+                                   shape=(cit.n, cit.n))
+    want = (lmat @ lmat.T).multiply(lmat).tocoo()
+    exact = torch.zeros((cit.n, cit.n), dtype=torch.int32, device=dev)
+    exact[torch.from_numpy(want.row).to(dev).long(), torch.from_numpy(want.col).to(dev).long()] = (
+        torch.from_numpy(want.data.astype(np.int32)).to(dev))
+    check(torch.equal(tri.per_edge, exact), "cit-HP per-edge counts differ from scipy's (L·Lᵀ)⊙L")
+    del exact
+    print(f"phase 10: cit-HP triangle count {want_total} equals triangle_reference; per-edge "
+          f"counts equal scipy's ({want.nnz} nonzero)")
+
+    a, b, mask, _ = triangle_problem(cit, "bsr", (64, 64), device=dev)
+    bp, mk, meta, bn, _ = ops._spgemm_operands(a, b, PLUS_AND, mask)
+    del b, mask
+    bound_ms, bound_by, n_active = spgemm_bound(a, bp, mk, meta, PLUS_AND)
+    tiles_shape = list(a.tiles.shape)
+    spgemm_ms = time_ms(lambda: semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=PLUS_AND, bn=bn),
+                        reps=3, warmup=0)
+    lmat_f, lmat_t = mk[: cit.n, : cit.n].float(), bp[: cit.n, : cit.n].float()
+    del a, bp, mk, meta
+    torch.cuda.empty_cache()
+    check(torch.equal((torch.matmul(lmat_f, lmat_t) * lmat_f).to(torch.int32), tri.per_edge),
+          "the fp32 matmul yardstick differs from the per-edge counts")
+    lib_ms = time_ms(lambda: torch.matmul(lmat_f, lmat_t) * lmat_f, reps=3, warmup=1)
+    del lmat_f, lmat_t, tri
+    torch.cuda.empty_cache()
+    summary["semiring_spgemm_padded"] = {"ms": spgemm_ms, "plain_ms": spgemm_plain_ms,
+                                         "bound_ms": bound_ms, "bound_by": bound_by,
+                                         "library_ms": lib_ms}
+    print(json.dumps({"kernel": "semiring_spgemm_padded", "semiring": "plus_and",
+                      "graph": "cit-HP", "tiles": tiles_shape, "n_active": n_active,
+                      "ms": spgemm_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": lib_ms, "plain_ms_ca_q_64": spgemm_plain_ms}))
+
+    res = run_app("connected_components", MIN_TIMES, connected_components)
+    check(np.array_equal(res.labels.cpu().numpy(), cc_reference(cit.rows, cit.cols, cit.n)),
+          "cit-HP CC labels differ from cc_reference")
+    res = run_app("kcore", PLUS_TIMES, kcore)
+    check(np.array_equal(res.coreness.cpu().numpy(), kcore_reference(cit.rows, cit.cols, cit.n)),
+          "cit-HP coreness differs from kcore_reference")
+    for label in ("connected_components", "kcore"):
+        check(apps[label]["launches"]["semiring_spmv_padded"] > 0,
+              f"kernel 1 was not launched on the {label} path")
+    res = run_app("pagerank", PLUS_TIMES, pagerank, normalize=True)
+    np.testing.assert_allclose(res.rank.cpu().numpy(),
+                               pagerank_reference(cit.rows, cit.cols, cit.n, sparse=True),
+                               rtol=1e-3, atol=1e-6)
+    del res
+    print("phase 10: cit-HP CC, k-core and PageRank match the references")
+    launches["semiring_spgemm_padded"] = tally["semiring_spgemm_padded"]
+    launches["semiring_spmv_padded"] += tally["semiring_spmv_padded"]
+
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
                                         "src/repro/kernels/semiring_spmv.py:56"),
                "semiring_spmspv_padded": ("src/repro_torch/kernels/csrc/spmspv_tiles.cu",
@@ -508,7 +705,9 @@ def main() -> int:
                "semiring_spmv_sell": ("src/repro_torch/kernels/csrc/semiring_spmv_sell.cu",
                                       "src/repro/kernels/semiring_spmv.py:209"),
                "semiring_spmspv_fused_padded": ("src/repro_torch/kernels/csrc/spmspv_fused.cu",
-                                                "src/repro/kernels/spmspv_tiles.py:108")}
+                                                "src/repro/kernels/spmspv_tiles.py:108"),
+               "semiring_spgemm_padded": ("src/repro_torch/kernels/csrc/spgemm_tiles.cu",
+                                          "src/repro/kernels/spgemm_tiles.py:77")}
     line = []
     for k in all_kernels:
         row = summary[k.__name__]

@@ -9,6 +9,9 @@ from repro_torch.core.formats import (  # noqa: F401
     build_csr, build_sell, sell_stream_cost,
 )
 from repro_torch.core.spmv import spmv, spmv_bsr_ref, spmv_coo, spmv_csr  # noqa: F401
+from repro_torch.core.spgemm import (  # noqa: F401
+    spgemm_blocked, spgemm_dense_ref, spgemm_masked, spgemm_sparse_dense,
+)
 from repro_torch.core.spmspv import (  # noqa: F401
     Frontier, frontier_from_dense, spmspv, spmspv_coo_masked,
     spmspv_csc_gather, spmspv_csr_masked,

@@ -43,8 +43,8 @@ class Semiring:
 
     def add_reduce(self, x: Tensor, dim: int | tuple[int, ...]) -> Tensor:
         if self.collective == "psum":
-            # torch.sum widens int32 to int64; the JAX sum keeps the dtype
-            return torch.sum(x, dim=dim).to(x.dtype)
+            # the JAX sum keeps the dtype; torch.sum would widen int32 to int64
+            return torch.sum(x, dim=dim, dtype=x.dtype)
         if self.collective == "pmin":
             return torch.amin(x, dim=dim)
         if self.collective == "pmax":

@@ -1,4 +1,11 @@
-"""Linear-algebraic frontier traversals (BFS/SSSP/PPR) on the core engine."""
+"""Linear-algebraic graph applications on the core engine: frontier
+traversals (BFS/SSSP/PPR) and whole-graph analytics (CC / PageRank /
+triangle count / k-core, graphs/analytics.py)."""
+from repro_torch.graphs.analytics import (  # noqa: F401
+    CCResult, KCoreResult, TriangleResult, cc_reference,
+    connected_components, kcore, kcore_reference, triangle_count,
+    triangle_reference,
+)
 from repro_torch.graphs.bfs import BFSResult, bfs, bfs_reference  # noqa: F401
 from repro_torch.graphs.cost_model import trained_stump, training_corpus  # noqa: F401
 from repro_torch.graphs.datasets import (  # noqa: F401

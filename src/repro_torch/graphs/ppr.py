@@ -83,11 +83,24 @@ def pagerank(engine: GraphEngine, alpha: float = 0.85, max_iters: int = 50,
     return _power_iteration(engine, e, start, alpha, max_iters, tol, policy)
 
 
-def pagerank_reference(rows: np.ndarray, cols: np.ndarray, n: int,
-                       alpha: float = 0.85, iters: int = 50) -> np.ndarray:
+def _transition(rows: np.ndarray, cols: np.ndarray, n: int, sparse: bool):
+    """P = Aᵀ D⁻¹ in float64, dense or as a scipy CSR matrix."""
     deg = np.maximum(np.bincount(rows, minlength=n), 1).astype(np.float64)
+    if sparse:
+        import scipy.sparse as sp
+
+        return sp.csr_matrix((1.0 / deg[rows], (cols, rows)), shape=(n, n))
     p = np.zeros((n, n))
     p[cols, rows] = 1.0 / deg[rows]
+    return p
+
+
+def pagerank_reference(rows: np.ndarray, cols: np.ndarray, n: int,
+                       alpha: float = 0.85, iters: int = 50,
+                       sparse: bool = False) -> np.ndarray:
+    """numpy oracle in float64; ``sparse=True`` holds P in a scipy CSR
+    matrix instead of the JAX package's dense n×n one, as ppr_reference."""
+    p = _transition(rows, cols, n, sparse)
     e = np.full(n, 1.0 / n)
     r = e.copy()
     for _ in range(iters):
@@ -103,14 +116,7 @@ def ppr_reference(rows: np.ndarray, cols: np.ndarray, n: int, source: int,
     """numpy oracle: the same power iteration in float64. The dense n×n
     matrix is the JAX package's form; ``sparse=True`` holds P in a scipy
     CSR matrix instead, for graphs whose dense matrix does not fit."""
-    deg = np.maximum(np.bincount(rows, minlength=n), 1).astype(np.float64)
-    if sparse:
-        import scipy.sparse as sp
-
-        p = sp.csr_matrix((1.0 / deg[rows], (cols, rows)), shape=(n, n))
-    else:
-        p = np.zeros((n, n))
-        p[cols, rows] = 1.0 / deg[rows]
+    p = _transition(rows, cols, n, sparse)
     e = np.zeros(n)
     e[source] = 1.0
     r = e.copy()

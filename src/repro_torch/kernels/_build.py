@@ -7,6 +7,16 @@ compiled together, one nvcc process each. A library's file name carries a
 hash of its sources and flags, so an edited source is rebuilt and a stale
 library is never loaded. The output directory, ``kernels/build/``, is
 listed in ``.gitignore``.
+
+Each C signature has its own loader, which sets the ctypes argument types:
+
+* ``tile_kernel`` — the tile folds of ``tile_fold.cuh``:
+  ``semiring_spmv.cu``, ``spmspv_tiles.cu``, ``semiring_spmv_fused.cu``,
+  ``semiring_spmv_sell.cu``, ``spmspv_fused.cu``;
+* ``spgemm_kernel`` — the masked tile SpGEMM, ``spgemm_tiles.cu``.
+
+A kernel with another signature gets a loader of its own rather than
+passing its arguments through one of these.
 """
 from __future__ import annotations
 
@@ -22,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("semiring_spmv.cu", "spmspv_tiles.cu", "semiring_spmv_fused.cu",
-           "semiring_spmv_sell.cu", "spmspv_fused.cu")
+           "semiring_spmv_sell.cu", "spmspv_fused.cu", "spgemm_tiles.cu")
 HEADERS = ("tile_fold.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -77,15 +87,28 @@ def build_all() -> None:
             raise RuntimeError("\n".join(failed))
 
 
-@functools.lru_cache(maxsize=None)
-def tile_kernel(source: str, symbol: str, n_index: int = 1):
-    """The C entry point ``symbol`` of ``source``, built if needed. A tile
-    kernel takes (tiles, ``n_index`` index arrays, x, y, mb, T, bm, bn,
-    semiring code, stream) and returns the launch's cudaError_t. The sell
-    kernel has two index arrays (tile_cols, row_meta) and takes slot_total
-    as T; the others have one."""
+def _entry(source: str, symbol: str, argtypes: list):
+    """The C entry point ``symbol`` of ``source``, built if needed, with its
+    argument types set; every entry point returns the launch's cudaError_t."""
     build_all()
     fn = getattr(ctypes.CDLL(str(_target(source))), symbol)
-    fn.argtypes = [ctypes.c_void_p] * (3 + n_index) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def tile_kernel(source: str, symbol: str, n_index: int = 1):
+    """A tile fold: (tiles, ``n_index`` index arrays, x, y, mb, T, bm, bn,
+    semiring code, stream). The sell kernel has two index arrays
+    (tile_cols, row_meta) and takes slot_total as T; the others have one."""
+    return _entry(source, symbol,
+                  [ctypes.c_void_p] * (3 + n_index) + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def spgemm_kernel():
+    """The masked tile SpGEMM: (tiles, meta, b, mask, active, out, n_active,
+    T, nb, bm, bk, semiring code, stream)."""
+    return _entry("spgemm_tiles.cu", "semiring_spgemm_padded",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])

@@ -1,6 +1,7 @@
 // Shared device code of the tile kernels (semiring_spmv.cu,
 // spmspv_tiles.cu, semiring_spmv_fused.cu, semiring_spmv_sell.cu,
 // spmspv_fused.cu): the five semirings and the per-block-row fold.
+// spgemm_tiles.cu uses the semirings (Ops, min_nan) only.
 //
 // Layouts (Layout below):
 //   kEll     tiles T_val [mb, T, bm, bn]  ELL-of-tiles (PaddedBSR), pad

@@ -1,7 +1,8 @@
 """Front door of the tile kernels, as ``repro.kernels.ops`` is for the TPU
-kernels: operand preparation (dtype casts, the fused and SpMSpV metadata,
-the dense frontier), the plain ``*_ref`` counterparts of the unfused
-calls, and the bytes each kernel moves (``*_stream_stats``)."""
+kernels: operand preparation (dtype casts, the fused, SpMSpV and SpGEMM
+metadata, the dense frontier, the SpGEMM padding), the plain ``*_ref``
+counterparts of the unfused calls, and the bytes each kernel moves
+(``*_stream_stats``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,6 +15,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.semiring_spmv import (
     semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
 )
+from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
 from repro_torch.kernels.spmspv_tiles import (
     semiring_spmspv_fused_padded, semiring_spmspv_padded,
 )
@@ -106,6 +108,47 @@ def semiring_spmspv_fused(a: PaddedBSR, f: Frontier, sr: Semiring,
     kernel, optionally chunk-major."""
     return semiring_spmspv_fused_padded(a.tiles, _spmspv_meta(a, f, sr),
                                         _dense_frontier(a, f, sr), sr=sr, chunks=chunks)
+
+
+def _spgemm_operands(a: PaddedBSR, b: Tensor, sr: Semiring, mask: Tensor | None):
+    """Pad B and the mask to the kernel's block grid and build its meta.
+    B's column pad is the ⊗-identity (it annihilates against the
+    ⊕-identity pad tiles of A, min_times-safe); the mask's column pad is the
+    ⊕-identity, so padded output columns collapse to zero and slice away.
+    ``mask=None`` is all ones with the padded columns zero. Output tiles are
+    square (bn = bm). Returns (b, mask, meta, bn, n)."""
+    bm, _ = a.block
+    m_pad, k_pad = a.shape
+    if b.shape[0] != k_pad:
+        raise ValueError(f"b has {b.shape[0]} rows, the matrix {k_pad} columns")
+    n = b.shape[1]
+    bn = bm
+    n_pad = -(-n // bn) * bn
+    bp = torch.nn.functional.pad(b.to(sr.dtype), (0, n_pad - n), value=sr.one)
+    if mask is None:
+        mk = torch.full((m_pad, n_pad), sr.one, dtype=sr.dtype, device=b.device)
+        mk[:, n:] = sr.zero
+    else:
+        if tuple(mask.shape) != (m_pad, n):
+            raise ValueError(f"mask must be {[m_pad, n]}, got {tuple(mask.shape)}")
+        mk = torch.nn.functional.pad(mask.to(sr.dtype), (0, n_pad - n), value=sr.zero)
+    mb, nb = m_pad // bm, n_pad // bn
+    tile_any = (mk.view(mb, bm, nb, bn) != sr.zero).any(dim=3).any(dim=1).to(torch.int32)
+    meta = torch.cat([a.tile_cols, tile_any], dim=1)
+    return bp, mk, meta, bn, n
+
+
+def semiring_spgemm(a: PaddedBSR, b: Tensor, sr: Semiring, mask: Tensor | None = None) -> Tensor:
+    """C = (A ⊕.⊗ B) ⊙ mask. A in ELL-of-tiles; B dense [a.shape[1], N];
+    mask dense [a.shape[0], N] or None. Output [a.shape[0], N]."""
+    bp, mk, meta, bn, n = _spgemm_operands(a, b, sr, mask)
+    return semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr, bn=bn)[:, :n]
+
+
+def semiring_spgemm_ref(a: PaddedBSR, b: Tensor, sr: Semiring,
+                        mask: Tensor | None = None) -> Tensor:
+    bp, mk, meta, bn, n = _spgemm_operands(a, b, sr, mask)
+    return ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn)[:, :n]
 
 
 def semiring_spmv_ref(a: PaddedBSR, x: Tensor, sr: Semiring) -> Tensor:

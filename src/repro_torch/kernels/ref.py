@@ -91,3 +91,41 @@ def spmv_sell_ref(tiles: Tensor, tile_cols: Tensor, row_meta: Tensor, x: Tensor,
     out = torch.empty_like(y)
     out[row_meta[:, 0].long()] = y
     return out.reshape(-1).to(x.dtype)
+
+
+# The plain version of kernel 6 evaluates the ⊗ broadcast of a chunk of
+# output tiles against one slot at a time; this caps that broadcast.
+SPGEMM_BROADCAST_BYTES = 1 << 30
+
+
+def spgemm_padded_ref(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, sr: Semiring,
+                      bn: int) -> Tensor:
+    """C = (A ⊕.⊗ B) ⊙ mask over the ELL-of-tiles layout, the plain version
+    of the masked tile SpGEMM. tiles [mb, T, bm, bk]; meta int32 [mb, T+nb]
+    = (tile_cols | mask-tile flags); b [kb·bk, nb·bn]; mask [mb·bm, nb·bn].
+
+    Each output tile whose flag is set ⊕-folds its block row's T slots in
+    slot order, pads included, then keeps its entries where mask ≠ zero; the
+    others are the ⊕-identity (an empty mask tile masks them all). Only the
+    flagged tiles are computed, vectorised over chunks of them, so no
+    [bm, bk, N] broadcast over every column is built."""
+    mb, t, bm, bk = tiles.shape
+    n = b.shape[1]
+    nb = n // bn
+    cols = meta[:, :t].long()
+    active = torch.nonzero(meta[:, t:] > 0)                           # [n_act, 2]
+    out = torch.full((mb * bm, n), sr.zero, dtype=sr.dtype, device=tiles.device)
+    out_tiles = out.view(mb, bm, nb, bn)
+    b_blocks = b.view(-1, bk, nb, bn)
+    mask_tiles = mask.view(mb, bm, nb, bn)
+    chunk = max(1, SPGEMM_BROADCAST_BYTES // (bm * bk * bn * tiles.element_size()))
+    for s in range(0, active.shape[0], chunk):
+        ii, jj = active[s:s + chunk].unbind(1)
+        acc = torch.full((ii.shape[0], bm, bn), sr.zero, dtype=sr.dtype, device=tiles.device)
+        for slot in range(t):
+            a = tiles[ii, slot]                                       # [c, bm, bk]
+            bb = b_blocks[cols[ii, slot], :, jj]                      # [c, bk, bn]
+            acc = sr.add(acc, sr.add_reduce(sr.mul(a[:, :, :, None], bb[:, None]), dim=2))
+        keep = mask_tiles[ii, :, jj] != sr.zero                       # [c, bm, bn]
+        out_tiles[ii, :, jj] = torch.where(keep, acc, sr.zero)
+    return out

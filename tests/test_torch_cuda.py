@@ -1,6 +1,7 @@
 """The CUDA tile kernels on the card, held to their plain versions and the
 fused kernels also to the unfused ones (``torch.equal`` where pad ⊗ x is
-the ⊕-identity, as the inputs here make it). Needs
+the ⊕-identity, as the inputs here make it); the masked tile SpGEMM and
+the triangle count on the card against the host. Needs
 an NVIDIA GPU with nvcc; elsewhere every test here skips. On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -16,6 +17,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.semiring_spmv import (
     semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
 )
+from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
 from repro_torch.kernels.spmspv_tiles import (
     semiring_spmspv_fused_padded, semiring_spmspv_padded,
 )
@@ -164,3 +166,88 @@ def test_wrapper_rejects_operands_on_two_devices(cuda):
     with pytest.raises(ValueError, match="operands on"):
         semiring_spmv_padded(tiles, torch.zeros((2, 1), dtype=torch.int32), torch.zeros(4, device=cuda),
                              sr=sr)
+
+
+def spgemm_problem(sr, block, device, masked):
+    """A skewed 300 × 260 A (ragged block rows, so pad slots), B [k_pad, 250]
+    and a mask of density 0.4, in the semiring's safe domain as
+    tests/test_spgemm.py makes them."""
+    rng = np.random.default_rng(3)
+    n, k, m, nnz = 300, 260, 250, 3000
+    rows = (n * rng.random(nnz) ** 3).astype(np.int32)
+    cols = rng.integers(0, k, nnz).astype(np.int32)
+    if sr.collective == "pmin":
+        vals = rng.integers(1, 9, nnz).astype(np.float32)
+        b = rng.integers(1, 9, (k, m)).astype(np.float32)
+        mask = np.where(rng.random((n, m)) < 0.4, 1.0, np.inf).astype(np.float32)
+    elif sr.dtype == torch.int32:
+        vals = np.ones(nnz, np.int32)
+        b = (rng.random((k, m)) < 0.4).astype(np.int32)
+        mask = (rng.random((n, m)) < 0.4).astype(np.int32)
+    else:
+        vals = rng.random(nnz).astype(np.float32)
+        b = rng.random((k, m)).astype(np.float32)
+        mask = (rng.random((n, m)) < 0.4).astype(np.float32)
+    a = build_bsr_padded(rows, cols, vals, (n, k), sr, block=block, device=device)
+    bp = torch.full((a.shape[1], m), sr.one, dtype=sr.dtype, device=device)
+    bp[:k] = torch.from_numpy(b).to(device)
+    if not masked:
+        return a, bp, None
+    mp = torch.full((a.shape[0], m), sr.zero, dtype=sr.dtype, device=device)
+    mp[:n] = torch.from_numpy(mask).to(device)
+    return a, bp, mp
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("block", [(16, 16), (64, 64), (24, 40)])
+@pytest.mark.parametrize("name", list(SEMIRINGS))
+def test_spgemm_kernel_matches_plain_version(cuda, name, block, masked):
+    sr = SEMIRINGS[name]
+    a, b, mask = spgemm_problem(sr, block, cuda, masked)
+    before = semiring_spgemm_padded.launches
+    y = ops.semiring_spgemm(a, b, sr, mask)
+    assert semiring_spgemm_padded.launches == before + 1
+    assert_match(y, ops.semiring_spgemm_ref(a, b, sr, mask), sr)
+
+
+@pytest.mark.parametrize("block", [(16, 16), (64, 64)])
+@pytest.mark.parametrize("name", ["plus_times", "min_times"])
+def test_spgemm_pad_products_on_the_card(cuda, name, block):
+    """Where pad ⊗ b is NaN (0·inf, inf·0) the kernel folds the pads as the
+    TPU kernel does: block rows with no real tile come out NaN in that
+    column (tests/test_torch_spgemm.py holds the same case to the JAX
+    package on the host)."""
+    sr = SEMIRINGS[name]
+    bm = block[0]
+    rows = np.array([0, 1, bm + 1], np.int32)
+    cols = np.array([1, bm + 2, 2 * bm + 3], np.int32)
+    a = build_bsr_padded(rows, cols, np.full(3, 2.0, np.float32), (3 * bm, 3 * bm), sr,
+                         block=block, device=cuda)
+    b = torch.ones((a.shape[1], 40), device=cuda)
+    b[3, 5] = float("inf") if name == "plus_times" else 0.0
+    y = ops.semiring_spgemm(a, b, sr)
+    assert_match(y, ops.semiring_spgemm_ref(a, b, sr), sr)
+    nan = torch.isnan(y)
+    assert nan[:, 5].all() and int(nan.sum()) == a.shape[0]
+
+
+def test_triangle_count_on_the_card_matches_the_host(cuda):
+    from repro_torch.graphs import generate, triangle_count, triangle_reference
+
+    g = generate("face", scale=0.15, seed=1)
+    before = semiring_spgemm_padded.launches
+    on_card = triangle_count(g, impl="bsr", device=cuda)
+    assert semiring_spgemm_padded.launches == before + 1
+    on_host = triangle_count(g, impl="bsr", device="cpu")
+    assert torch.equal(on_card.per_edge.cpu(), on_host.per_edge)
+    assert int(on_card.total) == int(on_host.total) == triangle_reference(g.rows, g.cols, g.n)
+
+
+def test_spgemm_wrapper_rejects_operands_on_two_devices(cuda):
+    sr = SEMIRINGS["plus_and"]
+    tiles = torch.zeros((2, 1, 16, 16), dtype=torch.int32, device=cuda)
+    b = torch.zeros((16, 32), dtype=torch.int32, device=cuda)
+    mask = torch.zeros((32, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="operands on"):
+        semiring_spgemm_padded(tiles, torch.zeros((2, 3), dtype=torch.int32), b, mask, sr=sr,
+                               bn=16)

@@ -55,7 +55,8 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     from repro_torch.core import (
         PLUS_TIMES, autotune_sell, build_bsr, build_bsr_padded, build_csr, build_sell,
     )
-    from repro_torch.graphs import build_engine, generate
+    from repro_torch.graphs import build_engine, generate, triangle_count
+    from repro_torch.graphs.analytics import triangle_problem
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = generate("face", scale=0.02, seed=0)
@@ -84,6 +85,11 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bsr_from_numpy(np.zeros((1, 2, 2), np.float32), np.zeros(1, np.int32),
                        np.zeros(2, np.int32), (2, 2), (2, 2))
+    for impl in ("csr", "bsr", "dense"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            triangle_problem(g, impl)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            triangle_count(g, impl)
     eng = build_engine(g, PLUS_TIMES, device="cpu")
     assert eng.device.type == "cpu"
 
