@@ -48,18 +48,40 @@ Phases:
      1e-3, atol 1e-6 of ``pagerank_reference``). Per app: wall ms,
      iterations, launches of kernels 1 and 6, peak memory. Kernel 6's time
      (median of 3), bound and the matmul's time on the triangle operands.
+ 11. MoE dispatch gather (kernel 7) against its plain version with
+     ``torch.equal`` at D = 2048 in bf16 and f32, on a decode-shaped plan
+     (S = 4·64·8 = 2,048 slots, 24 valid) and a prefill-shaped plan
+     (S = 4·64·64 = 16,384) from random top-6 routing; after phase 12, on
+     the plans its first MoE layer built. Kernel, plain, bound and
+     library (``index_select`` on x with a zero row appended) times.
+ 12. Serving: the full deepseek-v2-lite-16b (27 layers, 15.7 B
+     parameters) in bf16, initialised on the card from a seeded
+     generator, serves 4 requests (prompts of 17, 64, 200 and 511 tokens,
+     32 new tokens each, max_seq 1024) through ``ServingEngine.run``,
+     twice. Each request gets its budget, the logits are finite, kernel 7
+     launches 26 × (1 + decode steps) times, the second run gives the same
+     tokens, peak memory stays under 80 GB. Prefill ms, decode ms per
+     step, tokens/s, peak memory; a profiler window of 3 decode steps
+     gives device busy time and the top kernels.
+ 13. The same model cut to 2 layers (the dense one and one MoE layer) in
+     f32 with TF32 off, on the card and on the host from the same
+     weights: prefill and 4 greedy decode steps route every token to the
+     same experts, pick the same tokens, and give logits within rtol
+     1e-3, atol 1e-4.
 
-Launch counters: all six are set to 0 before phase 3 and kernels 1–2
-read after phase 4. In phases 6–8 every call of the fused path, and in
-phase 10 every app, runs with all six counters set to 0 just before it
-and read just after; the comparisons and timings in between are not
-counted. The run fails unless kernels 1–2 launched in phases 3–4, kernels
-3–5 in phases 6–8, kernel 6 on phase 10's triangle path and kernel 1 on
-its CC and k-core paths. Any mismatch raises, so the run exits non-zero
-without the final ``{"ok": true, ...}`` line.
+Launch counters: all seven are set to 0 before phase 3 and kernels 1–2
+read after phase 4. In phases 6–8 every call of the fused path, in
+phase 10 every app and in phase 12 each serving run, runs with the
+counters set to 0 just before it and read just after; the comparisons
+and timings in between are not counted. The run fails unless kernels 1–2
+launched in phases 3–4, kernels 3–5 in phases 6–8, kernel 6 on phase 10's
+triangle path, kernel 1 on its CC and k-core paths and kernel 7 on the
+serving path. Any mismatch raises, so the run exits non-zero without the
+final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -75,11 +97,275 @@ FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 DENSITIES = (0.001, 0.05, 0.6)
 RTX_MAX_ITERS = 256
+PROMPT_LENS = (17, 64, 200, 511)
+MAX_NEW_TOKENS = 32
+MAX_SEQ = 1024
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def gather_bound(x, slot_tok) -> tuple[float, str, int, int]:
+    """Least time of one dispatch gather, in ms: each row of x that a slot
+    names read once (a token routed to k experts is one read, not k),
+    every output row written once, the index read once, at the memory
+    rate. Returns (bound_ms, "bytes", valid slots, rows read)."""
+    valid = slot_tok[slot_tok < x.shape[0]]
+    n_rows = int(valid.unique().numel())
+    s, d = slot_tok.shape[0], x.shape[1]
+    nbytes = (n_rows + s) * d * x.element_size() + 4 * s
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", int(valid.numel()), n_rows
+
+
+def random_plan(torch, dev, b: int, t: int, cfg, gen):
+    """The slot→token plan ``moe_sparse`` builds for [b, t] tokens routed
+    to distinct random top-k experts."""
+    from repro_torch.models.moe import capacity, dispatch_plan
+
+    ids = torch.argsort(torch.rand((b, t, cfg.n_experts), generator=gen, device=dev), dim=-1)
+    return dispatch_plan(ids[..., :cfg.top_k].to(torch.int32), cfg.n_experts,
+                         capacity(t, cfg)).slot_tok
+
+
+def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
+              cfg13) -> dict:
+    """Phases 11-13: kernel 7 against its plain version, the serving path
+    on the full model in bf16, and a 2-layer f32 cut of it on the card
+    against the host. Returns kernel 7's row of the kernels line."""
+    import numpy as np
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import build_model
+    from repro_torch.models.zoo import count_params
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    def device_ms(fn, reps: int = 50) -> float:
+        """Device time of one call, in ms: ``reps`` calls queued behind a
+        ~20 ms sleep kernel, so they run back to back however long the
+        host takes to launch them; CUDA events around the run, over reps.
+        Kernel 7 runs for microseconds, less than a call's host time, so
+        a single-call timing would measure the host."""
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def gather_row(x, tok, label: str) -> dict:
+        """Kernel 7 against its plain version (``torch.equal``) and the
+        library's index_select on a zero-row-extended x; device times of
+        each, and the kernel's single-call time with the host's share."""
+        y = moe_dispatch_gather(x, tok)
+        y_plain = ref.moe_dispatch_gather_ref(x, tok)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y_plain), f"kernel 7 {label}: differs from the plain version")
+        x_ext = torch.cat([x, torch.zeros((1, x.shape[1]), dtype=x.dtype, device=dev)])
+        tok_lib = tok.clamp(max=x.shape[0])
+        check(torch.equal(x_ext.index_select(0, tok_lib), y), f"kernel 7 {label}: index_select")
+        bound_ms, bound_by, n_valid, n_rows = gather_bound(x, tok)
+        return {"kernel": "moe_dispatch_gather", "plan": label, "dtype": str(x.dtype),
+                "T": x.shape[0], "S": tok.shape[0], "D": x.shape[1], "n_valid": n_valid,
+                "rows_read": n_rows,
+                "max_abs_err": float((y.float() - y_plain.float()).abs().max()),
+                "ms": device_ms(lambda: moe_dispatch_gather(x, tok)),
+                "call_ms": time_ms(lambda: moe_dispatch_gather(x, tok)),
+                "plain_ms": device_ms(lambda: ref.moe_dispatch_gather_ref(x, tok)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": device_ms(lambda: x_ext.index_select(0, tok_lib))}
+
+    # ---------------------------------------------------------------- 11
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, m, d = len(prompt_lens), cfg.moe, cfg.d_model
+    t_pre = max(prompt_lens)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, t in (("decode", 1), ("prefill", t_pre)):
+            x = torch.randn((b * t, d), generator=gen, device=dev).to(dtype)
+            tok = random_plan(torch, dev, b, t, m, gen)
+            print(json.dumps(gather_row(x, tok, f"random {label}")))
+    print("phase 11: kernel 7 equals its plain version on decode- and prefill-shaped plans, "
+          "bf16 and f32")
+
+    # ---------------------------------------------------------------- 12
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in prompt_lens]
+    engine = ServingEngine(model, max_seq=max_seq, device=dev)
+
+    timings = {"prefill": [], "decode": []}
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    captured = {}
+
+    def timed(label, fn):
+        def step(*args):
+            nonlocal finite
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            timings[label].append((time.perf_counter() - t0) * 1e3)
+            logits = out[0] if label == "prefill" else out[1]
+            finite = finite & torch.isfinite(logits).all()
+            return out
+        return step
+
+    engine._prefill = timed("prefill", engine._prefill)
+    engine._decode = timed("decode", engine._decode)
+    real_gather = ops.moe_dispatch_gather
+
+    def capture(x, slot_tok):
+        key = "prefill" if x.shape[0] > b else "decode"
+        captured.setdefault(key, (x.clone(), slot_tok.to(torch.int32).clone()))
+        return real_gather(x, slot_tok)
+
+    runs = []
+    for run in range(2):
+        for k in timings.values():
+            k.clear()
+        ops.moe_dispatch_gather = capture
+        moe_dispatch_gather.launches = 0
+        t0 = time.perf_counter()
+        try:
+            done = engine.run([Request(prompt=p, max_new_tokens=max_new) for p in prompts])
+        finally:
+            ops.moe_dispatch_gather = real_gather
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = moe_dispatch_gather.launches
+        steps = len(timings["decode"])
+        decode_ms = sum(timings["decode"])
+        runs.append({"run": run + 1, "wall_ms": wall_ms, "prefill_ms": timings["prefill"][0],
+                     "decode_steps": steps, "decode_ms_per_step": decode_ms / max(steps, 1),
+                     "decode_tokens_per_s": b * steps / (decode_ms / 1e3),
+                     "tokens_per_s": sum(len(r.generated) for r in done) / (wall_ms / 1e3),
+                     "kernel7_launches": launches,
+                     "generated": [r.generated for r in done]})
+        check(all(len(r.generated) == max_new for r in done), "a request missed its budget")
+        routed = cfg.n_layers - m.first_dense_layers
+        check(launches == routed * (1 + steps),
+              f"kernel 7 launched {launches} times, not {routed} × (1 + {steps})")
+    check(bool(finite), "non-finite logits on the serving path")
+    check(runs[0]["generated"] == runs[1]["generated"], "a second run gave other tokens")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 80e9, f"peak memory {peak} bytes")
+    for r in runs:
+        print(json.dumps({k: v for k, v in r.items() if k != "generated"}))
+    print(json.dumps({"phase": 12, "arch": cfg.arch_id, "params": count_params(cfg),
+                      "dtype": str(cfg.dtype), "batch": b, "prompt_lens": list(prompt_lens),
+                      "max_new_tokens": max_new, "max_seq": max_seq, "init_s": init_s,
+                      "max_memory_allocated": peak,
+                      "first_tokens": [g[:8] for g in runs[0]["generated"]]}))
+    # a traced window of 3 decode steps: device busy time against the wall
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = np.zeros((b, t_pre), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, -len(p):] = p
+    cache = model.init_cache(b, max_seq)
+    logits, cache = model.prefill(torch.from_numpy(toks).to(dev), cache)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            logits, cache = model.decode(tok, cache)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    print(json.dumps({"phase": 12, "traced_decode_steps": 3, "window_ms": window_ms,
+                      "device_busy_ms": busy_ms,
+                      "device_idle_share": 1 - busy_ms / window_ms if window_ms else None,
+                      "kernel_launches_per_step": sum(e.count for e in kernels) / 3,
+                      "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                                         for e in top}}))
+    del cache
+    summary = gather_row(*captured["decode"], "phase-12 decode")
+    print(json.dumps(summary))
+    print(json.dumps(gather_row(*captured["prefill"], "phase-12 prefill")))
+    summary["launches"] = runs[0]["kernel7_launches"]
+    print(f"phase 12: {cfg.arch_id} served {b} requests × {max_new} tokens in bf16 "
+          f"twice with identical tokens; kernel 7 launched {summary['launches']} times")
+    del model, engine, captured
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 13
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    card = build_model(cfg13, device=dev).init(gen)
+    # Matrices redrawn with std 1/√(input width). Under the reference's
+    # rule a one-layer segment draws with std 1, the residual stream grows
+    # by orders of magnitude per layer, and f32 rounding alone, in any
+    # order, moves the logits past the tolerance below; at this scale the
+    # tolerance tests the card, not the conditioning.
+    with torch.no_grad():
+        for name, p in card.named_parameters():
+            if p.dim() >= 2 and name != "embed":
+                p.normal_(0.0, p.shape[-2] ** -0.5, generator=gen)
+    host = build_model(cfg13, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = np.zeros((b, t_pre), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, -len(p):] = p
+    routes = {}
+    real_plan = moe.dispatch_plan
+
+    def record(top_ids, *args):
+        routes[where].append(top_ids.cpu())
+        return real_plan(top_ids, *args)
+
+    out = {}
+    moe.dispatch_plan = record
+    try:
+        for where, mdl in (("card", card), ("host", host)):
+            routes[where] = []
+            t0 = time.perf_counter()
+            cache = mdl.init_cache(b, max_seq)
+            logits, cache = mdl.prefill(torch.from_numpy(toks).to(mdl.embed.device), cache)
+            seq = [logits.float().cpu()]
+            for _ in range(4):
+                tok = torch.argmax(logits, dim=-1)[:, None]
+                logits, cache = mdl.decode(tok, cache)
+                seq.append(logits.float().cpu())
+            if where == "card":
+                torch.cuda.synchronize()
+            out[where] = (seq, (time.perf_counter() - t0) * 1e3)
+    finally:
+        moe.dispatch_plan = real_plan
+    check(len(routes["card"]) == len(routes["host"]) == 5, "phase 13: routing not recorded")
+    for i, (rc, rh) in enumerate(zip(routes["card"], routes["host"])):
+        check(torch.equal(rc, rh), f"phase 13: routing differs at MoE call {i}")
+    worst = 0.0
+    for i, (lc, lh) in enumerate(zip(out["card"][0], out["host"][0])):
+        check(torch.equal(lc.argmax(-1), lh.argmax(-1)), f"phase 13: greedy tokens differ at {i}")
+        torch.testing.assert_close(lc, lh, rtol=1e-3, atol=1e-4,
+                                   msg=lambda s: f"phase 13 step {i}: {s}")
+        worst = max(worst, float((lc - lh).abs().max()))
+    print(json.dumps({"phase": 13, "layers": cfg13.n_layers, "dtype": str(cfg13.dtype),
+                      "card_ms": out["card"][1], "host_ms": out["host"][1],
+                      "max_abs_logit_diff": worst,
+                      "tokens": [lc.argmax(-1).tolist() for lc in out["card"][0]]}))
+    print(f"phase 13: {cfg13.n_layers}-layer f32 cut, TF32 off: card and host route every token "
+          f"alike and pick the same greedy tokens; largest logit difference {worst:.3g}")
+    del card, host
+    torch.cuda.empty_cache()
+    return summary
 
 
 def main() -> int:
@@ -110,7 +396,9 @@ def main() -> int:
     from repro_torch.kernels.semiring_spmv import (
         semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
     )
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
     from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
+    from repro_torch.models.zoo import get_config
     from repro_torch.kernels.spmspv_tiles import (
         semiring_spmspv_fused_padded, semiring_spmspv_padded,
     )
@@ -119,7 +407,7 @@ def main() -> int:
     kernels = (semiring_spmv_padded, semiring_spmspv_padded)
     fused_kernels = (semiring_spmv_fused_padded, semiring_spmv_sell,
                      semiring_spmspv_fused_padded)
-    all_kernels = kernels + fused_kernels + (semiring_spgemm_padded,)
+    all_kernels = kernels + fused_kernels + (semiring_spgemm_padded, moe_dispatch_gather)
 
     # ---------------------------------------------------------------- 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -696,6 +984,14 @@ def main() -> int:
     launches["semiring_spgemm_padded"] = tally["semiring_spgemm_padded"]
     launches["semiring_spmv_padded"] += tally["semiring_spmv_padded"]
 
+    # ---------------------------------------------------------------- 11, 12, 13
+    cfg = get_config("deepseek-v2-lite-16b")
+    row = lm_phases(torch, dev, cfg, PROMPT_LENS, MAX_NEW_TOKENS, MAX_SEQ, time_ms,
+                    dataclasses.replace(cfg, n_layers=2, dtype=torch.float32))
+    summary["moe_dispatch_gather"] = row
+    launches["moe_dispatch_gather"] = row["launches"]
+    worst["moe_dispatch_gather"] = row["max_abs_err"]
+
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
                                         "src/repro/kernels/semiring_spmv.py:56"),
                "semiring_spmspv_padded": ("src/repro_torch/kernels/csrc/spmspv_tiles.cu",
@@ -707,7 +1003,9 @@ def main() -> int:
                "semiring_spmspv_fused_padded": ("src/repro_torch/kernels/csrc/spmspv_fused.cu",
                                                 "src/repro/kernels/spmspv_tiles.py:108"),
                "semiring_spgemm_padded": ("src/repro_torch/kernels/csrc/spgemm_tiles.cu",
-                                          "src/repro/kernels/spgemm_tiles.py:77")}
+                                          "src/repro/kernels/spgemm_tiles.py:77"),
+               "moe_dispatch_gather": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
+                                       "src/repro/kernels/moe_dispatch.py:45")}
     line = []
     for k in all_kernels:
         row = summary[k.__name__]

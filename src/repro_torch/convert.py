@@ -1,10 +1,14 @@
-"""Carry matrices across from the JAX package.
+"""Carry matrices, model parameters and caches across from the JAX package.
 
 Each ``*_from_numpy`` takes the arrays of a ``repro.core.formats``
 container, passed as ``np.asarray``, and returns the port's container on
 ``device`` (the CUDA card unless named), so both packages can run on
 literally the same matrix. ``to_numpy`` goes the other way, field by field.
-Nothing here imports the JAX package: the caller hands over plain arrays.
+``model_params_from_numpy`` takes a JAX params pytree with numpy leaves
+(segments stacked [L, ...]) and returns the port's model state, one
+entry per layer; ``mla_cache_from_numpy`` and ``mla_cache_to_numpy`` carry
+a segment's MLA caches both ways. Nothing here imports the JAX package:
+the caller hands over plain arrays.
 """
 from __future__ import annotations
 
@@ -18,6 +22,10 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.formats import (
     BSRMatrix, COOMatrix, CSCMatrix, CSRMatrix, PaddedBSR, SlicedELL,
 )
+from repro_torch.models.attention import MLACache
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import spec_leaves
+from repro_torch.models.transformer import model_specs, plan
 
 
 def _t(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -75,3 +83,58 @@ def to_numpy(m) -> dict:
     """Every field of a port container, tensors as numpy arrays."""
     return {f.name: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
             for f in dataclasses.fields(m) for v in [getattr(m, f.name)]}
+
+
+def _float_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A float array (numpy, or ml_dtypes bfloat16 as JAX hands it over) as
+    a tensor of ``dtype`` on ``device``; bfloat16 crosses bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype)
+
+
+def _leaf(tree: dict, dotted: str):
+    for k in dotted.split("."):
+        tree = tree[k]
+    return tree
+
+
+def model_params_from_numpy(cfg: ModelConfig, params_np: dict, device=None) -> dict:
+    """The port's model state (``Model.load_state_dict``) from the JAX
+    params pytree: each segment's stacked leaf [L, ...] split into its L
+    layers, every leaf in the spec's dtype and checked against its shape."""
+    device = resolve_device(device)
+    specs = model_specs(cfg)
+    segments = {name for name, _, _ in plan(cfg)}
+    state = {}
+    for name, spec in spec_leaves(specs):
+        a = np.asarray(_leaf(params_np, name))
+        if tuple(a.shape) != tuple(spec.shape):
+            raise ValueError(f"{name}: shape {a.shape}, the spec has {spec.shape}")
+        seg, _, rest = name.partition(".")
+        if seg in segments:
+            for i in range(a.shape[0]):
+                state[f"{seg}.{i}.{rest}"] = _float_tensor(a[i], spec.dtype, device)
+        else:
+            state[name] = _float_tensor(a, spec.dtype, device)
+    return state
+
+
+def mla_cache_from_numpy(c_kv: np.ndarray, k_rope: np.ndarray, pos: np.ndarray,
+                         dtype: torch.dtype, device=None) -> list[MLACache]:
+    """A segment's JAX ``MLACache`` (c_kv [L, B, S, kv_lora], k_rope
+    [L, B, S, rope], pos [L]) as the port's per-layer caches."""
+    device = resolve_device(device)
+    return [MLACache(_float_tensor(c_kv[i], dtype, device), _float_tensor(k_rope[i], dtype, device),
+                     int(pos[i])) for i in range(len(pos))]
+
+
+def mla_cache_to_numpy(caches: list[MLACache]) -> dict:
+    """The port's per-layer caches of a segment, stacked as the JAX
+    ``MLACache`` is: c_kv and k_rope as float32, pos as int32."""
+    return {"c_kv": np.stack([c.c_kv.float().cpu().numpy() for c in caches]),
+            "k_rope": np.stack([c.k_rope.float().cpu().numpy() for c in caches]),
+            "pos": np.array([c.pos for c in caches], np.int32)}

@@ -13,7 +13,9 @@ Each C signature has its own loader, which sets the ctypes argument types:
 * ``tile_kernel`` — the tile folds of ``tile_fold.cuh``:
   ``semiring_spmv.cu``, ``spmspv_tiles.cu``, ``semiring_spmv_fused.cu``,
   ``semiring_spmv_sell.cu``, ``spmspv_fused.cu``;
-* ``spgemm_kernel`` — the masked tile SpGEMM, ``spgemm_tiles.cu``.
+* ``spgemm_kernel`` — the masked tile SpGEMM, ``spgemm_tiles.cu``;
+* ``moe_dispatch_kernel`` — the MoE dispatch row gather,
+  ``moe_dispatch.cu``.
 
 A kernel with another signature gets a loader of its own rather than
 passing its arguments through one of these.
@@ -32,7 +34,8 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("semiring_spmv.cu", "spmspv_tiles.cu", "semiring_spmv_fused.cu",
-           "semiring_spmv_sell.cu", "spmspv_fused.cu", "spgemm_tiles.cu")
+           "semiring_spmv_sell.cu", "spmspv_fused.cu", "spgemm_tiles.cu",
+           "moe_dispatch.cu")
 HEADERS = ("tile_fold.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -112,3 +115,12 @@ def spgemm_kernel():
     T, nb, bm, bk, semiring code, stream)."""
     return _entry("spgemm_tiles.cu", "semiring_spgemm_padded",
                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def moe_dispatch_kernel():
+    """The MoE dispatch gather: (x, slot_tok, out, n_tokens, n_slots, d,
+    element size in bytes, stream)."""
+    return _entry("moe_dispatch.cu", "moe_dispatch_gather",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                                           ctypes.c_int, ctypes.c_void_p])

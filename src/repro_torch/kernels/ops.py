@@ -1,8 +1,8 @@
-"""Front door of the tile kernels, as ``repro.kernels.ops`` is for the TPU
-kernels: operand preparation (dtype casts, the fused, SpMSpV and SpGEMM
-metadata, the dense frontier, the SpGEMM padding), the plain ``*_ref``
-counterparts of the unfused calls, and the bytes each kernel moves
-(``*_stream_stats``)."""
+"""Front door of the tile kernels and the MoE dispatch gather, as
+``repro.kernels.ops`` is for the TPU kernels: operand preparation (dtype
+casts, the fused, SpMSpV and SpGEMM metadata, the dense frontier, the
+SpGEMM padding), the plain ``*_ref`` counterparts of the unfused calls,
+and the bytes each tile kernel moves (``*_stream_stats``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,6 +12,7 @@ from repro_torch.core.formats import PaddedBSR, SlicedELL
 from repro_torch.core.semiring import Semiring
 from repro_torch.core.spmspv import Frontier
 from repro_torch.kernels import ref
+from repro_torch.kernels.moe_dispatch import moe_dispatch_gather as _moe_dispatch_gather
 from repro_torch.kernels.semiring_spmv import (
     semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
 )
@@ -149,6 +150,16 @@ def semiring_spgemm_ref(a: PaddedBSR, b: Tensor, sr: Semiring,
                         mask: Tensor | None = None) -> Tensor:
     bp, mk, meta, bn, n = _spgemm_operands(a, b, sr, mask)
     return ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn)[:, :n]
+
+
+def moe_dispatch_gather(x: Tensor, slot_tok: Tensor) -> Tensor:
+    """Expert-buffer row gather: out[s] = x[slot_tok[s]], zero rows for the
+    pad slots (slot_tok == T)."""
+    return _moe_dispatch_gather(x.contiguous(), slot_tok.to(torch.int32).contiguous())
+
+
+def moe_dispatch_gather_ref(x: Tensor, slot_tok: Tensor) -> Tensor:
+    return ref.moe_dispatch_gather_ref(x, slot_tok.to(torch.int32))
 
 
 def semiring_spmv_ref(a: PaddedBSR, x: Tensor, sr: Semiring) -> Tensor:

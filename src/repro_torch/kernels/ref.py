@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the tile kernels.
+"""Plain PyTorch versions of the tile kernels and the MoE dispatch gather.
 
 The CPU path of every kernel wrapper, and the version ``chip_smoke.py``
 holds each CUDA kernel against on the card. Each folds a block row's slots
@@ -7,10 +7,13 @@ counterpart).
 """
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 
-from repro_torch.core.semiring import Semiring
+if TYPE_CHECKING:   # core imports this module: no import cycle at run time
+    from repro_torch.core.semiring import Semiring
 
 Tensor = torch.Tensor
 
@@ -129,3 +132,15 @@ def spgemm_padded_ref(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, sr: 
         keep = mask_tiles[ii, :, jj] != sr.zero                       # [c, bm, bn]
         out_tiles[ii, :, jj] = torch.where(keep, acc, sr.zero)
     return out
+
+
+def moe_dispatch_gather_ref(x: Tensor, slot_tok: Tensor) -> Tensor:
+    """out[s] = x[slot_tok[s]], a zero row where slot_tok[s] is not in
+    [0, T): the plain version of the MoE dispatch gather. x [T, D];
+    slot_tok int32 [S] (the pad is T)."""
+    t, d = x.shape
+    if t == 0:
+        return torch.zeros((slot_tok.shape[0], d), dtype=x.dtype, device=x.device)
+    ok = (slot_tok >= 0) & (slot_tok < t)
+    rows = x[slot_tok.clamp(0, t - 1).long()]
+    return torch.where(ok[:, None], rows, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,0 +1,57 @@
+"""Model configuration (``repro.models.config``): the fields the ported
+families read, and the generic ones another family's config sets."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    first_dense_layers: int = 0      # leading layers with dense FFN (deepseek-v2)
+    d_ff_dense: int = 0              # FFN width of those dense layers
+    capacity_factor: float = 1.25
+    dispatch: str = "sparse"         # sparse (sort-based) | dense (all-experts) | adaptive
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                # 0 → d_model // n_heads
+    qkv_bias: bool = False
+    sliding_window: int = 0          # 0 → full attention
+    encoder_only: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    frontend: str = "tokens"
+    frontend_dim: int = 0
+    kv_quant: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads

@@ -1,0 +1,170 @@
+"""Mixture-of-Experts with adaptive sparse/dense dispatch
+(``repro.models.moe``).
+
+* ``moe_sparse`` — sort-based dispatch, the SpMSpV analogue: each batch
+  row's (token, expert) assignments are sorted by expert, cut to the
+  expert capacity, and the expert buffer [B, E, C, D] is filled by the
+  MoE dispatch gather (kernel 7, ``kernels/ops.moe_dispatch_gather``)
+  from the slot→token plan. Only k/E of the expert compute is routed;
+  overflow tokens drop.
+* ``moe_dense`` — every expert on every token, weighted by the top-k
+  router probabilities: the SpMV analogue.
+
+``moe_ffn`` picks between them statically from the routing density
+top_k / n_experts against ``DENSE_DISPATCH_THRESHOLD``.
+
+Where the reference scatter-adds, the port writes by a fixed order with
+no atomics: the buffer by the gather's plan, the combine by summing each
+token's k contributions in ascending expert order, the order of the
+reference's serial scatter. Top-k takes a stable descending sort, so
+among equal router probabilities the lower expert id comes first, as
+``lax.top_k`` puts it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import MoEConfig
+from repro_torch.models.layers import swiglu
+
+Tensor = torch.Tensor
+
+# the paper's scale-free switch point: density above it → dense kernel
+DENSE_DISPATCH_THRESHOLD = 0.5
+
+
+def router_topk(x: Tensor, w_router: Tensor, cfg: MoEConfig) -> Tuple[Tensor, Tensor]:
+    """Softmax-then-topk router. x [..., T, D] → (probs [..., T, k] fp32,
+    ids int32)."""
+    logits = (x @ w_router).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_ids = top_p[..., :cfg.top_k], top_ids[..., :cfg.top_k]
+    top_p = top_p / torch.clamp_min(top_p.sum(dim=-1, keepdim=True), 1e-9)
+    return top_p, top_ids.to(torch.int32)
+
+
+def capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    c = int(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+class DispatchPlan(NamedTuple):
+    """The sort stage of ``moe_sparse`` for [B, T] tokens routed top-k
+    over E experts with capacity C; every [B, T·k] field is in expert
+    order (stable, so token order within an expert)."""
+    order: Tensor      # [B, T·k] int64: assignment index (tok·k + rank) in sorted position
+    s_ids: Tensor      # [B, T·k] int32: expert
+    s_tok: Tensor      # [B, T·k] int64: token within the row
+    pos_in_grp: Tensor  # [B, T·k] int64: place within the expert's group
+    keep: Tensor       # [B, T·k] bool: pos_in_grp < C (capacity drop)
+    slot_tok: Tensor   # [B·E·C] int32: b·T + tok for each buffer slot, the pad B·T
+
+
+def dispatch_plan(top_ids: Tensor, n_experts: int, c: int) -> DispatchPlan:
+    """Stable per-row sort by expert id, ``searchsorted`` group starts,
+    the capacity cut, and the slot→token map of the flat buffer
+    [B·E·C]: slot (b, e, p) is b·E·C + e·C + p."""
+    b, t, k = top_ids.shape
+    dev = top_ids.device
+    flat_ids = top_ids.reshape(b, t * k)
+    order = torch.argsort(flat_ids, dim=1, stable=True)
+    s_ids = torch.gather(flat_ids, 1, order)
+    s_tok = order // k
+    experts = torch.arange(n_experts, dtype=s_ids.dtype, device=dev).expand(b, n_experts)
+    grp_start = torch.searchsorted(s_ids.contiguous(), experts.contiguous(), side="left")
+    pos_in_grp = (torch.arange(t * k, device=dev)[None]
+                  - torch.gather(grp_start, 1, s_ids.long()))
+    keep = pos_in_grp < c
+    rows = torch.arange(b, device=dev)[:, None]
+    n_slots = b * n_experts * c
+    # a dropped assignment writes to one spare slot past the end, so the
+    # plan is built without a host sync on the number kept
+    slot = torch.where(keep, rows * (n_experts * c) + s_ids.long() * c + pos_in_grp, n_slots)
+    slot_tok = torch.full((n_slots + 1,), b * t, dtype=torch.int32, device=dev)
+    slot_tok.scatter_(0, slot.reshape(-1), (rows * t + s_tok).reshape(-1).to(torch.int32))
+    return DispatchPlan(order, s_ids, s_tok, pos_in_grp, keep, slot_tok[:n_slots])
+
+
+def moe_sparse(x: Tensor, w_router: Tensor, w1: Tensor, w3: Tensor, w2: Tensor,
+               cfg: MoEConfig) -> Tensor:
+    """Sort-based dispatch. x [T, D] or [B, T, D] (each batch row routed
+    with its own capacity(T)); w1/w3 [E, D, F], w2 [E, F, D]."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[None]
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    c = capacity(t, cfg)
+    top_p, top_ids = router_topk(x, w_router, cfg)                    # [B, T, k]
+    plan = dispatch_plan(top_ids, e, c)
+
+    # kernel 7: buf[b, e, p] = x[b, tok] for each kept assignment, else 0
+    buf = ops.moe_dispatch_gather(x.reshape(b * t, d), plan.slot_tok).view(b, e, c, d)
+
+    # expert FFN on the compact buffer (SwiGLU)
+    h = F.silu(torch.einsum("becd,edf->becf", buf, w1))
+    g = torch.einsum("becd,edf->becf", buf, w3)
+    out = torch.einsum("becf,efd->becd", h * g, w2)
+
+    # combine: each assignment's output row, weighted by its router prob
+    rows = torch.arange(b, device=x.device)[:, None]
+    safe_e = torch.where(plan.keep, plan.s_ids.long(), 0)
+    safe_c = torch.where(plan.keep, plan.pos_in_grp, 0)
+    s_p = torch.gather(top_p.reshape(b, t * k), 1, plan.order)
+    contrib = out[rows, safe_e, safe_c] * s_p[..., None].to(out.dtype)
+    contrib = torch.where(plan.keep[..., None], contrib, torch.zeros((), dtype=out.dtype,
+                                                                     device=x.device))
+    # each token's k sorted positions, ascending = ascending expert id
+    inv = torch.argsort(plan.order, dim=1)
+    where = inv.view(b, t, k).sort(dim=2).values.reshape(b, t * k)
+    per_tok = torch.gather(contrib, 1, where[..., None].expand(b, t * k, d)).view(b, t, k, d)
+    y = per_tok[:, :, 0]
+    for j in range(1, k):
+        y = y + per_tok[:, :, j]
+    y = y.to(x.dtype)
+    return y[0] if squeeze else y
+
+
+def moe_dense(x: Tensor, w_router: Tensor, w1: Tensor, w3: Tensor, w2: Tensor,
+              cfg: MoEConfig) -> Tensor:
+    """All-experts dispatch: every expert on every token, weighted by the
+    (top-k masked) router probabilities. x [..., T, D]."""
+    top_p, top_ids = router_topk(x, w_router, cfg)
+    w_tok = torch.zeros(x.shape[:-1] + (cfg.n_experts,), dtype=top_p.dtype, device=x.device)
+    w_tok.scatter_(-1, top_ids.long(), top_p)
+    h = F.silu(torch.einsum("...td,edf->...tef", x, w1))
+    g = torch.einsum("...td,edf->...tef", x, w3)
+    out = torch.einsum("...tef,efd->...ted", h * g, w2)
+    return torch.einsum("...ted,...te->...td", out, w_tok.to(out.dtype)).to(x.dtype)
+
+
+def uses_dense(cfg: MoEConfig) -> bool:
+    density = cfg.top_k / cfg.n_experts
+    return cfg.dispatch == "dense" or (cfg.dispatch == "adaptive"
+                                       and density > DENSE_DISPATCH_THRESHOLD)
+
+
+def moe_ffn(x: Tensor, moe_params, cfg: MoEConfig) -> Tensor:
+    """Routed experts (+ shared experts, deepseek-style). x [..., D]; a 3-D
+    [B, T, D] input is routed per batch row: natively batched on the
+    sparse path (the reference's single-device regime), row by row on the
+    dense one."""
+    fn = moe_dense if uses_dense(cfg) else moe_sparse
+
+    def routed(xt: Tensor) -> Tensor:
+        return fn(xt, moe_params["router"], moe_params["w1"], moe_params["w3"],
+                  moe_params["w2"], cfg)
+
+    if x.dim() == 3:
+        y = routed(x)
+    else:
+        y = routed(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+    if cfg.n_shared:
+        y = y + swiglu(x, moe_params["shared_w1"], moe_params["shared_w3"],
+                       moe_params["shared_w2"])
+    return y

@@ -1,7 +1,9 @@
 """The CUDA tile kernels on the card, held to their plain versions and the
 fused kernels also to the unfused ones (``torch.equal`` where pad ⊗ x is
 the ⊕-identity, as the inputs here make it); the masked tile SpGEMM and
-the triangle count on the card against the host. Needs
+the triangle count on the card against the host; the MoE dispatch gather
+(``torch.equal`` to its plain version, bf16 and f32, aligned and
+misaligned rows) and one MoE layer on the card against the host. Needs
 an NVIDIA GPU with nvcc; elsewhere every test here skips. On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -251,3 +253,91 @@ def test_spgemm_wrapper_rejects_operands_on_two_devices(cuda):
     with pytest.raises(ValueError, match="operands on"):
         semiring_spgemm_padded(tiles, torch.zeros((2, 3), dtype=torch.int32), b, mask, sr=sr,
                                bn=16)
+
+
+# ------------------------------------------------- kernel 7, MoE dispatch gather
+
+
+def _gather_case(device, dtype, t, s, d, pads, offset=0):
+    """x [t, d] of ``dtype`` starting ``offset`` elements into its storage
+    (so offset > 0 misaligns the pointer), and a slot_tok [s] with a
+    ``pads`` share of pad slots (== t)."""
+    gen = torch.Generator(device=device).manual_seed(t * 7 + s + d)
+    base = torch.randn(t * d + offset, generator=gen, device=device).to(dtype)
+    x = base[offset:].view(t, d)
+    tok = torch.randint(0, t, (s,), generator=gen, device=device, dtype=torch.int32)
+    pad = torch.rand(s, generator=gen, device=device) < pads
+    return x, torch.where(pad, t, tok).to(torch.int32)
+
+
+@pytest.mark.parametrize("d", [128, 2048, 100, 3])
+@pytest.mark.parametrize("s", [1, 7, 2048, 16384])
+@pytest.mark.parametrize("pads", [0.0, 0.5, 1.0], ids=["no-pads", "half-pads", "all-pads"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_moe_dispatch_gather_matches_plain_version(cuda, dtype, pads, s, d):
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+
+    x, tok = _gather_case(cuda, dtype, 512, s, d, pads)
+    before = moe_dispatch_gather.launches
+    got = moe_dispatch_gather(x, tok)
+    assert moe_dispatch_gather.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.moe_dispatch_gather_ref(x, tok))
+    if pads == 1.0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_moe_dispatch_gather_misaligned_pointer(cuda, dtype, offset):
+    """A row of 2048 elements whose base pointer is off 16 bytes takes the
+    element-wise path and gives the same rows."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+
+    x, tok = _gather_case(cuda, dtype, 64, 300, 2048, 0.3, offset=offset)
+    assert x.data_ptr() % 16
+    got = moe_dispatch_gather(x, tok)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.moe_dispatch_gather_ref(x, tok))
+
+
+def test_moe_dispatch_gather_rejects_bad_operands(cuda):
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+
+    x = torch.zeros((4, 128), device=cuda)
+    tok = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="operands on"):
+        moe_dispatch_gather(x, tok.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        moe_dispatch_gather(x, tok.long())
+    with pytest.raises(TypeError):
+        moe_dispatch_gather(x.int(), tok)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_dispatch_gather(x.T, tok)
+
+
+def test_moe_layer_on_the_card_matches_the_host(cuda):
+    """One sparse MoE layer in f32 (TF32 off) through kernel 7 on the card
+    against the same layer's plain path on the host."""
+    from repro_torch.models.config import MoEConfig
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+
+    cfg = MoEConfig(n_experts=16, top_k=2, d_ff_expert=64, capacity_factor=1.0)
+    rng = np.random.default_rng(0)
+    d = 128
+    p = {"router": rng.standard_normal((d, 16)), "w1": rng.standard_normal((16, d, 64)) / 11,
+         "w3": rng.standard_normal((16, d, 64)) / 11, "w2": rng.standard_normal((16, 64, d)) / 8}
+    x = rng.standard_normal((3, 40, d))
+    host = {k: torch.from_numpy(v.astype(np.float32)) for k, v in p.items()}
+    card = {k: v.to(cuda) for k, v in host.items()}
+    xt = torch.from_numpy(x.astype(np.float32))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = moe_dispatch_gather.launches
+        y = moe_ffn(xt.to(cuda), card, cfg)
+        assert moe_dispatch_gather.launches == before + 1
+        torch.testing.assert_close(y.cpu(), moe_ffn(xt, host, cfg), rtol=1e-4, atol=1e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither ``jax`` nor ``repro``, and its
 entry points refuse to run on the host unless asked to."""
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -134,3 +135,28 @@ def test_chip_smoke_refuses_to_run_without_cuda():
                          text=True, timeout=120, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_lm_entry_points_raise_without_a_gpu(monkeypatch):
+    from repro_torch.convert import mla_cache_from_numpy, model_params_from_numpy
+    from repro_torch.models.transformer import Model, build_model
+    from repro_torch.models.zoo import get_config, reduced_config
+    from repro_torch.serve.engine import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config("deepseek-v2-lite-16b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(get_config("deepseek-v2-lite-16b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_params_from_numpy(cfg, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mla_cache_from_numpy(np.zeros((1, 1, 2, 4)), np.zeros((1, 1, 2, 2)), np.zeros(1),
+                             torch.float32)
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model)
+    assert ServingEngine(model, device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(dataclasses.replace(cfg, family="dense"), device="cpu")
