@@ -32,22 +32,32 @@ Phases:
      ELL-of-tiles copy (106 GB) does not fit the card: kernel 4 for ⟨+,×⟩
      on integer values, equal to a numpy integer oracle, and for ⟨∨,∧⟩,
      equal to the CSR SpMV; both also held to the plain version.
-  9. Masked tile SpGEMM (kernel 6) against its plain version on full-size
-     ca-Q (n=5,242): A its adjacency, B dense [n, n] and a mask of density
-     0.4, in each semiring's safe domain, masked and unmasked, at 16×16,
-     64×64 and 128×128 tiles, plus a case for ⟨+,×⟩ and ⟨min,×⟩ where the
-     pad products are NaN. Exact (NaN where NaN) for the integer and min
-     semirings, ⟨+,×⟩ within rtol 1e-5, atol 1e-6. Kernel and plain times
-     on the 64×64 ⟨+,∧⟩ masked case.
+  9. Masked tile SpGEMM on full-size ca-Q (n=5,242): A its adjacency, B
+     dense [n, n] and a mask of density 0.4, in each semiring's safe
+     domain, masked and unmasked, at 16×16, 64×64 and 128×128 tiles,
+     through the front door ``ops.semiring_spgemm``, which must launch
+     the tensor-core variant (kernel 6b) for the 0/1 ⟨+,∧⟩ and ⟨∨,∧⟩
+     cases and kernel 6 for the others: the float semirings, a case for
+     ⟨+,×⟩ and ⟨min,×⟩ where the pad products are NaN, and ⟨+,∧⟩ with B
+     in 0..8 or a negative row under tile-column 0. Kernel 6 against its
+     plain version, exact (NaN where NaN) for the integer and min
+     semirings, ⟨+,×⟩ within rtol 1e-5, atol 1e-6; kernel 6b
+     ``torch.equal`` to its plain version and to kernel 6. Kernel, plain
+     and bound times of both on the 64×64 ⟨+,∧⟩ masked case.
  10. Whole-graph analytics on full-size cit-HP: ``triangle_count(impl=
-     "bsr", block=(64, 64))`` (total equal to ``triangle_reference``,
-     per-edge counts equal to scipy's exact (L·Lᵀ) ⊙ L and to the dense
-     fp32 matmul yardstick), and through ``build_engine(fmt="bsr")``
-     connected components (⟨min,×⟩, equal to ``cc_reference``), k-core
-     (⟨+,×⟩, equal to ``kcore_reference``) and PageRank (within rtol
-     1e-3, atol 1e-6 of ``pagerank_reference``). Per app: wall ms,
-     iterations, launches of kernels 1 and 6, peak memory. Kernel 6's time
-     (median of 3), bound and the matmul's time on the triangle operands.
+     "bsr", block=(64, 64))``, which must launch kernel 6b and not kernel
+     6 (total equal to ``triangle_reference``, per-edge counts equal to
+     scipy's exact (L·Lᵀ) ⊙ L, to ``torch._int_mm(L8, L8ᵀ) * L`` and to
+     the dense fp32 matmul yardstick), and through
+     ``build_engine(fmt="bsr")`` connected components (⟨min,×⟩, equal to
+     ``cc_reference``), k-core (⟨+,×⟩, equal to ``kcore_reference``) and
+     PageRank (within rtol 1e-3, atol 1e-6 of ``pagerank_reference``).
+     Per app: wall ms, iterations, launches of kernels 1, 6 and 6b, peak
+     memory. On the triangle operands: kernel 6b's time (median of 5, the
+     int8 packing included), kernel 6's (median of 3), their bounds from
+     ``ops.spgemm_stream_stats``, the two library calls' times (casts
+     included), and the app's wall split into operand preparation, the
+     front door's 0/1 test, packing, grouping and the kernel alone.
  11. MoE dispatch gather (kernel 7) against its plain version with
      ``torch.equal`` at D = 2048 in bf16 and f32, on a decode-shaped plan
      (S = 4·64·8 = 2,048 slots, 24 valid) and a prefill-shaped plan
@@ -69,15 +79,17 @@ Phases:
      same experts, pick the same tokens, and give logits within rtol
      1e-3, atol 1e-4.
 
-Launch counters: all seven are set to 0 before phase 3 and kernels 1–2
+Launch counters: all eight are set to 0 before phase 3 and kernels 1–2
 read after phase 4. In phases 6–8 every call of the fused path, in
-phase 10 every app and in phase 12 each serving run, runs with the
-counters set to 0 just before it and read just after; the comparisons
-and timings in between are not counted. The run fails unless kernels 1–2
-launched in phases 3–4, kernels 3–5 in phases 6–8, kernel 6 on phase 10's
-triangle path, kernel 1 on its CC and k-core paths and kernel 7 on the
-serving path. Any mismatch raises, so the run exits non-zero without the
-final ``{"ok": true, ...}`` line.
+phase 9 every front-door SpGEMM, in phase 10 every app and in phase 12
+each serving run, runs with the counters set to 0 just before it and
+read just after; the comparisons and timings in between are not
+counted. The run fails unless kernels 1–2 launched in phases 3–4,
+kernels 3–5 in phases 6–8, kernels 6 and 6b in phase 9 (each for the
+cases it is chosen for), kernel 6b alone on phase 10's triangle path,
+kernel 1 on its CC and k-core paths and kernel 7 on the serving path.
+Any mismatch raises, so the run exits non-zero without the final
+``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -95,6 +107,7 @@ FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 # H100 SXM int32 on the CUDA cores: 64 INT32 lanes per SM per clock
 # (Hopper architecture white paper) × 132 SMs × 1.98 GHz
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 DENSITIES = (0.001, 0.05, 0.6)
 RTX_MAX_ITERS = 256
 PROMPT_LENS = (17, 64, 200, 511)
@@ -397,6 +410,9 @@ def main() -> int:
         semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
     )
     from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+    from repro_torch.core.spgemm import spgemm_masked
+    from repro_torch.kernels import spgemm_binary
+    from repro_torch.kernels.spgemm_binary import semiring_spgemm_binary
     from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
     from repro_torch.models.zoo import get_config
     from repro_torch.kernels.spmspv_tiles import (
@@ -407,7 +423,8 @@ def main() -> int:
     kernels = (semiring_spmv_padded, semiring_spmspv_padded)
     fused_kernels = (semiring_spmv_fused_padded, semiring_spmv_sell,
                      semiring_spmspv_fused_padded)
-    all_kernels = kernels + fused_kernels + (semiring_spgemm_padded, moe_dispatch_gather)
+    all_kernels = kernels + fused_kernels + (semiring_spgemm_padded, semiring_spgemm_binary,
+                                             moe_dispatch_gather)
 
     # ---------------------------------------------------------------- 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -815,16 +832,20 @@ def main() -> int:
         launches[k.__name__] = tally[k.__name__]
 
     # ---------------------------------------------------------------- 9
-    def spgemm_bound(a, bp, mk, meta, sr) -> tuple[float, str, int]:
-        """Bound of one masked tile SpGEMM: tiles, meta, the active list, B,
-        the mask and the output once each, against 2 operations per ⊗/⊕
-        pair over every slot (pads included) of every active output tile,
-        at the int32 or fp32 rate of the CUDA cores."""
-        mb, t, bm, bk = a.tiles.shape
-        n_active = int(meta[:, t:].sum())
-        nbytes = 4 * (a.tiles.numel() + meta.numel() + 2 * n_active + bp.numel() + 2 * mk.numel())
+    spgemm_kernels = (semiring_spgemm_padded, semiring_spgemm_binary)
+
+    def spgemm_bounds(a, bp, mk, meta, sr) -> dict:
+        """Bounds of one masked tile SpGEMM from ``ops.spgemm_stream_stats``:
+        kernel 6 folds every slot (pads included) of each active output
+        tile at the int32 or fp32 rate of the CUDA cores; the variant only
+        the real slots, at the int8 tensor-core rate; the bytes each needs
+        read or written once."""
+        st = ops.spgemm_stream_stats(a, meta, bp, mk)
         rate = INT32_OPS_PER_S if sr.dtype == torch.int32 else FP32_OPS_PER_S
-        return (*bound(nbytes, 2 * n_active * t * bm * bk * bm, rate), n_active)
+        return {"semiring_spgemm_padded": bound(st["bytes"], st["ops"], rate),
+                "semiring_spgemm_binary": bound(st["real_bytes"], 2 * st["real_macs"],
+                                                INT8_OPS_PER_S),
+                "stats": st}
 
     def spgemm_domain(sr, n: int, gen):
         """A's values, a dense B [n, n] and a mask [n, n] of density 0.4 in
@@ -846,7 +867,10 @@ def main() -> int:
         return vals, b, mask
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    worst["semiring_spgemm_padded"] = 0.0
+    for k in spgemm_kernels:
+        worst[k.__name__] = 0.0
+    tally = {k.__name__: 0 for k in all_kernels}
+    spgemm_rows = {}
     for name, sr in SEMIRINGS.items():
         vals, b, mask = spgemm_domain(sr, caq.n, gen)
         for block in ((16, 16), (64, 64), (128, 128)):
@@ -862,33 +886,70 @@ def main() -> int:
                 bnan = bpad.clone()
                 bnan[3, ::7] = float("inf") if name == "plus_times" else 0.0
                 cases.append(("pad-nan", bnan, mpad))
+                del bnan
+            if name == "plus_and" and block == (64, 64):
+                # values past {0, 1} take kernel 6: B in 0..8, and a negative
+                # row under tile-column 0, where min(pad, b) = -1 is not the
+                # ⊕-identity and the pads are part of the function
+                b08 = bpad.clone()
+                b08[: caq.n] = torch.randint(0, 9, (caq.n, caq.n), generator=gen, device=dev,
+                                             dtype=torch.int32)
+                bneg = bpad.clone()
+                bneg[3, ::7] = -1
+                cases += [("b-0..8", b08, mpad), ("neg-row", bneg, mpad)]
+                del b08, bneg
             for label, bb, mm in cases:
-                bp, mk, meta, bn, _ = ops._spgemm_operands(a, bb, sr, mm)
+                y_front = main_path(lambda: ops.semiring_spgemm(a, bb, sr, mm))
+                binary = (name in spgemm_binary.SEMIRINGS
+                          and label in ("masked", "unmasked"))
+                want = {"semiring_spgemm_padded": int(not binary),
+                        "semiring_spgemm_binary": int(binary)}
+                what = f"spgemm {name} ca-Q {block} {label}"
+                moved = {k.__name__: k.launches for k in spgemm_kernels}
+                check(moved == want, f"{what}: the front door launched {moved}, not {want}")
+                bp, mk, meta, bn, n = ops._spgemm_operands(a, bb, sr, mm)
                 y = semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr, bn=bn)
                 y_plain = ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn)
-                what = f"spgemm {name} ca-Q {block} {label}"
                 err = compare(y, y_plain, sr, what, nan=label == "pad-nan")
                 worst["semiring_spgemm_padded"] = max(worst["semiring_spgemm_padded"], err)
                 if label == "pad-nan":
                     check(bool(torch.isnan(y).any()), f"{what}: no NaN")
+                if binary:
+                    yb = semiring_spgemm_binary(a.tiles, meta, bp, mk, sr=sr, bn=bn)
+                    yb_plain = ref.spgemm_binary_ref(a.tiles, meta, bp, mk, sr, bn)
+                    same(yb, yb_plain, f"{what}: the variant differs from its plain version")
+                    same(yb, y, f"{what}: the variant differs from kernel 6")
+                    same(y_front, yb[:, :n], f"{what}: the front door differs from the variant")
+                    del yb, yb_plain
+                else:
+                    compare(y_front, y[:, :n], sr, f"{what}: the front door",
+                            nan=label == "pad-nan")
                 if name == "plus_and" and block == (64, 64) and label == "masked":
-                    bound_ms, bound_by, n_active = spgemm_bound(a, bp, mk, meta, sr)
-                    row = {"kernel": "semiring_spgemm_padded", "semiring": name, "graph": "ca-Q",
-                           "tiles": list(a.tiles.shape), "n_active": n_active,
-                           "max_abs_err": err,
-                           "ms": time_ms(lambda: semiring_spgemm_padded(a.tiles, meta, bp, mk,
-                                                                        sr=sr, bn=bn)),
-                           "plain_ms": time_ms(lambda: ref.spgemm_padded_ref(a.tiles, meta, bp,
-                                                                            mk, sr, bn), reps=3),
-                           "bound_ms": bound_ms, "bound_by": bound_by}
-                    print(json.dumps(row))
-                    spgemm_plain_ms = row["plain_ms"]
-                del bp, mk, meta, y, y_plain
+                    bounds = spgemm_bounds(a, bp, mk, meta, sr)
+                    for k, plain in ((semiring_spgemm_padded, ref.spgemm_padded_ref),
+                                     (semiring_spgemm_binary, ref.spgemm_binary_ref)):
+                        row = {"kernel": k.__name__, "semiring": name, "graph": "ca-Q",
+                               "tiles": list(a.tiles.shape),
+                               "n_active": bounds["stats"]["n_active"],
+                               "max_abs_err": worst[k.__name__],
+                               "ms": time_ms(lambda: k(a.tiles, meta, bp, mk, sr=sr, bn=bn)),
+                               "plain_ms": time_ms(lambda: plain(a.tiles, meta, bp, mk, sr, bn),
+                                                   reps=3),
+                               "bound_ms": bounds[k.__name__][0],
+                               "bound_by": bounds[k.__name__][1]}
+                        print(json.dumps(row))
+                        spgemm_rows[k.__name__] = row
+                del bp, mk, meta, y, y_plain, y_front, bb, mm
             del a, bpad, mpad, cases
-        print(f"phase 9: ca-Q kernel 6 {name}: masked, unmasked at 16x16, 64x64, 128x128 "
-              "match the plain version")
+        print(f"phase 9: ca-Q {name}: masked, unmasked at 16x16, 64x64, 128x128 through the "
+              "front door, which took the tensor-core variant exactly for the 0/1 cases; "
+              "every output matches the plain versions")
         del b, mask
         torch.cuda.empty_cache()
+    print(f"phase 9: launches through the front door {json.dumps(tally)}")
+    for k in spgemm_kernels:
+        check(tally[k.__name__] > 0, f"{k.__name__} was not launched in phase 9")
+    tally9 = tally
 
     # ---------------------------------------------------------------- 10
     torch.backends.cuda.matmul.allow_tf32 = False   # the yardstick matmul in full fp32
@@ -913,7 +974,7 @@ def main() -> int:
                "wall_ms": (time.perf_counter() - t0) * 1e3,
                "iterations": getattr(res, "iterations", None),
                "launches": {k.__name__: k.launches for k in (semiring_spmv_padded,
-                                                             semiring_spgemm_padded)},
+                                                             *spgemm_kernels)},
                "max_memory_allocated": torch.cuda.max_memory_allocated()}
         for k in all_kernels:
             tally[k.__name__] += k.launches
@@ -926,8 +987,9 @@ def main() -> int:
     tally = {k.__name__: 0 for k in all_kernels}
     tri = run_app("triangle_count", None,
                   lambda _: triangle_count(cit, impl="bsr", block=(64, 64), device=dev))
-    check(apps["triangle_count"]["launches"]["semiring_spgemm_padded"] > 0,
-          "kernel 6 was not launched on the triangle path")
+    moved = {k: apps["triangle_count"]["launches"][k.__name__] for k in spgemm_kernels}
+    check(moved[semiring_spgemm_binary] == 1 and moved[semiring_spgemm_padded] == 0,
+          f"the triangle path launched {moved}, not the tensor-core variant alone")
     want_total = triangle_reference(cit.rows, cit.cols, cit.n)
     check(int(tri.total) == want_total,
           f"cit-HP triangles {int(tri.total)} != triangle_reference {want_total}")
@@ -943,28 +1005,85 @@ def main() -> int:
     print(f"phase 10: cit-HP triangle count {want_total} equals triangle_reference; per-edge "
           f"counts equal scipy's ({want.nnz} nonzero)")
 
+    # the app's wall, split into operand preparation and the SpGEMM call,
+    # and the call into the front door's test, packing, grouping and kernel
+    split = {}
+    t0 = time.perf_counter()
     a, b, mask, _ = triangle_problem(cit, "bsr", (64, 64), device=dev)
+    torch.cuda.synchronize()
+    split["prepare_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    c = spgemm_masked(a, b, PLUS_AND, mask)
+    torch.cuda.synchronize()
+    split["spgemm_ms"] = (time.perf_counter() - t0) * 1e3
+    same(c[: cit.n], tri.per_edge, "the split triangle run differs from the app's")
     bp, mk, meta, bn, _ = ops._spgemm_operands(a, b, PLUS_AND, mask)
-    del b, mask
-    bound_ms, bound_by, n_active = spgemm_bound(a, bp, mk, meta, PLUS_AND)
+    del b, mask, c
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(ops._binary_operands(a, bp, PLUS_AND), "the triangle operands are not 0/1")
+    split["check_ms"] = (time.perf_counter() - t0) * 1e3
+    t = a.tiles.shape[1]
+    g = spgemm_binary.group_size(64)
+    split["pack_ms"] = time_ms(lambda: spgemm_binary.pack(a.tiles, bp), reps=3)
+    split["group_ms"] = time_ms(lambda: spgemm_binary.group_tiles(meta, t, g), reps=3)
+    a8, bt8 = spgemm_binary.pack(a.tiles, bp)
+    active, groups = spgemm_binary.group_tiles(meta, t, g)
+    n_real = ref.ell_n_real(meta[:, :t])
+    out = torch.zeros_like(mk)
+    split["kernel_ms"] = time_ms(lambda: spgemm_binary._launch(a8, bt8, n_real, active, groups,
+                                                               meta, mk, out, PLUS_AND), reps=5)
+    same(out[: cit.n, : cit.n], tri.per_edge, "the variant's kernel alone differs")
+    split["groups"] = groups.shape[0]
+    del a8, bt8, active, groups, out
+    bounds = spgemm_bounds(a, bp, mk, meta, PLUS_AND)
     tiles_shape = list(a.tiles.shape)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    binary_ms = time_ms(lambda: semiring_spgemm_binary(a.tiles, meta, bp, mk, sr=PLUS_AND,
+                                                       bn=bn), reps=5)
+    split["variant_extra_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    y6 = semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=PLUS_AND, bn=bn)
+    same(y6[: cit.n, : cit.n], tri.per_edge, "kernel 6 differs on the triangle operands")
+    del y6
     spgemm_ms = time_ms(lambda: semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=PLUS_AND, bn=bn),
                         reps=3, warmup=0)
-    lmat_f, lmat_t = mk[: cit.n, : cit.n].float(), bp[: cit.n, : cit.n].float()
-    del a, bp, mk, meta
+
+    def int_mm():
+        """The exact int8 library product (L·Lᵀ) ⊙ L, the cast included."""
+        l8 = mk.to(torch.int8)
+        return torch._int_mm(l8, l8.t()) * mk
+
+    def fp32_matmul():
+        """The dense fp32 yardstick, TF32 off, the casts included."""
+        lf = mk.float()
+        return torch.matmul(lf, bp.float()) * lf
+
+    del a, meta
     torch.cuda.empty_cache()
-    check(torch.equal((torch.matmul(lmat_f, lmat_t) * lmat_f).to(torch.int32), tri.per_edge),
-          "the fp32 matmul yardstick differs from the per-edge counts")
-    lib_ms = time_ms(lambda: torch.matmul(lmat_f, lmat_t) * lmat_f, reps=3, warmup=1)
-    del lmat_f, lmat_t, tri
+    same(int_mm()[: cit.n, : cit.n], tri.per_edge, "torch._int_mm differs from the per-edge counts")
+    int_mm_ms = time_ms(int_mm, reps=3, warmup=1)
+    same(fp32_matmul()[: cit.n, : cit.n].to(torch.int32), tri.per_edge,
+         "the fp32 matmul yardstick differs from the per-edge counts")
+    fp32_ms = time_ms(fp32_matmul, reps=3, warmup=1)
+    del bp, mk, tri
     torch.cuda.empty_cache()
-    summary["semiring_spgemm_padded"] = {"ms": spgemm_ms, "plain_ms": spgemm_plain_ms,
-                                         "bound_ms": bound_ms, "bound_by": bound_by,
-                                         "library_ms": lib_ms}
-    print(json.dumps({"kernel": "semiring_spgemm_padded", "semiring": "plus_and",
-                      "graph": "cit-HP", "tiles": tiles_shape, "n_active": n_active,
-                      "ms": spgemm_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": lib_ms, "plain_ms_ca_q_64": spgemm_plain_ms}))
+    st = bounds["stats"]
+    for k, ms in ((semiring_spgemm_padded, spgemm_ms), (semiring_spgemm_binary, binary_ms)):
+        bound_ms, bound_by = bounds[k.__name__]
+        summary[k.__name__] = {"ms": ms, "plain_ms": spgemm_rows[k.__name__]["plain_ms"],
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "library_ms": int_mm_ms}
+        print(json.dumps({"kernel": k.__name__, "semiring": "plus_and", "graph": "cit-HP",
+                          "tiles": tiles_shape, "n_active": st["n_active"],
+                          "real_slots": st["real_slots"], "ms": ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                          "int_mm_ms": int_mm_ms, "fp32_matmul_ms": fp32_ms,
+                          "plain_ms_ca_q_64": spgemm_rows[k.__name__]["plain_ms"]}))
+    split["app_wall_ms"] = apps["triangle_count"]["wall_ms"]
+    split["real_macs"], split["real_bytes"] = st["real_macs"], st["real_bytes"]
+    print(json.dumps({"phase": 10, "triangle_split": split}))
 
     res = run_app("connected_components", MIN_TIMES, connected_components)
     check(np.array_equal(res.labels.cpu().numpy(), cc_reference(cit.rows, cit.cols, cit.n)),
@@ -981,7 +1100,8 @@ def main() -> int:
                                rtol=1e-3, atol=1e-6)
     del res
     print("phase 10: cit-HP CC, k-core and PageRank match the references")
-    launches["semiring_spgemm_padded"] = tally["semiring_spgemm_padded"]
+    for k in spgemm_kernels:
+        launches[k.__name__] = tally9[k.__name__] + tally[k.__name__]
     launches["semiring_spmv_padded"] += tally["semiring_spmv_padded"]
 
     # ---------------------------------------------------------------- 11, 12, 13
@@ -1003,6 +1123,8 @@ def main() -> int:
                "semiring_spmspv_fused_padded": ("src/repro_torch/kernels/csrc/spmspv_fused.cu",
                                                 "src/repro/kernels/spmspv_tiles.py:108"),
                "semiring_spgemm_padded": ("src/repro_torch/kernels/csrc/spgemm_tiles.cu",
+                                          "src/repro/kernels/spgemm_tiles.py:77"),
+               "semiring_spgemm_binary": ("src/repro_torch/kernels/csrc/spgemm_binary.cu",
                                           "src/repro/kernels/spgemm_tiles.py:77"),
                "moe_dispatch_gather": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
                                        "src/repro/kernels/moe_dispatch.py:45")}

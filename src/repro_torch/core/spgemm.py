@@ -8,9 +8,11 @@ PyTorch counterpart of ``repro.core.spgemm``, with the same three paths:
 * ``spgemm_blocked``      — dense-blocked reference: ⊕-accumulate over
   K-blocks (a host loop where the JAX package scans).
 * PaddedBSR               — the masked tile SpGEMM
-  (``kernels/spgemm_tiles.py``): a hand-written CUDA kernel on the card,
-  its plain PyTorch version on the host. Only output tiles with a
-  non-empty mask tile are computed.
+  (``kernels/spgemm_tiles.py``, and for 0/1 operands under ⟨+,∧⟩ and
+  ⟨∨,∧⟩ its tensor-core variant ``kernels/spgemm_binary.py``, chosen by
+  ``kernels/ops.py::semiring_spgemm``): hand-written CUDA kernels on the
+  card, their plain PyTorch versions on the host. Only output tiles with
+  a non-empty mask tile are computed.
 
 The mask ⊙ is *structural* (GraphBLAS semantics): C keeps its value where
 ``mask != sr.zero`` and collapses to the ⊕-identity elsewhere. B and the
@@ -107,8 +109,9 @@ def spgemm_masked(a, b_dense: Tensor, sr: Semiring, mask: Tensor | None = None,
     """Dispatch on A's container (mirrors core.spmv.spmv):
 
     COO/CSR     -> spgemm_sparse_dense + mask
-    PaddedBSR   -> the masked tile SpGEMM (kernels/spgemm_tiles.py);
-                   impl="ref" selects its plain version
+    PaddedBSR   -> the masked tile SpGEMM (kernels/ops.py::semiring_spgemm
+                   picks kernel 6 or its tensor-core variant); impl="ref"
+                   selects kernel 6's plain version
     dense Tensor -> spgemm_blocked
     """
     if isinstance(a, (COOMatrix, CSRMatrix)):

@@ -14,6 +14,8 @@ Each C signature has its own loader, which sets the ctypes argument types:
   ``semiring_spmv.cu``, ``spmspv_tiles.cu``, ``semiring_spmv_fused.cu``,
   ``semiring_spmv_sell.cu``, ``spmspv_fused.cu``;
 * ``spgemm_kernel`` — the masked tile SpGEMM, ``spgemm_tiles.cu``;
+* ``spgemm_binary_kernel`` — its tensor-core variant for 0/1 operands,
+  ``spgemm_binary.cu``;
 * ``moe_dispatch_kernel`` — the MoE dispatch row gather,
   ``moe_dispatch.cu``.
 
@@ -35,7 +37,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("semiring_spmv.cu", "spmspv_tiles.cu", "semiring_spmv_fused.cu",
            "semiring_spmv_sell.cu", "spmspv_fused.cu", "spgemm_tiles.cu",
-           "moe_dispatch.cu")
+           "spgemm_binary.cu", "moe_dispatch.cu")
 HEADERS = ("tile_fold.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -115,6 +117,22 @@ def spgemm_kernel():
     T, nb, bm, bk, semiring code, stream)."""
     return _entry("spgemm_tiles.cu", "semiring_spgemm_padded",
                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def spgemm_binary_kernel():
+    """The tensor-core SpGEMM for 0/1 operands: (a8, meta, n_real, bt8,
+    mask, active, groups, out, n_groups, T, nb, kb, bm, bk, group size,
+    boolean, stream)."""
+    return _entry("spgemm_binary.cu", "semiring_spgemm_binary",
+                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def spgemm_binary_pack():
+    """The variant's packing of B: (b, bt8, k, n, stream)."""
+    return _entry("spgemm_binary.cu", "spgemm_binary_pack_bt",
+                  [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)

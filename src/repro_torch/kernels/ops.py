@@ -1,8 +1,9 @@
 """Front door of the tile kernels and the MoE dispatch gather, as
 ``repro.kernels.ops`` is for the TPU kernels: operand preparation (dtype
 casts, the fused, SpMSpV and SpGEMM metadata, the dense frontier, the
-SpGEMM padding), the plain ``*_ref`` counterparts of the unfused calls,
-and the bytes each tile kernel moves (``*_stream_stats``)."""
+SpGEMM padding), the choice between kernel 6 and its tensor-core variant
+for 0/1 operands, the plain ``*_ref`` counterparts of the unfused calls,
+and the bytes and work each tile kernel needs (``*_stream_stats``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,11 +12,12 @@ import torch
 from repro_torch.core.formats import PaddedBSR, SlicedELL
 from repro_torch.core.semiring import Semiring
 from repro_torch.core.spmspv import Frontier
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, spgemm_binary
 from repro_torch.kernels.moe_dispatch import moe_dispatch_gather as _moe_dispatch_gather
 from repro_torch.kernels.semiring_spmv import (
     semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
 )
+from repro_torch.kernels.spgemm_binary import semiring_spgemm_binary
 from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
 from repro_torch.kernels.spmspv_tiles import (
     semiring_spmspv_fused_padded, semiring_spmspv_padded,
@@ -35,17 +37,9 @@ def _check_x(x: Tensor, shape) -> None:
         raise ValueError(f"x has {x.shape[0]} entries, the matrix {shape[1]} columns")
 
 
-def _ell_n_real(tile_cols: Tensor) -> Tensor:
-    """Real (non-pad) slots per block row, from the metadata alone: the
-    builder stores real tiles first in strictly increasing tile-column order
-    and pads repeat tile-column 0, so n_real = 1 + #strict increases. A row
-    with no real tile comes out as 1: it streams one pad slot."""
-    return (1 + (tile_cols[:, 1:] > tile_cols[:, :-1]).sum(dim=1)).to(torch.int32)
-
-
 def _spmv_fused_meta(a: PaddedBSR) -> Tensor:
     """int32 [mb, 1+T] = (n_real | tile_cols) for the fused SpMV kernel."""
-    return torch.cat([_ell_n_real(a.tile_cols)[:, None], a.tile_cols], dim=1)
+    return torch.cat([ref.ell_n_real(a.tile_cols)[:, None], a.tile_cols], dim=1)
 
 
 def semiring_spmv_fused(a: PaddedBSR, x: Tensor, sr: Semiring,
@@ -139,11 +133,30 @@ def _spgemm_operands(a: PaddedBSR, b: Tensor, sr: Semiring, mask: Tensor | None)
     return bp, mk, meta, bn, n
 
 
+def _binary_operands(a: PaddedBSR, bp: Tensor, sr: Semiring) -> bool:
+    """Whether the tensor-core variant computes this product: ⟨+,∧⟩ or
+    ⟨∨,∧⟩, bm and bk multiples of 16, and every value of A's tiles and of
+    the padded B in {0, 1} (one ``aminmax`` per operand, one host sync).
+    Exact there: min(a, b) = a·b on {0, 1}; pad tiles are 0, so skipping
+    them changes nothing; int32 sums are exact in any order; ⟨∨,∧⟩ is
+    count > 0. B's column pad is ``sr.one`` = 1, so it stays 0/1."""
+    if not spgemm_binary.takes(sr, *a.block) or a.tiles.numel() == 0 or bp.numel() == 0:
+        return False
+    lo_a, hi_a = torch.aminmax(a.tiles)
+    lo_b, hi_b = torch.aminmax(bp)
+    lo, hi = torch.stack([torch.minimum(lo_a, lo_b), torch.maximum(hi_a, hi_b)]).tolist()
+    return lo >= 0 and hi <= 1
+
+
 def semiring_spgemm(a: PaddedBSR, b: Tensor, sr: Semiring, mask: Tensor | None = None) -> Tensor:
     """C = (A ⊕.⊗ B) ⊙ mask. A in ELL-of-tiles; B dense [a.shape[1], N];
-    mask dense [a.shape[0], N] or None. Output [a.shape[0], N]."""
+    mask dense [a.shape[0], N] or None. Output [a.shape[0], N]. The
+    operands decide the kernel before any launch: the tensor-core variant
+    (``kernels/spgemm_binary.py``) where ``_binary_operands`` holds, kernel
+    6 (``kernels/spgemm_tiles.py``) otherwise. Each launches or raises."""
     bp, mk, meta, bn, n = _spgemm_operands(a, b, sr, mask)
-    return semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr, bn=bn)[:, :n]
+    kernel = semiring_spgemm_binary if _binary_operands(a, bp, sr) else semiring_spgemm_padded
+    return kernel(a.tiles, meta, bp, mk, sr=sr, bn=bn)[:, :n]
 
 
 def semiring_spgemm_ref(a: PaddedBSR, b: Tensor, sr: Semiring,
@@ -212,7 +225,7 @@ def spmv_stream_stats(a: PaddedBSR) -> dict:
     """Bytes moved by the unfused against the fused SpMV on this matrix."""
     mb, t = a.tile_cols.shape
     cols = a.tile_cols.cpu().numpy()
-    real = int(_ell_n_real(a.tile_cols).sum())
+    real = int(ref.ell_n_real(a.tile_cols).sum())
     return _stream_stats(mb * t, _block_changes(cols.reshape(-1, 1)), real,
                          a.shape[1] // a.block[1] * a.block[1], real, mb, a.block,
                          a.tiles.element_size())
@@ -243,3 +256,38 @@ def spmspv_stream_stats(a: PaddedBSR, f: Frontier, sr: Semiring) -> dict:
     active = int(n_active.sum())
     return _stream_stats(_block_changes(tile_idx), _block_changes(x_seq), active, a.shape[1],
                          active, mb, a.block, a.tiles.element_size())
+
+
+def spgemm_stream_stats(a: PaddedBSR, meta: Tensor, b: Tensor, mask: Tensor) -> dict:
+    """Work and bytes of one masked tile SpGEMM on ``_spgemm_operands``'
+    output, counted on the host from the metadata. Kernel 6 folds every
+    slot of each active output tile: ``ops`` (a ⊗ and a ⊕ per MAC) and
+    ``bytes`` (tiles, meta, the active list, B, the mask read and the output
+    written once each). The tensor-core variant needs only the real slots:
+    ``real_macs`` = Σ over active tiles (i, j) of n_real(i)·bm·bk·bn, and
+    ``real_bytes`` = the real tiles, meta, the active list, the B blocks
+    that some active tile meets under a real slot, the active mask tiles,
+    and the whole output, once each at the operands' element size."""
+    mb, t, bm, bk = a.tiles.shape
+    n = b.shape[1]
+    bn = bm
+    nb, kb = n // bn, b.shape[0] // bk
+    esize = a.tiles.element_size()
+    act = (meta[:, t:] > 0).cpu().numpy()                             # [mb, nb]
+    cols = meta[:, :t].cpu().numpy()
+    n_real = ref.ell_n_real(meta[:, :t]).cpu().numpy().astype(np.int64)
+    n_active = int(act.sum())
+    uses = np.zeros((mb, kb), np.float64)                             # row i meets k-block k
+    for i in range(mb):
+        uses[i, cols[i, :n_real[i]]] = 1.0
+    b_blocks = int(((uses.T @ act.astype(np.float64)) > 0).sum())
+    index_b = 4 * (meta.numel() + 2 * n_active)
+    return {
+        "n_active": n_active,
+        "ops": 2 * n_active * t * bm * bk * bn,
+        "bytes": esize * (a.tiles.numel() + b.numel() + 2 * mask.numel()) + index_b,
+        "real_slots": int(n_real.sum()),
+        "real_macs": int((n_real * act.sum(axis=1)).sum()) * bm * bk * bn,
+        "real_bytes": esize * (int(n_real.sum()) * bm * bk + b_blocks * bk * bn
+                               + n_active * bm * bn + mb * bm * n) + index_b,
+    }

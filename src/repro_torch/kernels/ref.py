@@ -134,6 +134,57 @@ def spgemm_padded_ref(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, sr: 
     return out
 
 
+def ell_n_real(tile_cols: Tensor) -> Tensor:
+    """Real (non-pad) slots per block row, from the metadata alone: the
+    builder stores real tiles first in strictly increasing tile-column order
+    and pads repeat tile-column 0, so n_real = 1 + #strict increases. A row
+    with no real tile comes out as 1: it streams one pad slot."""
+    return (1 + (tile_cols[:, 1:] > tile_cols[:, :-1]).sum(dim=1)).to(torch.int32)
+
+
+def pack_binary_ref(tiles: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
+    """The tensor-core SpGEMM's int8 operands: A's tiles as they are and B
+    transposed to [N, K], both contiguous."""
+    return tiles.to(torch.int8), b.to(torch.int8).t().contiguous()
+
+
+def spgemm_binary_ref(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, sr: Semiring,
+                      bn: int) -> Tensor:
+    """Plain version of the tensor-core SpGEMM for 0/1 operands: the same
+    operands as ``spgemm_padded_ref``, and on them the same result. Each
+    flagged output tile sums the products of its block row's first
+    ``ell_n_real`` slots only (A tile × B block, ``torch.bmm`` in float64:
+    every partial sum is an integer far below 2⁵³, so it is exact, and the
+    card has no int32 matrix product); ⟨∨,∧⟩ keeps count > 0. Then the
+    mask, as kernel 6's."""
+    mb, t, bm, bk = tiles.shape
+    n = b.shape[1]
+    nb = n // bn
+    cols = meta[:, :t].long()
+    n_real = ell_n_real(meta[:, :t]).long()
+    active = torch.nonzero(meta[:, t:] > 0)                           # [n_act, 2]
+    out = torch.full((mb * bm, n), sr.zero, dtype=sr.dtype, device=tiles.device)
+    out_tiles = out.view(mb, bm, nb, bn)
+    b_blocks = b.view(-1, bk, nb, bn)
+    mask_tiles = mask.view(mb, bm, nb, bn)
+    chunk = max(1, SPGEMM_BROADCAST_BYTES // ((bm * bk + bk * bn + bm * bn) * 8))
+    for s in range(0, active.shape[0], chunk):
+        ii, jj = active[s:s + chunk].unbind(1)
+        real = n_real[ii]
+        acc = torch.zeros((ii.shape[0], bm, bn), dtype=torch.float64, device=tiles.device)
+        for slot in range(int(real.max())):
+            live = (slot < real).to(torch.float64)[:, None, None]
+            a = tiles[ii, slot].to(torch.float64) * live              # [c, bm, bk]
+            bb = b_blocks[cols[ii, slot], :, jj].to(torch.float64)    # [c, bk, bn]
+            acc += torch.bmm(a, bb)
+        count = acc.to(sr.dtype)
+        if sr.name == "bool_or_and":
+            count = (count > 0).to(sr.dtype)
+        keep = mask_tiles[ii, :, jj] != sr.zero
+        out_tiles[ii, :, jj] = torch.where(keep, count, sr.zero)
+    return out
+
+
 def moe_dispatch_gather_ref(x: Tensor, slot_tok: Tensor) -> Tensor:
     """out[s] = x[slot_tok[s]], a zero row where slot_tok[s] is not in
     [0, T): the plain version of the MoE dispatch gather. x [T, D];

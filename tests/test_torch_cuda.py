@@ -1,7 +1,9 @@
 """The CUDA tile kernels on the card, held to their plain versions and the
 fused kernels also to the unfused ones (``torch.equal`` where pad ⊗ x is
-the ⊕-identity, as the inputs here make it); the masked tile SpGEMM and
-the triangle count on the card against the host; the MoE dispatch gather
+the ⊕-identity, as the inputs here make it); the masked tile SpGEMM, its
+tensor-core variant for 0/1 operands (``torch.equal`` to its plain
+version and to kernel 6, the front door's choice between them) and the
+triangle count on the card against the host; the MoE dispatch gather
 (``torch.equal`` to its plain version, bf16 and f32, aligned and
 misaligned rows) and one MoE layer on the card against the host. Needs
 an NVIDIA GPU with nvcc; elsewhere every test here skips. On the card:
@@ -19,6 +21,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.semiring_spmv import (
     semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
 )
+from repro_torch.kernels.spgemm_binary import semiring_spgemm_binary
 from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
 from repro_torch.kernels.spmspv_tiles import (
     semiring_spmspv_fused_padded, semiring_spmspv_padded,
@@ -204,12 +207,96 @@ def spgemm_problem(sr, block, device, masked):
 @pytest.mark.parametrize("block", [(16, 16), (64, 64), (24, 40)])
 @pytest.mark.parametrize("name", list(SEMIRINGS))
 def test_spgemm_kernel_matches_plain_version(cuda, name, block, masked):
+    """The front door launches the tensor-core variant for ⟨+,∧⟩ and
+    ⟨∨,∧⟩ on 0/1 values at blocks that are multiples of 16, kernel 6
+    otherwise (here the duplicate edges give A values above 1, so kernel 6
+    in every case but those whose tiles came out 0/1); either equals kernel
+    6's plain version."""
     sr = SEMIRINGS[name]
     a, b, mask = spgemm_problem(sr, block, cuda, masked)
-    before = semiring_spgemm_padded.launches
+    binary = (name in ("plus_and", "bool_or_and") and block[0] % 16 == 0
+              and block[1] % 16 == 0 and int(a.tiles.max()) <= 1 and int(a.tiles.min()) >= 0)
+    before = semiring_spgemm_padded.launches, semiring_spgemm_binary.launches
     y = ops.semiring_spgemm(a, b, sr, mask)
-    assert semiring_spgemm_padded.launches == before + 1
+    moved = (semiring_spgemm_padded.launches - before[0],
+             semiring_spgemm_binary.launches - before[1])
+    assert moved == ((0, 1) if binary else (1, 0))
     assert_match(y, ops.semiring_spgemm_ref(a, b, sr, mask), sr)
+
+
+def binary_problem(block, device, mask_mode, n=300, k=260, m=250):
+    """spgemm_problem's skewed A with each edge once (0/1 tiles, ragged
+    block rows, rows with no real tile), B 0/1 of density 0.4 and a mask of
+    density 0.4, all ones, or None."""
+    rng = np.random.default_rng(4)
+    rows = (n * rng.random(3000) ** 3).astype(np.int32)
+    cols = rng.integers(0, k, 3000).astype(np.int32)
+    rc = np.unique(np.stack([rows, cols], 1), axis=0)
+    a = build_bsr_padded(rc[:, 0].copy(), rc[:, 1].copy(), np.ones(rc.shape[0], np.int32),
+                         (n, k), SEMIRINGS["plus_and"], block=block, device=device)
+    b = torch.from_numpy((rng.random((a.shape[1], m)) < 0.4).astype(np.int32)).to(device)
+    if mask_mode == "none":
+        return a, b, None
+    mask = torch.zeros((a.shape[0], m), dtype=torch.int32, device=device)
+    mask[:n] = (torch.from_numpy((rng.random((n, m)) < 0.4).astype(np.int32)).to(device)
+                if mask_mode == "masked" else 1)
+    return a, b, mask
+
+
+BINARY_BLOCKS = [(16, 16), (32, 32), (64, 64), (128, 128), (48, 48), (64, 32), (16, 128),
+                 (32, 16), (64, 16), (128, 16), (96, 48)]
+
+
+@pytest.mark.parametrize("mask_mode", ["masked", "ones", "none"])
+@pytest.mark.parametrize("block", BINARY_BLOCKS, ids=[f"{m}x{k}" for m, k in BINARY_BLOCKS])
+@pytest.mark.parametrize("name", ["plus_and", "bool_or_and"])
+def test_spgemm_binary_matches_plain_version_and_kernel_6(cuda, name, block, mask_mode):
+    """0/1 operands: the front door launches the variant and only it, and
+    its output equals its plain version, kernel 6 and kernel 6's plain
+    version (blocks with bk < 32 pad the mma's k with zeros)."""
+    sr = SEMIRINGS[name]
+    a, b, mask = binary_problem(block, cuda, mask_mode)
+    before = semiring_spgemm_padded.launches, semiring_spgemm_binary.launches
+    y = ops.semiring_spgemm(a, b, sr, mask)
+    assert (semiring_spgemm_padded.launches - before[0],
+            semiring_spgemm_binary.launches - before[1]) == (0, 1)
+    bp, mk, meta, bn, n = ops._spgemm_operands(a, b, sr, mask)
+    y_full = semiring_spgemm_binary(a.tiles, meta, bp, mk, sr=sr, bn=bn)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_full[:, :n])
+    assert torch.equal(y_full, ref.spgemm_binary_ref(a.tiles, meta, bp, mk, sr, bn))
+    assert torch.equal(y_full, semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr, bn=bn))
+    assert torch.equal(y, ops.semiring_spgemm_ref(a, b, sr, mask))
+
+
+def test_spgemm_binary_past_2_31_elements(cuda):
+    """Output, mask and B of 48,000² elements (past 2³¹): tiles near the
+    far corner land at offsets that overflow 32 bits, and they equal the
+    plain version, which computes only the active tiles."""
+    sr = SEMIRINGS["plus_and"]
+    n = 48_000
+    rng = np.random.default_rng(9)
+    rows = np.concatenate([rng.integers(n - 200, n, 400), rng.integers(0, 64, 50)])
+    cols = np.concatenate([rng.integers(n - 300, n, 400), rng.integers(0, 64, 50)])
+    rc = np.unique(np.stack([rows, cols], 1).astype(np.int32), axis=0)
+    a = build_bsr_padded(rc[:, 0].copy(), rc[:, 1].copy(), np.ones(rc.shape[0], np.int32),
+                         (n, n), sr, block=(64, 64), device=cuda)
+    b = torch.zeros((a.shape[1], n), dtype=torch.int32, device=cuda)
+    b[-300:, -300:] = (torch.rand((300, 300), device=cuda) < 0.5).int()
+    b[:64, -300:] = 1
+    mask = torch.zeros((a.shape[0], n), dtype=torch.int32, device=cuda)
+    mask[n - 200:n, n - 300:] = 1
+    mask[:64, :64] = 1
+    bp, mk, meta, bn, _ = ops._spgemm_operands(a, b, sr, mask)
+    assert mk.numel() > 2**31
+    del b, mask
+    before = semiring_spgemm_binary.launches
+    y = semiring_spgemm_binary(a.tiles, meta, bp, mk, sr=sr, bn=bn)
+    assert semiring_spgemm_binary.launches == before + 1
+    want = ref.spgemm_binary_ref(a.tiles, meta, bp, mk, sr, bn)
+    torch.cuda.synchronize()
+    assert int(want[n - 200:].sum()) > 0
+    assert torch.equal(y, want)
 
 
 @pytest.mark.parametrize("block", [(16, 16), (64, 64)])
@@ -237,9 +324,10 @@ def test_triangle_count_on_the_card_matches_the_host(cuda):
     from repro_torch.graphs import generate, triangle_count, triangle_reference
 
     g = generate("face", scale=0.15, seed=1)
-    before = semiring_spgemm_padded.launches
+    before = semiring_spgemm_padded.launches, semiring_spgemm_binary.launches
     on_card = triangle_count(g, impl="bsr", device=cuda)
-    assert semiring_spgemm_padded.launches == before + 1
+    assert (semiring_spgemm_padded.launches - before[0],
+            semiring_spgemm_binary.launches - before[1]) == (0, 1)
     on_host = triangle_count(g, impl="bsr", device="cpu")
     assert torch.equal(on_card.per_edge.cpu(), on_host.per_edge)
     assert int(on_card.total) == int(on_host.total) == triangle_reference(g.rows, g.cols, g.n)

@@ -22,6 +22,7 @@ from repro_torch import convert
 from repro_torch.core import semiring as tsemiring
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.spgemm_binary import semiring_spgemm_binary
 from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
 
 # the packages' __init__ re-export functions named like these modules
@@ -227,9 +228,9 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     bsr = port_bsr(jformats.build_bsr_padded(rows, cols, vals, (N, K),
                                              jsemiring.PLUS_AND, block=BLOCK))
     bp, mp = padded_operands(jsemiring.PLUS_AND, bsr, b, mask)
-    before = semiring_spgemm_padded.launches
+    before = semiring_spgemm_padded.launches, semiring_spgemm_binary.launches
     got = tops.semiring_spgemm(bsr, tten(bp), sr, tten(mp))
-    assert semiring_spgemm_padded.launches == before
+    assert (semiring_spgemm_padded.launches, semiring_spgemm_binary.launches) == before
     assert torch.equal(got, tops.semiring_spgemm_ref(bsr, tten(bp), sr, tten(mp)))
 
 
