@@ -78,16 +78,50 @@ Phases:
      weights: prefill and 4 greedy decode steps route every token to the
      same experts, pick the same tokens, and give logits within rtol
      1e-3, atol 1e-4.
+ 14. Multi-source traversals. Kernels 1 and 2 over a [B, n] block
+     (``semiring_spmv_padded_batch``, ``semiring_spmspv_padded_batch``) on
+     full cit-HP at 128×128 for all five semirings, at B = 1, 5 (not a
+     multiple of the kernel's NB) and 32, with an all-pad row and kernel 2's
+     rows at densities 0.1%, 5% and 60%: ``torch.equal`` to kernels 1 and 2
+     row by row and held to their plain versions; kernel, 32 sequential
+     single launches, plain (⟨+,×⟩), bound and (⟨+,×⟩) library
+     (``torch.sparse_bsr_tensor @ Xᵀ``) times, medians of 10. Then through
+     ``build_engine(fmt_spmv="bsr", fmt_spmspv="bsr")`` on full cit-HP,
+     ``bfs_multi``, ``sssp_multi`` (weighted) and ``ppr_multi``
+     (normalized) at B = 32 sources from SEED: every row equal to the
+     single-source run on the same engine (PPR within rtol 1e-3, atol
+     1e-6) with its iterations and kernel and density traces, four rows
+     held to ``bfs_reference``/``sssp_reference``; ``traverse_multi_buckets``
+     on buckets of 32, 32 and 20 padded to 32, identical at depth 0 and 2;
+     on full r-TX ``bfs_multi`` at B = 8 over 256 levels on the tile route
+     (two rows held to the clipped oracle) and ``sssp_multi`` at B = 8 on
+     the csr/csc route, which must run ``spmspv_batch_union``. Per app: wall
+     ms against the 32 (8) sequential single-source calls, queries/s, host
+     syncs per level (the profiler's count of device-to-host reads), block
+     launches and peak memory.
+ 15. Dynamic graphs on full cit-HP: a grow (inserts, ~1% of nnz) and a
+     churn delta (inserts and deletes), built by the rule of
+     ``benchmarks/dynamic_updates.py::_deltas``, go through
+     ``DynamicGraph.apply``; on bsr engines of the new snapshot
+     ``bfs_incremental`` (unit ⟨min,+⟩) and ``sssp_incremental``
+     (content-keyed weights) at B = 32 equal cold ``bfs_multi`` and
+     ``sssp_multi``, ``cc_incremental`` equals a cold
+     ``connected_components`` and ``cc_reference``, ``pagerank_warm`` is
+     within rtol 1e-4, atol 1e-7 of a cold PageRank, in no more iterations
+     on the grow delta (on churn the count is reported). Apply and repair
+     ms, traffic, iterations, walls, peak memory.
 
 Launch counters: all eight are set to 0 before phase 3 and kernels 1–2
 read after phase 4. In phases 6–8 every call of the fused path, in
-phase 9 every front-door SpGEMM, in phase 10 every app and in phase 12
-each serving run, runs with the counters set to 0 just before it and
-read just after; the comparisons and timings in between are not
-counted. The run fails unless kernels 1–2 launched in phases 3–4,
-kernels 3–5 in phases 6–8, kernels 6 and 6b in phase 9 (each for the
-cases it is chosen for), kernel 6b alone on phase 10's triangle path,
-kernel 1 on its CC and k-core paths and kernel 7 on the serving path.
+phase 9 every front-door SpGEMM, in phase 10 every app, in phase 12
+each serving run and in phases 14–15 every multi-source and incremental
+traversal runs with the counters set to 0 just before it and read just
+after; the comparisons and timings in between are not counted. The run
+fails unless kernels 1–2 launched in phases 3–4 and the block launches
+did not, kernels 3–5 in phases 6–8, kernels 6 and 6b in phase 9 (each
+for the cases it is chosen for), kernel 6b alone on phase 10's triangle
+path, kernel 1 on its CC and k-core paths, kernel 7 on the serving path,
+and kernels 1 and 2 over a block in phases 14–15 (kernel 2's on r-TX).
 Any mismatch raises, so the run exits non-zero without the final
 ``{"ok": true, ...}`` line.
 """
@@ -95,6 +129,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -381,6 +416,402 @@ def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
     return summary
 
 
+def local_inserts(g, k: int, rng):
+    """Triangle-closing inserts: for k random edges (u, v), a random
+    neighbour w of v gives a new edge (u, w); self loops and duplicates are
+    no-ops. The rule of benchmarks/dynamic_updates.py::_local_inserts."""
+    import numpy as np
+
+    order = np.argsort(g.rows, kind="stable")
+    sorted_cols = g.cols[order]
+    ptr = np.searchsorted(g.rows[order], np.arange(g.n + 1))
+    e = rng.choice(g.nnz, k, replace=True)
+    u, v = g.rows[e], g.cols[e]
+    deg = ptr[v + 1] - ptr[v]
+    off = (rng.random(k) * deg).astype(np.int64)
+    return u, sorted_cols[ptr[v] + off]
+
+
+def graph_deltas(g, edge_delta):
+    """One insert-only (``grow``) and one mixed (``churn``) delta of about
+    1% of nnz: the rule of benchmarks/dynamic_updates.py::_deltas."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    k = max(8, g.nnz // 100)
+    gu, gw = local_inserts(g, k, rng)
+    grow = edge_delta(insert_rows=gu, insert_cols=gw)
+    cu, cw = local_inserts(g, k, rng)
+    drop = rng.choice(g.nnz, max(4, k // 2), replace=False)
+    return [("grow", grow), ("churn", edge_delta(cu, cw, g.rows[drop], g.cols[drop]))]
+
+
+def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: int = 32,
+                 b_rtx: int = 8, rtx_iters: int = RTX_MAX_ITERS, max_iters: int = 256) -> dict:
+    """Phases 14-15: kernels 1 and 2 over a [B, n] block against their plain
+    versions and the single-vector kernels; the multi-source traversals on
+    cit-HP and r-TX against the single-source runs; incremental recompute
+    on cit-HP's grow and churn deltas against cold runs. Returns the two
+    block kernels' rows of the kernels line."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import SEMIRINGS, build_bsr_padded
+    from repro_torch.core.delta import EdgeDelta, canonicalize
+    from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, MIN_TIMES, PLUS_TIMES
+    from repro_torch.graphs import (
+        bfs, bfs_multi, bfs_reference, build_engine, cc_reference, connected_components,
+        pagerank, ppr, ppr_multi, sssp, sssp_multi, sssp_reference, traverse_multi_buckets,
+    )
+    from repro_torch.graphs import engine as engine_module
+    from repro_torch.graphs.dynamic import (
+        DynamicGraph, bfs_incremental, cc_incremental, pagerank_warm, plan_repair,
+        sssp_incremental, traffic_of,
+    )
+    from repro_torch.graphs.engine import edge_values
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.semiring_spmv import semiring_spmv_padded, semiring_spmv_padded_batch
+    from repro_torch.kernels.spmspv_tiles import (
+        semiring_spmspv_padded, semiring_spmspv_padded_batch,
+    )
+
+    blocks = (semiring_spmv_padded_batch, semiring_spmspv_padded_batch)
+    tally = {k.__name__: 0 for k in blocks}
+    worst = {k.__name__: 0.0 for k in blocks}
+    summary = {}
+
+    def main_path(fn):
+        """Run ``fn`` with every launch counter set to 0 just before it and
+        add the block kernels' counts, read just after, to the tally."""
+        for k in all_kernels:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        for k in blocks:
+            tally[k.__name__] += k.launches
+        return out
+
+    def same(y, y_ref, what: str) -> None:
+        torch.cuda.synchronize()
+        check(torch.equal(y, y_ref), what)
+
+    def bound(nbytes: int, n_ops: int, rate: float) -> tuple[float, str]:
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / rate
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+    def wall(fn):
+        """fn's result and its host-clock ms, ending in a sync."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def syncs(fn) -> int:
+        """Device-to-host reads in one call of fn: the profiler's count of
+        aten::_local_scalar_dense (every bool(), int() and item())."""
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+        return sum(e.count for e in prof.key_averages() if e.key == "aten::_local_scalar_dense")
+
+    # ---------------------------------------------------------------- 14
+    rng = np.random.default_rng(SEED)
+    for name, sr in SEMIRINGS.items():
+        vals = edge_values(cit, sr, weighted=sr.collective == "pmin", seed=5,
+                           normalize=name == "plus_times")
+        a = build_bsr_padded(cit.cols.astype(np.int32), cit.rows.astype(np.int32), vals,
+                             (cit.n, cit.n), sr, block=(128, 128), device=dev)
+        mb, t, bm, bn = a.tiles.shape
+        n_pad = a.shape[1]
+        if sr.dtype == torch.int32:
+            xv = rng.integers(0, 2, (b, n_pad)).astype(np.int32)
+        else:
+            xv = rng.uniform(0.5, 4.0, (b, n_pad)).astype(np.float32)
+        xs = torch.from_numpy(xv).to(dev)
+        xs[0] = sr.zero                                   # an all-pad row
+        dens = np.array([0.0] + [DENSITIES[i % 3] for i in range(b - 1)])
+        live = torch.from_numpy(rng.random((b, cit.n)) < dens[:, None]).to(dev)
+        xsp = torch.where(live, xs[:, : cit.n], sr.zero)
+        for lo, hi in ((1, 2), (0, 5), (0, b)):           # B = 1, 5 (not a multiple of NB), b
+            blk, blk_sp = xs[lo:hi].contiguous(), xsp[lo:hi]
+            ys = semiring_spmv_padded_batch(a.tiles, a.tile_cols, blk, sr=sr)
+            same(ys, torch.stack([semiring_spmv_padded(a.tiles, a.tile_cols, x, sr=sr)
+                                  for x in blk]),
+                 f"kernel 1 over a block {name} B={hi - lo}: not kernel 1 row by row")
+            err = compare(ys, ref.spmv_padded_batch_ref(a.tiles, a.tile_cols, blk, sr), sr,
+                          f"kernel 1 over a block {name} B={hi - lo}")
+            worst["semiring_spmv_padded_batch"] = max(worst["semiring_spmv_padded_batch"], err)
+            keep, xd = ops._frontier_block(a, blk_sp, sr, None)
+            meta = ops._spmspv_meta_batch(a, keep)
+            ys2 = semiring_spmspv_padded_batch(a.tiles, meta, xd, sr=sr)
+            same(ys2, torch.stack([semiring_spmspv_padded(a.tiles, m, x, sr=sr)
+                                   for m, x in zip(meta, xd)]),
+                 f"kernel 2 over a block {name} B={hi - lo}: not kernel 2 row by row")
+            err = compare(ys2, ref.spmspv_padded_batch_ref(a.tiles, meta, xd, sr), sr,
+                          f"kernel 2 over a block {name} B={hi - lo}")
+            worst["semiring_spmspv_padded_batch"] = max(worst["semiring_spmspv_padded_batch"],
+                                                        err)
+        rate = INT32_OPS_PER_S if sr.dtype == torch.int32 else FP32_OPS_PER_S
+        lib = None
+        if name == "plus_times":
+            real = (a.tiles != sr.zero).flatten(2).any(dim=2)
+            crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                              real.sum(dim=1).cumsum(0)])
+            lib = torch.sparse_bsr_tensor(crow, a.tile_cols[real].long(), a.tiles[real],
+                                          size=a.shape, check_invariants=False)
+            torch.testing.assert_close((lib @ xs.T).T, ys, rtol=1e-4, atol=1e-5)
+        nbytes = (a.tiles.numel() + a.tile_cols.numel() + xs.numel() + b * mb * bm) * 4
+        bound_ms, bound_by = bound(nbytes, 2 * b * a.tiles.numel(), rate)
+        row = {"kernel": "semiring_spmv_padded_batch", "semiring": name, "graph": "cit-HP",
+               "B": b, "tiles": [mb, t, bm, bn], "max_abs_err": worst["semiring_spmv_padded_batch"],
+               "ms": time_ms(lambda: semiring_spmv_padded_batch(a.tiles, a.tile_cols, xs, sr=sr)),
+               "seq_kernel1_ms": time_ms(lambda: [semiring_spmv_padded(a.tiles, a.tile_cols, x,
+                                                                       sr=sr) for x in xs]),
+               "plain_ms": time_ms(lambda: ref.spmv_padded_batch_ref(a.tiles, a.tile_cols, xs, sr),
+                                   warmup=1) if lib is not None else None,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": time_ms(lambda: lib @ xs.T) if lib is not None else None}
+        print(json.dumps(row))
+        # bytes: each tile that some row's frontier needs, read once; the
+        # operations: every row's active slots
+        n_active = int(meta[:, :, 0].sum())
+        needed = int(ops._spmspv_meta_batch(a, keep.any(dim=0, keepdim=True))[:, :, 0].sum())
+        nbytes2 = (needed * bm * bn + meta.numel() + xd.numel() + b * mb * bm) * 4
+        bound2, by2 = bound(nbytes2, 2 * n_active * bm * bn, rate)
+        row2 = {"kernel": "semiring_spmspv_padded_batch", "semiring": name, "graph": "cit-HP",
+                "B": b, "row_densities": list(DENSITIES), "n_active": n_active,
+                "tiles_needed": needed,
+                "max_abs_err": worst["semiring_spmspv_padded_batch"],
+                "ms": time_ms(lambda: semiring_spmspv_padded_batch(a.tiles, meta, xd, sr=sr)),
+                "seq_kernel2_ms": time_ms(lambda: [semiring_spmspv_padded(a.tiles, m, x, sr=sr)
+                                                   for m, x in zip(meta, xd)]),
+                "plain_ms": time_ms(lambda: ref.spmspv_padded_batch_ref(a.tiles, meta, xd, sr),
+                                    warmup=1) if lib is not None else None,
+                "bound_ms": bound2, "bound_by": by2,
+                "library_ms": time_ms(lambda: lib @ xd.T) if lib is not None else None}
+        print(json.dumps(row2))
+        if lib is not None:
+            summary["semiring_spmv_padded_batch"] = row
+            summary["semiring_spmspv_padded_batch"] = row2
+        del a, xs, xsp, live, ys, ys2, meta, xd, lib
+        torch.cuda.empty_cache()
+    print("phase 14: kernels 1 and 2 over a block equal kernels 1 and 2 row by row and match "
+          "their plain versions for all five semirings at B = 1, 5 and "
+          f"{b}, an all-pad row and per-row densities {list(DENSITIES)}")
+
+    apps = {}
+
+    def run_multi(label, g, sr, multi, single, field, srcs, exact=True, oracle=None, **kw):
+        """The batched app once through the main path, then its sequential
+        single-source runs on the same engine; every row held to its
+        single-source run. Returns the engine (for more runs) and the row."""
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = build_engine(g, sr, stump, device=dev, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        before = dict(tally)
+        res, wall_ms = wall(lambda: main_path(lambda: multi(eng, srcs)))
+        launches = {k: tally[k] - before[k] for k in tally}
+        peak = torch.cuda.max_memory_allocated()
+        singles, seq_ms = wall(lambda: [single(eng, s) for s in srcs])
+        for i, s in enumerate(srcs):
+            ref_i = singles[i]
+            what = f"{label} {g.name} row {i} (source {s})"
+            check(int(res.iterations[i]) == ref_i.iterations,
+                  f"{what}: {int(res.iterations[i])} iterations, single {ref_i.iterations}")
+            same(res.kernel_used[i], ref_i.kernel_used, f"{what}: kernel trace")
+            same(res.densities[i], ref_i.densities, f"{what}: density trace")
+            got, want = getattr(res, field)[i], getattr(ref_i, field)
+            if exact:
+                same(got, want, f"{what}: {field} differ from the single-source run")
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-6,
+                                           msg=lambda m: f"{what}: {m}")
+        n_oracle = 0
+        if oracle is not None:
+            for i in range(min(4, len(srcs))):
+                check(np.array_equal(getattr(res, field)[i].cpu().numpy(), oracle(srcs[i])),
+                      f"{label} {g.name} row {i}: differs from the oracle")
+                n_oracle += 1
+        n_sync = syncs(lambda: multi(eng, srcs))
+        levels = int(res.iterations.max())
+        row = {"app": f"{label}_multi", "graph": g.name, "B": len(srcs),
+               "fmt": f"{kw.get('fmt_spmv', 'csr')}/{kw.get('fmt_spmspv', 'csc')}",
+               "build_s": build_s, "wall_ms": wall_ms, "seq_single_ms": seq_ms,
+               "queries_per_s": len(srcs) / (wall_ms / 1e3),
+               "seq_queries_per_s": len(srcs) / (seq_ms / 1e3),
+               "levels": levels, "iterations": res.iterations.tolist(),
+               "host_syncs": n_sync, "host_syncs_per_level": n_sync / max(levels, 1),
+               "launches": launches, "rows_held_to_oracle": n_oracle,
+               "max_memory_allocated": peak}
+        apps[f"{label} {g.name}"] = row
+        print(json.dumps(row))
+        return eng, res, row
+
+    tiles = {"fmt_spmv": "bsr", "fmt_spmspv": "bsr"}
+    srcs = [int(s) for s in rng.choice(cit.n, b, replace=False)]
+    w5 = edge_values(cit, MIN_PLUS, weighted=True, seed=5)
+    eng, res, _ = run_multi(
+        "bfs", cit, BOOL_OR_AND, bfs_multi, bfs, "levels", srcs,
+        oracle=lambda s: bfs_reference(cit.rows, cit.cols, cit.n, s), **tiles)
+    more = [int(s) for s in rng.choice(cit.n, 52, replace=False)]
+    buckets = [srcs, more[:32], more[32:]]
+    outs = {depth: main_path(lambda: traverse_multi_buckets(eng, "bfs", buckets,
+                                                            pipeline_depth=depth, pad_to=b))
+            for depth in (0, 2)}
+    for r0, r2, bucket in zip(outs[0], outs[2], buckets):
+        for x0, x2 in zip(r0, r2):
+            same(x0, x2, "traverse_multi_buckets: depth 0 and depth 2 differ")
+        check(r0.levels.shape[0] == b, "pad_to did not pad the bucket")
+    same(outs[0][0].levels, res.levels, "the first bucket differs from bfs_multi")
+    print(f"phase 14: traverse_multi_buckets on cit-HP BFS, buckets of {[len(x) for x in buckets]} "
+          f"padded to {b}: depth 0 and depth 2 identical")
+    del eng, res, outs
+    torch.cuda.empty_cache()
+    eng, _, _ = run_multi(
+        "sssp", cit, MIN_PLUS, sssp_multi, sssp, "dist", srcs, weighted=True, seed=5,
+        oracle=lambda s: sssp_reference(cit.rows, cit.cols, w5, cit.n, s).astype(np.float32),
+        **tiles)
+    del eng
+    torch.cuda.empty_cache()
+    eng, _, _ = run_multi("ppr", cit, PLUS_TIMES, ppr_multi, ppr, "rank", srcs, exact=False,
+                          normalize=True, **tiles)
+    del eng
+    torch.cuda.empty_cache()
+    print(f"phase 14: cit-HP bfs/sssp/ppr_multi at B = {b} equal the single-source runs row by "
+          "row (PPR within rtol 1e-3), with iterations and kernel traces")
+
+    src_rtx = [int(s) for s in rng.choice(rtx.n, b_rtx, replace=False)]
+    eng, res, row = run_multi(
+        "bfs", rtx, BOOL_OR_AND, lambda e, s: bfs_multi(e, s, max_iters=rtx_iters),
+        lambda e, s: bfs(e, s, max_iters=rtx_iters), "levels", src_rtx, **tiles)
+    check(row["launches"]["semiring_spmspv_padded_batch"] > 0,
+          "kernel 2 over a block was not launched on r-TX")
+    for i in range(2):
+        want = bfs_reference(rtx.rows, rtx.cols, rtx.n, src_rtx[i])
+        check(np.array_equal(res.levels[i].cpu().numpy(), np.where(want > rtx_iters, -1, want)),
+              f"r-TX BFS row {i}: differs from the clipped oracle")
+    del eng, res
+    torch.cuda.empty_cache()
+    union_calls = [0]
+    real_union = engine_module.spmspv_batch_union
+
+    def counted_union(*args, **kw):
+        union_calls[0] += 1
+        return real_union(*args, **kw)
+
+    engine_module.spmspv_batch_union = counted_union
+    try:
+        eng, _, row = run_multi(
+            "sssp", rtx, MIN_PLUS, lambda e, s: sssp_multi(e, s, max_iters=rtx_iters),
+            lambda e, s: sssp(e, s, max_iters=rtx_iters), "dist", src_rtx, weighted=True, seed=5)
+    finally:
+        engine_module.spmspv_batch_union = real_union
+    check(union_calls[0] > 0, "spmspv_batch_union did not run on the r-TX element route")
+    row["union_calls"] = union_calls[0]
+    print(json.dumps({"phase": 14, "rtx_sssp_union_calls": union_calls[0]}))
+    del eng
+    torch.cuda.empty_cache()
+    print(f"phase 14: r-TX bfs_multi (tile route, {rtx_iters} levels, held to the clipped "
+          f"oracle) and sssp_multi (csr/csc, the union SpMSpV) at B = {b_rtx} equal the "
+          "single-source runs")
+
+    # ---------------------------------------------------------------- 15
+    def tile_engine(g, sr, **kw):
+        return build_engine(g, sr, stump, device=dev, **tiles, **kw)
+
+    keyed = {"weighted": True, "seed": 5, "content_keyed": True}
+    old = {}
+    for key, sr, kw, fn in (
+            ("levels", BOOL_OR_AND, {}, lambda e: bfs_multi(e, srcs, max_iters=max_iters).levels),
+            ("dist", MIN_PLUS, keyed, lambda e: sssp_multi(e, srcs, max_iters=max_iters).dist),
+            ("labels", MIN_TIMES, {}, lambda e: connected_components(e).labels),
+            ("rank", PLUS_TIMES, {"normalize": True},
+             lambda e: pagerank(e, max_iters=200).rank)):
+        e = tile_engine(cit, sr, **kw)
+        old[key] = fn(e)
+        del e
+        torch.cuda.empty_cache()
+    for kind, delta in graph_deltas(cit, EdgeDelta):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g1 = DynamicGraph(cit).apply(delta)
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        d = canonicalize(delta, cit.n)
+        row = {"phase": 15, "delta": kind, "inserts": d.n_inserts, "deletes": d.n_deletes,
+               "apply_ms": apply_ms, "nnz": g1.nnz, "B": b}
+        e = tile_engine(g1, MIN_PLUS)                     # unit weights: BFS levels
+        repair, row["repair_ms"] = wall(lambda: plan_repair(e, d))
+        inc, row["bfs_inc_ms"] = wall(lambda: main_path(
+            lambda: bfs_incremental(e, srcs, old["levels"], d, repair=repair,
+                                    max_iters=max_iters)))
+        del e
+        torch.cuda.empty_cache()
+        e = tile_engine(g1, BOOL_OR_AND)
+        cold, row["bfs_cold_ms"] = wall(lambda: main_path(
+            lambda: bfs_multi(e, srcs, max_iters=max_iters)))
+        del e
+        torch.cuda.empty_cache()
+        check(int(cold.iterations.max()) < max_iters, f"{kind}: cold BFS hit max_iters")
+        check(np.array_equal(inc.values, cold.levels.cpu().numpy()),
+              f"{kind}: bfs_incremental differs from the cold bfs_multi")
+        row.update(bfs_traffic_inc=inc.traffic, bfs_traffic_cold=traffic_of(cold),
+                   repair_traffic=repair.traffic,
+                   stale=int(repair.stale.sum()) if repair.stale is not None else 0,
+                   bfs_iters_inc=int(inc.result.iterations.max()),
+                   bfs_iters_cold=int(cold.iterations.max()))
+        e = tile_engine(g1, MIN_PLUS, **keyed)
+        inc, row["sssp_inc_ms"] = wall(lambda: main_path(
+            lambda: sssp_incremental(e, srcs, old["dist"], d, repair=repair,
+                                     max_iters=max_iters)))
+        cold, row["sssp_cold_ms"] = wall(lambda: main_path(
+            lambda: sssp_multi(e, srcs, max_iters=max_iters)))
+        del e
+        torch.cuda.empty_cache()
+        check(int(cold.iterations.max()) < max_iters, f"{kind}: cold SSSP hit max_iters")
+        check(np.array_equal(inc.values, cold.dist.cpu().numpy()),
+              f"{kind}: sssp_incremental differs from the cold sssp_multi")
+        row.update(sssp_traffic_inc=inc.traffic, sssp_traffic_cold=traffic_of(cold),
+                   sssp_iters_inc=int(inc.result.iterations.max()),
+                   sssp_iters_cold=int(cold.iterations.max()))
+        e = tile_engine(g1, MIN_TIMES)
+        inc, row["cc_inc_ms"] = wall(lambda: cc_incremental(e, old["labels"], d))
+        cold, row["cc_cold_ms"] = wall(lambda: connected_components(e))
+        del e
+        torch.cuda.empty_cache()
+        same(inc.labels, cold.labels, f"{kind}: cc_incremental differs from the cold run")
+        check(np.array_equal(cold.labels.cpu().numpy(), cc_reference(g1.rows, g1.cols, g1.n)),
+              f"{kind}: CC differs from cc_reference")
+        row.update(cc_iters_inc=inc.iterations, cc_iters_cold=cold.iterations)
+        e = tile_engine(g1, PLUS_TIMES, normalize=True)
+        warm, row["pr_warm_ms"] = wall(lambda: pagerank_warm(e, old["rank"], max_iters=200))
+        cold, row["pr_cold_ms"] = wall(lambda: pagerank(e, max_iters=200))
+        del e
+        torch.cuda.empty_cache()
+        torch.testing.assert_close(warm.rank, cold.rank, rtol=1e-4, atol=1e-7,
+                                   msg=lambda m: f"{kind}: pagerank_warm: {m}")
+        # no more iterations than cold, held on the insert-only delta as
+        # tests/test_dynamic.py holds it; on churn the deletes can move the
+        # fixpoint near hubs so far that the uniform start is closer
+        # (benchmarks/dynamic_updates.py reports scale-free rows, asserts none)
+        if kind == "grow":
+            check(warm.iterations <= cold.iterations,
+                  f"{kind}: warm PageRank took {warm.iterations} iterations, cold "
+                  f"{cold.iterations}")
+        row.update(pr_iters_warm=warm.iterations, pr_iters_cold=cold.iterations,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        print(json.dumps(row))
+    print(f"phase 15: cit-HP grow and churn deltas: bfs/sssp/cc_incremental equal the cold runs "
+          f"at B = {b}, pagerank_warm within rtol 1e-4 of cold (no more iterations on grow)")
+    for k in blocks:
+        check(tally[k.__name__] > 0, f"{k.__name__} was not launched in phases 14-15")
+        summary[k.__name__]["launches"] = tally[k.__name__]
+        summary[k.__name__]["max_abs_err"] = worst[k.__name__]
+    print(f"phases 14-15: block launches on the multi-source path {json.dumps(tally)}")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -416,15 +847,17 @@ def main() -> int:
     from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
     from repro_torch.models.zoo import get_config
     from repro_torch.kernels.spmspv_tiles import (
-        semiring_spmspv_fused_padded, semiring_spmspv_padded,
+        semiring_spmspv_fused_padded, semiring_spmspv_padded, semiring_spmspv_padded_batch,
     )
+    from repro_torch.kernels.semiring_spmv import semiring_spmv_padded_batch
 
     dev = torch.device("cuda")
     kernels = (semiring_spmv_padded, semiring_spmspv_padded)
     fused_kernels = (semiring_spmv_fused_padded, semiring_spmv_sell,
                      semiring_spmspv_fused_padded)
+    block_kernels = (semiring_spmv_padded_batch, semiring_spmspv_padded_batch)
     all_kernels = kernels + fused_kernels + (semiring_spgemm_padded, semiring_spgemm_binary,
-                                             moe_dispatch_gather)
+                                             moe_dispatch_gather) + block_kernels
 
     # ---------------------------------------------------------------- 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -436,10 +869,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
+    # per source: kernels compiled, the most registers any uses, and the
+    # spill bytes (stores + loads) over all of them, from nvcc -Xptxas -v
     for src, log in _build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
+        print(f"  {src}: {len(regs)} kernels, at most {max(regs, default=0)} registers, "
+              f"{spills} spill bytes")
 
     def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         """Median of ``reps`` single-call CUDA-event timings after warm-up."""
@@ -652,6 +1088,8 @@ def main() -> int:
     print(f"phase 5: launches on the main path {json.dumps(launches)}")
     for k in kernels:
         check(k.launches > 0, f"{k.__name__} was not launched on the main path")
+    for k in block_kernels:
+        check(k.launches == 0, f"{k.__name__} was launched by a single-source traversal")
 
     # ---------------------------------------------------------------- 6, 7, 8
     tally = {k.__name__: 0 for k in all_kernels}
@@ -1112,6 +1550,15 @@ def main() -> int:
     launches["moe_dispatch_gather"] = row["launches"]
     worst["moe_dispatch_gather"] = row["max_abs_err"]
 
+    # ---------------------------------------------------------------- 14, 15
+    t0 = time.perf_counter()
+    rows = multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels)
+    print(f"phases 14-15: {time.perf_counter() - t0:.1f} s")
+    for name, row in rows.items():
+        summary[name] = row
+        launches[name] = row["launches"]
+        worst[name] = row["max_abs_err"]
+
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
                                         "src/repro/kernels/semiring_spmv.py:56"),
                "semiring_spmspv_padded": ("src/repro_torch/kernels/csrc/spmspv_tiles.cu",
@@ -1127,7 +1574,11 @@ def main() -> int:
                "semiring_spgemm_binary": ("src/repro_torch/kernels/csrc/spgemm_binary.cu",
                                           "src/repro/kernels/spgemm_tiles.py:77"),
                "moe_dispatch_gather": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
-                                       "src/repro/kernels/moe_dispatch.py:45")}
+                                       "src/repro/kernels/moe_dispatch.py:45"),
+               "semiring_spmv_padded_batch": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
+                                              "src/repro/kernels/semiring_spmv.py:56"),
+               "semiring_spmspv_padded_batch": ("src/repro_torch/kernels/csrc/spmspv_tiles.cu",
+                                                "src/repro/kernels/spmspv_tiles.py:71")}
     line = []
     for k in all_kernels:
         row = summary[k.__name__]

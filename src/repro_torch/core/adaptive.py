@@ -90,6 +90,41 @@ def select_kernel(density: Tensor, threshold: float) -> Tensor:
     return above_threshold(density, threshold).to(torch.int32)
 
 
+def select_kernel_batch(densities: Tensor, threshold: float) -> Tensor:
+    """Per-query kernel codes over a batch: [B] int32, 0 = SpMSpV, 1 = SpMV."""
+    return above_threshold(densities, threshold).to(torch.int32)
+
+
+def adaptive_matvec_batch(
+    spmspv_batch_fn: Callable[[Tensor], Tensor],
+    spmv_batch_fn: Callable[[Tensor], Tensor],
+    x_block: Tensor,
+    densities: Tensor,
+    threshold: float,
+    zero=0,
+) -> Tensor:
+    """One adaptive iteration over a [B, n] frontier block with a per-query
+    kernel choice. The JAX package's three-way ``lax.switch`` is a host
+    branch on one count read from the device: every row below the
+    threshold runs the sparse kernel once, every row above runs SpMV once,
+    and only a mixed block runs both and selects per row. Each row gets
+    what the unbatched switch gives it.
+
+    ``zero`` is the semiring zero: the mixed branch blanks the rows that
+    chose SpMV before it calls the sparse kernel, so a batched capacity
+    ladder (keyed on the largest live row) sizes itself from the
+    sub-threshold rows only."""
+    above = above_threshold(densities, threshold)
+    n_above = int(above.sum())
+    if n_above == 0:
+        return spmspv_batch_fn(x_block)
+    if n_above == densities.shape[0]:
+        return spmv_batch_fn(x_block)
+    blank = torch.tensor(zero, dtype=x_block.dtype, device=x_block.device)
+    xs_sparse = torch.where(above[:, None], blank, x_block)
+    return torch.where(above[:, None], spmv_batch_fn(x_block), spmspv_batch_fn(xs_sparse))
+
+
 def adaptive_matvec(
     spmspv_fn: Callable[[Tensor], Tensor],
     spmv_fn: Callable[[Tensor], Tensor],

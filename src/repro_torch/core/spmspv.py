@@ -8,6 +8,9 @@
 * PaddedBSR visits only column tiles with an active entry (the tile
   kernels, ``kernels/spmspv_tiles.py``; ``impl="fused"`` takes the fused
   one).
+
+``spmspv_batch`` and ``spmspv_batch_union`` take a [B, n] block of dense
+vectors (the multi-source traversals).
 """
 from __future__ import annotations
 
@@ -109,6 +112,65 @@ def spmspv_coo_masked(a: COOMatrix, x: Frontier, sr: Semiring) -> Tensor:
     prod = sr.mul(a.vals.to(sr.dtype), xj)
     prod = torch.where(ok & (xj != sr.zero), prod, sr.zero)
     return sr.segment_reduce(prod, torch.where(ok, a.rows, m), m)
+
+
+def spmspv_batch(a, xs: Tensor, sr: Semiring, f_max: int | None = None,
+                 impl: str = "auto") -> Tensor:
+    """Batched SpMSpV over a [B, n] block of dense vectors: each row is
+    compressed to a capacity-``f_max`` frontier and multiplied on its own,
+    so row b equals ``spmspv(a, frontier_from_dense(xs[b], sr, f_max), sr,
+    impl)``. PaddedBSR runs kernel 2 over the block, each row with its own
+    active-slot meta (``impl="ref"``: its plain version); other formats
+    and ``impl="fused"`` go row by row."""
+    if isinstance(a, PaddedBSR) and impl != "fused":
+        from repro_torch.kernels import ops
+
+        if impl == "ref":
+            return ops.semiring_spmspv_batch_ref(a, xs, sr, f_max)
+        return ops.semiring_spmspv_batch(a, xs, sr, f_max)
+    from repro_torch.core.spmv import _rows
+
+    return _rows(xs, lambda x: spmspv(a, frontier_from_dense(x, sr, f_max=f_max), sr,
+                                      impl=impl))
+
+
+def spmspv_batch_union(a: CSCMatrix, xs: Tensor, sr: Semiring,
+                       f_max: int | None = None) -> Tensor:
+    """Batched CSC SpMSpV over the **union frontier**, the fast path for a
+    query block on one graph: the active columns of all B rows are
+    compressed once (capacity ``f_max``), their (rows, vals) slices
+    gathered once into [F, L], multiplied by each row's entries into
+    [B, F, L], and ⊕-reduced in ONE segment-reduce over [F·L, B] with the
+    [F, L] ids shared across the B lanes. A row contributes only where its
+    own entry is nonzero, so row b equals ``spmspv(a, frontier(xs[b]))``
+    whenever ``f_max`` covers the union; under ⟨+,×⟩ the ⊕ order may
+    differ, within float tolerance."""
+    m, n = a.shape
+    b = xs.shape[0]
+    dev = xs.device
+    f_max = f_max or n
+    nz_any = (xs != sr.zero).any(dim=0)                               # [n]
+    count = nz_any.sum()
+    order = torch.argsort((~nz_any).to(torch.int8), stable=True)
+    ar = torch.arange(n, device=dev)
+    idx = torch.where(ar < count, order, n)[:f_max]
+    ok_col = idx < n
+    safe_j = torch.where(ok_col, idx, 0)
+    start = a.col_ptr[safe_j]                                         # [F]
+    length = a.col_ptr[safe_j + 1] - start
+    offs = torch.arange(a.max_col_nnz, dtype=torch.int32, device=dev)  # [L]
+    gidx = start[:, None] + offs[None, :]                             # [F, L]
+    in_col = offs[None, :] < length[:, None]
+    gidx = torch.where(in_col, gidx, a.nnz_max - 1).long()
+    rows = a.rows[gidx]
+    vals = a.vals[gidx].to(sr.dtype)
+    xv = torch.where(ok_col[None, :], xs[:, safe_j].to(sr.dtype), sr.zero)  # [B, F]
+    prod = sr.mul(vals[None], xv[:, :, None])                         # [B, F, L]
+    valid = in_col[None] & (xv[:, :, None] != sr.zero)
+    prod = torch.where(valid, prod, sr.zero)
+    seg = torch.where(in_col, rows, m)                                # [F, L] shared
+    flat = prod.reshape(b, -1).T                                      # [F·L, B]
+    return sr.segment_reduce(flat, seg.reshape(-1), m).T
 
 
 def spmspv(a, x: Frontier, sr: Semiring, impl: str = "auto") -> Tensor:

@@ -17,11 +17,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import formats
-from repro_torch.core.adaptive import DecisionStump, adaptive_matvec, select_kernel
+from repro_torch.core.adaptive import (
+    DecisionStump, adaptive_matvec, adaptive_matvec_batch, select_kernel,
+)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.semiring import Semiring
-from repro_torch.core.spmspv import frontier_from_dense, spmspv
-from repro_torch.core.spmv import spmv
+from repro_torch.core.spmspv import frontier_from_dense, spmspv, spmspv_batch, spmspv_batch_union
+from repro_torch.core.spmv import spmv, spmv_batch
 from repro_torch.graphs.datasets import Graph
 
 Tensor = torch.Tensor
@@ -31,8 +33,11 @@ MatvecFn = Callable[[Tensor], Tensor]
 @dataclasses.dataclass
 class GraphEngine:
     """Per-(graph, semiring) state: the transposed adjacency in the formats
-    the two kernels want, plus the adaptive switch threshold. Batched
-    closures wait for the multi-source slice of the port."""
+    the two kernels want, plus the adaptive switch threshold.
+
+    ``spmv_batch_fn``/``spmspv_batch_fn`` are the [B, n]-block counterparts
+    of the single-vector closures over the same adjacency, the substrate of
+    the multi-source traversals in graphs/multi.py."""
 
     spmv_fn: MatvecFn
     spmspv_fn: MatvecFn
@@ -42,6 +47,8 @@ class GraphEngine:
     graph_class: str
     sr: Semiring
     device: torch.device
+    spmv_batch_fn: MatvecFn | None = None
+    spmspv_batch_fn: MatvecFn | None = None
 
     def adaptive_fn(self, x: Tensor, density: Tensor) -> Tensor:
         """One adaptive matvec: SpMV above the density threshold else SpMSpV."""
@@ -54,6 +61,30 @@ class GraphEngine:
             return lambda x, _d: self.spmspv_fn(x)
         if policy == "adaptive":
             return self.adaptive_fn
+        raise ValueError(policy)
+
+    def adaptive_batch_fn(self, xs: Tensor, densities: Tensor) -> Tensor:
+        """Per-query adaptive matvec over a [B, n] block (see
+        core.adaptive.adaptive_matvec_batch)."""
+        return adaptive_matvec_batch(self.spmspv_batch_fn, self.spmv_batch_fn, xs, densities,
+                                     self.threshold, zero=self.sr.zero)
+
+    def batch_step_fn(self, policy: str) -> Callable[[Tensor, Tensor], Tensor]:
+        """[B, n]-block counterpart of step_fn: fn(xs, densities) -> ys.
+        The function holds the batched closures and the threshold, not the
+        engine, so the runners graphs/multi.py caches in the engine make no
+        reference cycle: the engine and its matrices are freed as soon as
+        the last reference to the engine goes."""
+        mv, msv = self.spmv_batch_fn, self.spmspv_batch_fn
+        if mv is None or msv is None:
+            raise ValueError("engine was built without batched closures")
+        if policy == "spmv":
+            return lambda xs, _d: mv(xs)
+        if policy == "spmspv":
+            return lambda xs, _d: msv(xs)
+        if policy == "adaptive":
+            threshold, zero = self.threshold, self.sr.zero
+            return lambda xs, d: adaptive_matvec_batch(msv, mv, xs, d, threshold, zero=zero)
         raise ValueError(policy)
 
 
@@ -150,6 +181,52 @@ def build_engine(g: Graph, sr: Semiring, stump: DecisionStump | None = None,
         sel = min(bisect.bisect_left(buckets, nnz), len(branches) - 1)
         return branches[sel](x)
 
+    # Batched closures. The capacity ladder survives batching as ONE rung
+    # for the whole block: the rung's capacity covers every row, so each
+    # row's result is the vector the single-source ladder gives it. CSC
+    # engines take the union-frontier path (one shared column gather and
+    # one B-lane ⊕-segment-reduce, core.spmspv.spmspv_batch_union) keyed
+    # on the union's live count; other formats (the tile route: kernels 1
+    # and 2 over the block) are keyed on the largest live count of any row.
+    def spmv_batch_fn(xs: Tensor) -> Tensor:
+        xp = _pad_cols(xs, a_mv.shape[1], sr)
+        return _pad_cols(spmv_batch(a_mv, xp, sr)[:, : shape[0]], n_pad, sr)
+
+    use_union = isinstance(a_msv, formats.CSCMatrix)
+    elementwise_mv = isinstance(a_mv, (formats.COOMatrix, formats.CSRMatrix))
+
+    def msv_batch_at(fmax):
+        if not use_union:
+            def fn(xs: Tensor) -> Tensor:
+                y = spmspv_batch(a_msv, xs[:, : shape[1]], sr, f_max=fmax)
+                return _pad_cols(y[:, : shape[0]], n_pad, sr)
+            return fn
+        # The paper's work model, per rung: a capacity-fmax CSC gather
+        # touches fmax · max_col_nnz slots; once that reaches the matrix's
+        # nnz, the dense-input SpMV computes the same vector for less work.
+        # Union frontiers densify B times faster than single ones, so a
+        # batched ladder crosses over on rungs a single source runs sparse.
+        if fmax * a_msv.max_col_nnz >= g.nnz and elementwise_mv:
+            return spmv_batch_fn
+
+        def fn(xs: Tensor) -> Tensor:
+            y = spmspv_batch_union(a_msv, xs[:, : shape[1]], sr, f_max=fmax)
+            return _pad_cols(y[:, : shape[0]], n_pad, sr)
+        return fn
+
+    batch_branches = [msv_batch_at(b) for b in buckets]
+
+    def spmspv_batch_fn(xs: Tensor) -> Tensor:
+        if len(batch_branches) == 1:
+            return batch_branches[0](xs)
+        live = xs[:, : shape[1]] != sr.zero
+        if use_union:
+            nnz = int(live.any(dim=0).sum())
+        else:
+            nnz = int(live.sum(dim=1).max()) if xs.shape[0] else 0
+        sel = min(bisect.bisect_left(buckets, nnz), len(batch_branches) - 1)
+        return batch_branches[sel](xs)
+
     feats = g.features()
     return GraphEngine(
         spmv_fn=spmv_fn,
@@ -160,6 +237,8 @@ def build_engine(g: Graph, sr: Semiring, stump: DecisionStump | None = None,
         graph_class=stump.classify(feats),
         sr=sr,
         device=device,
+        spmv_batch_fn=spmv_batch_fn,
+        spmspv_batch_fn=spmspv_batch_fn,
     )
 
 
@@ -206,6 +285,15 @@ def _pad(x: Tensor, n: int, sr: Semiring) -> Tensor:
     return torch.nn.functional.pad(x, (0, n - x.shape[0]), value=sr.zero)
 
 
+def _pad_cols(xs: Tensor, n: int, sr: Semiring) -> Tensor:
+    """[B, m] -> [B, n]: slice or ⊕-zero-pad the trailing axis."""
+    if xs.shape[1] == n:
+        return xs
+    if xs.shape[1] > n:
+        return xs[:, :n]
+    return torch.nn.functional.pad(xs, (0, n - xs.shape[1]), value=sr.zero)
+
+
 def density_of(x: Tensor, sr: Semiring, n_true: int) -> Tensor:
     """Live fraction of the first n_true entries, as a 0-dim f32 tensor on
     x's device: the live count times the f32 reciprocal of n_true. That is
@@ -215,6 +303,15 @@ def density_of(x: Tensor, sr: Semiring, n_true: int) -> Tensor:
     threshold. Written out so that CPU and CUDA compute the same."""
     nz = (x[:n_true] != sr.zero).to(torch.int32).sum()
     recip = 1.0 / torch.tensor(float(n_true), dtype=torch.float32, device=x.device)
+    return nz.to(torch.float32) * recip
+
+
+def density_of_batch(xs: Tensor, sr: Semiring, n_true: int) -> Tensor:
+    """Per-row frontier densities of a [B, n] block -> [B] f32, with
+    ``density_of``'s arithmetic: the live count times the f32 reciprocal of
+    n_true."""
+    nz = (xs[:, :n_true] != sr.zero).to(torch.int32).sum(dim=1)
+    recip = 1.0 / torch.tensor(float(n_true), dtype=torch.float32, device=xs.device)
     return nz.to(torch.float32) * recip
 
 

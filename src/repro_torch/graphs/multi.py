@@ -1,0 +1,341 @@
+"""Batched multi-source traversals: BFS/SSSP/PPR over a [B, n] frontier
+block (the paper's §4 linear-algebra iteration, lifted to many queries).
+
+One loop advances all B queries in lockstep. The JAX package's
+``lax.while_loop`` is a host loop here, as in graphs/bfs.py: each level
+syncs once for the stopping test (``all(done)``), plus the adaptive
+switch's count and the capacity rung's live count. Per-query adaptive
+SpMSpV↔SpMV switching is data flow on the device (core.adaptive
+.adaptive_matvec_batch); a query that converges is frozen, its state rows
+and its trace stop moving, so every row of the batched result equals the
+single-source run, with its iteration count and kernel trace. On the tile
+route the block goes through kernels 1 and 2 over [B, n]
+(kernels/ops.py), row for row bit-identical to the single-vector
+launches.
+
+``traverse_multi_buckets`` drains several source buckets through
+core.pipeline.pipeline_buckets. The JAX package's ``mesh``/``axis_name``
+arguments and ``partitioned_matvec`` wait for the mesh layer (ROADMAP §1).
+"""
+from __future__ import annotations
+
+import threading
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.adaptive import select_kernel_batch
+from repro_torch.core.pipeline import pipeline_buckets
+from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, PLUS_TIMES, Semiring
+from repro_torch.graphs.engine import GraphEngine, density_of_batch
+
+Tensor = torch.Tensor
+
+
+class BFSBatchResult(NamedTuple):
+    levels: Tensor       # int32 [B, n_true]; -1 = unreached
+    iterations: Tensor   # int32 [B]
+    densities: Tensor    # f32 [B, max_iters]
+    kernel_used: Tensor  # int32 [B, max_iters]; 0 = SpMSpV, 1 = SpMV, -1 unused
+
+
+class SSSPBatchResult(NamedTuple):
+    dist: Tensor         # f32 [B, n_true]; +inf = unreachable
+    iterations: Tensor
+    densities: Tensor
+    kernel_used: Tensor
+
+
+class PPRBatchResult(NamedTuple):
+    rank: Tensor         # f32 [B, n_true]
+    iterations: Tensor
+    densities: Tensor
+    kernel_used: Tensor
+    residual: Tensor     # f32 [B]
+
+
+def _kernel_codes(policy: str, densities: Tensor, threshold: float) -> Tensor:
+    """Per-query kernel trace codes, matching the single-source recording."""
+    if policy == "spmv":
+        return torch.ones(densities.shape, dtype=torch.int32, device=densities.device)
+    if policy == "spmspv":
+        return torch.zeros(densities.shape, dtype=torch.int32, device=densities.device)
+    return select_kernel_batch(densities, threshold)
+
+
+def _masked_trace_update(trace: Tensor, it: int, active: Tensor, value: Tensor) -> None:
+    """trace[:, it] = value where the query is still active (in place)."""
+    trace[:, it] = torch.where(active, value, trace[:, it])
+
+
+def _check_semiring(engine: GraphEngine, want: Semiring, app: str) -> Semiring:
+    if engine.sr.name != want.name:
+        raise ValueError(f"{app} needs the {want.name} semiring, not {engine.sr.name}")
+    return engine.sr
+
+
+def _traces(b: int, max_iters: int, dev) -> tuple[Tensor, Tensor, Tensor]:
+    """(iterations [B], densities [B, max_iters], kernel_used [B, max_iters])."""
+    return (torch.zeros(b, dtype=torch.int32, device=dev),
+            torch.full((b, max_iters), -1.0, dtype=torch.float32, device=dev),
+            torch.full((b, max_iters), -1, dtype=torch.int32, device=dev))
+
+
+def make_bfs_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
+                   policy: str = "adaptive") -> Callable[[Tensor], BFSBatchResult]:
+    """Build a runner: sources [B] (int64 on the engine's device) ->
+    BFSBatchResult. Like every runner here it holds the engine's batched
+    step and sizes, not the engine (see GraphEngine.batch_step_fn)."""
+    sr = _check_semiring(engine, BOOL_OR_AND, "bfs_multi")
+    n, n_true, threshold, b, dev = engine.n, engine.n_true, engine.threshold, batch, engine.device
+    step = engine.batch_step_fn(policy)
+
+    def run(sources: Tensor) -> BFSBatchResult:
+        rows = torch.arange(b, device=dev)
+        frontier = torch.zeros((b, n), dtype=sr.dtype, device=dev)
+        frontier[rows, sources] = 1
+        visited = torch.zeros((b, n), dtype=torch.int32, device=dev)
+        visited[rows, sources] = 1
+        levels = torch.full((b, n), -1, dtype=torch.int32, device=dev)
+        levels[rows, sources] = 0
+        done = torch.zeros(b, dtype=torch.bool, device=dev)
+        iters, dens, kern = _traces(b, max_iters, dev)
+
+        it = 0
+        while it < max_iters and not bool(done.all()):
+            active = ~done
+            density = density_of_batch(frontier, sr, n_true)
+            used = _kernel_codes(policy, density, threshold)
+            y = step(frontier, density)
+            nf = ((y != sr.zero) & (visited == 0) & active[:, None]).to(sr.dtype)
+            levels = torch.where((nf != 0) & (levels < 0), it + 1, levels)
+            visited = torch.where(nf != 0, 1, visited)
+            iters = torch.where(active, it + 1, iters)
+            _masked_trace_update(dens, it, active, density)
+            _masked_trace_update(kern, it, active, used)
+            done = done | ~(nf != 0).any(dim=1)
+            frontier = nf
+            it += 1
+        return BFSBatchResult(levels[:, :n_true], iters, dens, kern)
+
+    return run
+
+
+def _relax_block(sr: Semiring, n_true: int, threshold: float, step, policy: str,
+                 max_iters: int, dist: Tensor, changed: Tensor) -> SSSPBatchResult:
+    """The ⟨min,+⟩ re-relaxation loop over a [B, n] state block, shared by
+    the cold-start SSSP runner and the warm-start resume runner: relax only
+    from rows' ``changed`` frontiers until no distance improves. Any (dist,
+    changed) with dist ≥ the true fixpoint pointwise and every possible
+    improvement reachable from a changed vertex converges to the exact
+    fixpoint, the property graphs/dynamic.py's incremental recompute is
+    built on."""
+    b, dev = dist.shape[0], dist.device
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    iters, dens, kern = _traces(b, max_iters, dev)
+
+    it = 0
+    while it < max_iters and not bool(done.all()):
+        active = ~done
+        density = density_of_batch(changed, sr, n_true)
+        used = _kernel_codes(policy, density, threshold)
+        cand = step(changed, density)
+        new_dist = torch.minimum(dist, cand)
+        new_changed = torch.where((new_dist < dist) & active[:, None], new_dist, inf)
+        dist = torch.where(active[:, None], new_dist, dist)
+        iters = torch.where(active, it + 1, iters)
+        _masked_trace_update(dens, it, active, density)
+        _masked_trace_update(kern, it, active, used)
+        done = done | ~(new_changed != inf).any(dim=1)
+        changed = new_changed
+        it += 1
+    return SSSPBatchResult(dist[:, :n_true], iters, dens, kern)
+
+
+def make_sssp_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
+                    policy: str = "adaptive") -> Callable[[Tensor], SSSPBatchResult]:
+    """Build a runner: sources [B] -> SSSPBatchResult."""
+    sr = _check_semiring(engine, MIN_PLUS, "sssp_multi")
+    n, n_true, threshold, b, dev = engine.n, engine.n_true, engine.threshold, batch, engine.device
+    step = engine.batch_step_fn(policy)
+
+    def run(sources: Tensor) -> SSSPBatchResult:
+        rows = torch.arange(b, device=dev)
+        dist = torch.full((b, n), float("inf"), dtype=torch.float32, device=dev)
+        dist[rows, sources] = 0.0
+        return _relax_block(sr, n_true, threshold, step, policy, max_iters, dist, dist.clone())
+
+    return run
+
+
+def make_relax_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
+                     policy: str = "adaptive"
+                     ) -> Callable[[Tensor, Tensor], SSSPBatchResult]:
+    """Build a warm-start runner: (dist0, changed0) [B, n_true] f32 blocks
+    -> SSSPBatchResult. Seeding ``dist0`` with the previous distances (stale
+    entries reset to +inf) and ``changed0`` with the delta frontier (finite
+    only where re-relaxation must start) is the incremental BFS/SSSP path of
+    graphs/dynamic.py; seeding the cold start (source rows 0, the rest +inf)
+    gives :func:`make_sssp_multi`'s result bit for bit: the same loop."""
+    sr = _check_semiring(engine, MIN_PLUS, "relax_multi")
+    n, n_true, threshold = engine.n, engine.n_true, engine.threshold
+    step = engine.batch_step_fn(policy)
+
+    def run(dist0: Tensor, changed0: Tensor) -> SSSPBatchResult:
+        pad = (0, n - dist0.shape[1])
+        dist = torch.nn.functional.pad(dist0, pad, value=float("inf"))
+        changed = torch.nn.functional.pad(changed0, pad, value=float("inf"))
+        return _relax_block(sr, n_true, threshold, step, policy, max_iters, dist, changed)
+
+    return run
+
+
+def make_ppr_multi(engine: GraphEngine, batch: int, alpha: float = 0.85,
+                   max_iters: int = 50, tol: float = 1e-6,
+                   policy: str = "adaptive") -> Callable[[Tensor], PPRBatchResult]:
+    """Build a runner: sources [B] -> PPRBatchResult. Each row's residual
+    is summed on its own, as a [n] vector like the single-source run's, so
+    a row stops where the single-source run stops: a sum over the [B, n]
+    block's rows may round differently and move a stop near ``tol``."""
+    sr = _check_semiring(engine, PLUS_TIMES, "ppr_multi")
+    n, n_true, threshold, b, dev = engine.n, engine.n_true, engine.threshold, batch, engine.device
+    step = engine.batch_step_fn(policy)
+    tol_t = torch.tensor(tol, dtype=torch.float32, device=dev)
+
+    def run(sources: Tensor) -> PPRBatchResult:
+        rows = torch.arange(b, device=dev)
+        e_s = torch.zeros((b, n), dtype=torch.float32, device=dev)
+        e_s[rows, sources] = 1.0
+        r = e_s
+        res = torch.full((b,), float("inf"), dtype=torch.float32, device=dev)
+        iters, dens, kern = _traces(b, max_iters, dev)
+
+        it = 0
+        while it < max_iters and bool((res > tol_t).any()):
+            active = res > tol_t
+            density = density_of_batch(r, sr, n_true)
+            used = _kernel_codes(policy, density, threshold)
+            pr = step(r, density)
+            r_new = (1.0 - alpha) * e_s + alpha * pr
+            res_new = torch.stack([torch.sum(torch.abs(r_new[i] - r[i])) for i in range(b)])
+            r = torch.where(active[:, None], r_new, r)
+            res = torch.where(active, res_new, res)
+            iters = torch.where(active, it + 1, iters)
+            _masked_trace_update(dens, it, active, density)
+            _masked_trace_update(kern, it, active, used)
+            it += 1
+        return PPRBatchResult(r[:, :n_true], iters, dens, kern, res)
+
+    return run
+
+
+_MAKERS = {"bfs": make_bfs_multi, "sssp": make_sssp_multi,
+           "ppr": make_ppr_multi, "relax": make_relax_multi}
+
+# Runners are built under one module lock: two threads draining servers
+# that share an engine must not race to build (and cache) one runner twice.
+_runner_lock = threading.Lock()
+
+
+def _cached_runner(engine: GraphEngine, alg: str, batch: int, **kwargs):
+    """One runner per (engine, alg, batch, options), kept in the engine
+    instance's __dict__ (GraphEngine is an unhashable dataclass)."""
+    key = (alg, batch, tuple(sorted(kwargs.items())))
+    cache = engine.__dict__.setdefault("_multi_runners", {})
+    if key not in cache:
+        with _runner_lock:
+            if key not in cache:      # double-checked: a lost race reuses
+                cache[key] = _MAKERS[alg](engine, batch, **kwargs)
+    return cache[key]
+
+
+def _as_sources(sources, device) -> Tensor:
+    src = np.asarray(sources.cpu() if isinstance(sources, Tensor) else sources)
+    if src.ndim != 1:
+        raise ValueError(f"sources must be a flat [B] list or array, got shape {src.shape}")
+    return torch.as_tensor(src.astype(np.int64), device=device)
+
+
+def _block(engine: GraphEngine, dist) -> Tensor:
+    """A [B, n_true] f32 state block on the engine's device."""
+    if isinstance(dist, Tensor):
+        return dist.to(device=engine.device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(dist, np.float32), device=engine.device)
+
+
+def bfs_multi(engine: GraphEngine, sources, max_iters: int = 64,
+              policy: str = "adaptive") -> BFSBatchResult:
+    """Multi-source BFS; row b equals bfs(engine, sources[b])."""
+    src = _as_sources(sources, engine.device)
+    run = _cached_runner(engine, "bfs", int(src.shape[0]), max_iters=max_iters, policy=policy)
+    return run(src)
+
+
+def sssp_multi(engine: GraphEngine, sources, max_iters: int = 64,
+               policy: str = "adaptive") -> SSSPBatchResult:
+    """Multi-source SSSP; row b equals sssp(engine, sources[b])."""
+    src = _as_sources(sources, engine.device)
+    run = _cached_runner(engine, "sssp", int(src.shape[0]), max_iters=max_iters, policy=policy)
+    return run(src)
+
+
+def relax_multi(engine: GraphEngine, dist0, changed0, max_iters: int = 64,
+                policy: str = "adaptive") -> SSSPBatchResult:
+    """Warm-start ⟨min,+⟩ re-relaxation from explicit [B, n_true] state
+    blocks (the delta-frontier path of graphs/dynamic.py): ``dist0`` holds
+    the surviving distances (+inf where stale or unknown), ``changed0`` the
+    seed frontier (+inf everywhere relaxation need not start). Runs the
+    loop of :func:`sssp_multi`."""
+    d0, c0 = _block(engine, dist0), _block(engine, changed0)
+    if d0.dim() != 2 or d0.shape != c0.shape:
+        raise ValueError(f"dist0 and changed0 must be equal [B, n] blocks, got "
+                         f"{tuple(d0.shape)} and {tuple(c0.shape)}")
+    run = _cached_runner(engine, "relax", int(d0.shape[0]), max_iters=max_iters, policy=policy)
+    return run(d0, c0)
+
+
+def ppr_multi(engine: GraphEngine, sources, alpha: float = 0.85,
+              max_iters: int = 50, tol: float = 1e-6,
+              policy: str = "adaptive") -> PPRBatchResult:
+    """Multi-source PPR; row b equals ppr(engine, sources[b])."""
+    src = _as_sources(sources, engine.device)
+    run = _cached_runner(engine, "ppr", int(src.shape[0]), alpha=alpha, max_iters=max_iters,
+                         tol=tol, policy=policy)
+    return run(src)
+
+
+def _synchronize(engine: GraphEngine, result):
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    return result
+
+
+def traverse_multi_buckets(engine: GraphEngine, alg: str, buckets,
+                           pipeline_depth: int = 2, materialize=None,
+                           pad_to: int | None = None, **kwargs) -> list:
+    """Run several source buckets through the cached batched runners,
+    keeping up to ``pipeline_depth`` buckets in flight
+    (core.pipeline.pipeline_buckets).
+
+    ``materialize(bucket, result) -> value`` runs in submission order and
+    receives the bucket as submitted; the default waits for the device
+    and returns the *BatchResult. ``pad_to`` pads every issued bucket to
+    that batch size by repeating its last source (one runner for all
+    buckets; result rows past the bucket's length are padding).
+    ``pipeline_depth=0`` is the strictly sequential drain; the results are
+    the same at any depth. ``kwargs`` are the runner options (max_iters,
+    policy, alpha, tol). Returns one value per bucket, in order.
+    """
+    def issue(bucket):
+        sources = list(bucket)
+        if pad_to is not None and len(sources) < pad_to:
+            sources = sources + [sources[-1]] * (pad_to - len(sources))
+        src = _as_sources(sources, engine.device)
+        run = _cached_runner(engine, alg, int(src.shape[0]), **kwargs)
+        return run(src)
+
+    if materialize is None:
+        materialize = lambda _b, res: _synchronize(engine, res)  # noqa: E731
+    return pipeline_buckets(issue, materialize, buckets, depth=pipeline_depth)

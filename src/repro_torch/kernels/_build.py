@@ -13,6 +13,8 @@ Each C signature has its own loader, which sets the ctypes argument types:
 * ``tile_kernel`` — the tile folds of ``tile_fold.cuh``:
   ``semiring_spmv.cu``, ``spmspv_tiles.cu``, ``semiring_spmv_fused.cu``,
   ``semiring_spmv_sell.cu``, ``spmspv_fused.cu``;
+* ``tile_batch_kernel`` — the same folds over a block of vectors, the
+  ``*_batch`` entry points of ``semiring_spmv.cu`` and ``spmspv_tiles.cu``;
 * ``spgemm_kernel`` — the masked tile SpGEMM, ``spgemm_tiles.cu``;
 * ``spgemm_binary_kernel`` — its tensor-core variant for 0/1 operands,
   ``spgemm_binary.cu``;
@@ -109,6 +111,15 @@ def tile_kernel(source: str, symbol: str, n_index: int = 1):
     (tile_cols, row_meta) and takes slot_total as T; the others have one."""
     return _entry(source, symbol,
                   [ctypes.c_void_p] * (3 + n_index) + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def tile_batch_kernel(source: str, symbol: str, n_ints: int):
+    """A tile fold over a block of vectors: (tiles, index, xs, ys, then
+    ``n_ints`` ints — mb, T, bm, bn, x_len, batch, [nb,] semiring code —
+    and the stream)."""
+    return _entry(source, symbol, [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints
+                  + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)

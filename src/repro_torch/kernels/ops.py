@@ -2,8 +2,9 @@
 ``repro.kernels.ops`` is for the TPU kernels: operand preparation (dtype
 casts, the fused, SpMSpV and SpGEMM metadata, the dense frontier, the
 SpGEMM padding), the choice between kernel 6 and its tensor-core variant
-for 0/1 operands, the plain ``*_ref`` counterparts of the unfused calls,
-and the bytes and work each tile kernel needs (``*_stream_stats``)."""
+for 0/1 operands, the [B, n] block calls of kernels 1 and 2 behind the
+multi-source traversals, the plain ``*_ref`` counterparts of the unfused
+calls, and the bytes and work each tile kernel needs (``*_stream_stats``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,12 +16,13 @@ from repro_torch.core.spmspv import Frontier
 from repro_torch.kernels import ref, spgemm_binary
 from repro_torch.kernels.moe_dispatch import moe_dispatch_gather as _moe_dispatch_gather
 from repro_torch.kernels.semiring_spmv import (
-    semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
+    semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_padded_batch,
+    semiring_spmv_sell,
 )
 from repro_torch.kernels.spgemm_binary import semiring_spgemm_binary
 from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
 from repro_torch.kernels.spmspv_tiles import (
-    semiring_spmspv_fused_padded, semiring_spmspv_padded,
+    semiring_spmspv_fused_padded, semiring_spmspv_padded, semiring_spmspv_padded_batch,
 )
 
 Tensor = torch.Tensor
@@ -103,6 +105,74 @@ def semiring_spmspv_fused(a: PaddedBSR, f: Frontier, sr: Semiring,
     kernel, optionally chunk-major."""
     return semiring_spmspv_fused_padded(a.tiles, _spmspv_meta(a, f, sr),
                                         _dense_frontier(a, f, sr), sr=sr, chunks=chunks)
+
+
+def _check_xs(xs: Tensor, shape) -> None:
+    if xs.dim() != 2 or xs.shape[1] != shape[1]:
+        raise ValueError(f"xs must be [B, {shape[1]}], got {tuple(xs.shape)}")
+
+
+def semiring_spmv_batch(a: PaddedBSR, xs: Tensor, sr: Semiring) -> Tensor:
+    """Y [B, a.shape[0]] with row b = A ⊕.⊗ xs[b]: kernel 1 over the
+    block, xs [B, a.shape[1]] (padded), as ``jax.vmap`` of ``semiring_spmv``."""
+    _check_xs(xs, a.shape)
+    return semiring_spmv_padded_batch(a.tiles, a.tile_cols, xs.to(sr.dtype).contiguous(), sr=sr)
+
+
+def semiring_spmv_batch_ref(a: PaddedBSR, xs: Tensor, sr: Semiring) -> Tensor:
+    _check_xs(xs, a.shape)
+    return ref.spmv_padded_batch_ref(a.tiles, a.tile_cols, xs.to(sr.dtype), sr)
+
+
+def _frontier_block(a: PaddedBSR, xs: Tensor, sr: Semiring, f_max: int | None):
+    """Each row of xs [B, n] (n <= a.shape[1]) compressed as
+    ``frontier_from_dense(x, sr, f_max)`` compresses it, kept as a mask and
+    a dense block: the first ``f_max`` live entries of every row, and
+    xs [B, a.shape[1]] with the rest ⊕-identity, each value passed through
+    ⊕ with the identity as ``Frontier.to_dense`` scatters it."""
+    n = xs.shape[1]
+    if n > a.shape[1]:
+        raise ValueError(f"xs has {n} columns, the matrix {a.shape[1]}")
+    keep = xs != sr.zero
+    if f_max is not None and f_max < n:
+        keep &= torch.cumsum(keep, dim=1) <= f_max
+    x = xs.to(sr.dtype)
+    xd = torch.where(keep, sr.add(torch.full_like(x, sr.zero), x), sr.zero)
+    pad = a.shape[1] - n
+    if pad:
+        keep = torch.nn.functional.pad(keep, (0, pad), value=False)
+        xd = torch.nn.functional.pad(xd, (0, pad), value=sr.zero)
+    return keep, xd.contiguous()
+
+
+def _spmspv_meta_batch(a: PaddedBSR, keep: Tensor) -> Tensor:
+    """``_spmspv_meta`` for each row of a frontier mask keep [B,
+    a.shape[1]]: int32 [B, mb, 1+2T] = (n_active | perm | permuted cols)."""
+    b = keep.shape[0]
+    mb, t = a.tile_cols.shape
+    bn = a.block[1]
+    tile_active = keep.view(b, a.shape[1] // bn, bn).any(dim=2)       # [B, nb]
+    slot_active = tile_active[:, a.tile_cols.long()]                  # [B, mb, T]
+    perm = torch.argsort((~slot_active).to(torch.int8), dim=2, stable=True)
+    n_active = slot_active.sum(dim=2, dtype=torch.int32)
+    cols_perm = torch.gather(a.tile_cols.expand(b, mb, t), 2, perm)
+    return torch.cat([n_active[..., None], perm.to(torch.int32), cols_perm], dim=2).contiguous()
+
+
+def semiring_spmspv_batch(a: PaddedBSR, xs: Tensor, sr: Semiring,
+                          f_max: int | None = None) -> Tensor:
+    """Y [B, a.shape[0]] with row b = ``semiring_spmspv(a,
+    frontier_from_dense(xs[b], sr, f_max), sr)``: each row's capacity-f_max
+    frontier and its own active-slot meta, kernel 2 over the block. xs
+    [B, n] dense, n <= a.shape[1] (the frontier's length)."""
+    keep, xd = _frontier_block(a, xs, sr, f_max)
+    return semiring_spmspv_padded_batch(a.tiles, _spmspv_meta_batch(a, keep), xd, sr=sr)
+
+
+def semiring_spmspv_batch_ref(a: PaddedBSR, xs: Tensor, sr: Semiring,
+                              f_max: int | None = None) -> Tensor:
+    keep, xd = _frontier_block(a, xs, sr, f_max)
+    return ref.spmspv_padded_batch_ref(a.tiles, _spmspv_meta_batch(a, keep), xd, sr)
 
 
 def _spgemm_operands(a: PaddedBSR, b: Tensor, sr: Semiring, mask: Tensor | None):

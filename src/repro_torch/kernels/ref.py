@@ -51,6 +51,22 @@ def spmspv_padded_ref(tiles: Tensor, meta: Tensor, x: Tensor, sr: Semiring) -> T
     return y.reshape(-1).to(x.dtype)
 
 
+def spmv_padded_batch_ref(tiles: Tensor, tile_cols: Tensor, xs: Tensor, sr: Semiring) -> Tensor:
+    """Kernel 1 over a block: ``spmv_padded_ref`` on each row of xs
+    [B, nb·bn]; ys [B, mb·bm]."""
+    mb, _, bm, _ = tiles.shape
+    return torch.stack([spmv_padded_ref(tiles, tile_cols, x, sr) for x in xs]) if xs.shape[0] \
+        else xs.new_empty((0, mb * bm))
+
+
+def spmspv_padded_batch_ref(tiles: Tensor, meta: Tensor, xs: Tensor, sr: Semiring) -> Tensor:
+    """Kernel 2 over a block: ``spmspv_padded_ref`` on row b's meta
+    [mb, 1+2T] and x; meta [B, mb, 1+2T], xs [B, nb·bn]; ys [B, mb·bm]."""
+    mb, _, bm, _ = tiles.shape
+    return torch.stack([spmspv_padded_ref(tiles, m, x, sr) for m, x in zip(meta, xs)]) \
+        if xs.shape[0] else xs.new_empty((0, mb * bm))
+
+
 def fold_rows(tiles: Tensor, n: Tensor, slot, col, x: Tensor, sr: Semiring) -> Tensor:
     """y [mb, bm]: row i ⊕-folds tiles[slot(i, j)] ⊗ x_block[col(i, j)]
     for j < n[i], in j order. tiles [S, bm, bn] flat; ``slot`` and ``col``

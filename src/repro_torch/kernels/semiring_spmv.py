@@ -8,6 +8,10 @@
   same layout, only the first n_real slots of each row.
 * ``semiring_spmv_sell`` (``csrc/semiring_spmv_sell.cu``): the sell-C-σ
   layout, each row's real tiles only, written to its permuted output block.
+* ``semiring_spmv_padded_batch`` (``csrc/semiring_spmv.cu``): kernel 1 over
+  a block of B vectors, [B, nb·bn] -> [B, mb·bm], what the JAX package runs
+  as ``jax.vmap`` of ``semiring_spmv_padded``; row b equals kernel 1 on
+  x[b] bit for bit.
 
 On a CUDA tensor a wrapper launches its kernel on the current stream or
 raises; on a CPU tensor it runs the plain version from ``kernels/ref.py``.
@@ -72,6 +76,43 @@ def check_chunks(name: str, mb: int, chunks: int | None) -> None:
 def chunk_major(y: Tensor, chunks: int | None) -> Tensor:
     """The flat output [mb·bm] as [chunks, mb·bm/chunks] (same memory)."""
     return y if chunks is None else y.view(chunks, -1)
+
+
+def check_block_operands(name: str, tiles: Tensor, index: Tensor, index_shape: tuple[int, ...],
+                         xs: Tensor, sr: Semiring) -> None:
+    """``check_tile_operands`` for a block of vectors: xs [B, nb·bn] and an
+    int32 index of ``index_shape``."""
+    if tiles.dim() != 4:
+        raise ValueError(f"{name}: tiles must be [mb, T, bm, bn], got {tuple(tiles.shape)}")
+    if xs.dim() != 2:
+        raise ValueError(f"{name}: xs must be [B, n], got {tuple(xs.shape)}")
+    _check_dtypes(name, tiles, xs, sr)
+    _check_index(name, "index", index, index_shape)
+    _check_payload(name, tiles, (index,), xs[0] if xs.shape[0] else xs.new_empty(0))
+    if xs.device != tiles.device or not xs.is_contiguous():
+        raise ValueError(f"{name}: xs must be contiguous and on {tiles.device}")
+    if xs.shape[0] >= 2**31:
+        raise ValueError(f"{name}: a block of {xs.shape[0]} vectors exceeds int32")
+
+
+def launch_block_kernel(source: str, symbol: str, tiles: Tensor, index: Tensor, xs: Tensor,
+                        sr: Semiring, *extra: int) -> Tensor:
+    """Allocate ys [B, mb·bm] and launch a tile fold over the block xs on
+    the tensors' current stream; ``extra`` ints (nb) go before the
+    semiring code."""
+    if tiles.device.type != "cuda":
+        raise ValueError(f"{symbol}: no kernel for device {tiles.device}")
+    mb, t, bm, bn = tiles.shape
+    b, x_len = xs.shape
+    ys = torch.empty((b, mb * bm), dtype=sr.dtype, device=tiles.device)
+    fn = _build.tile_batch_kernel(source, symbol, 7 + len(extra))
+    with torch.cuda.device(tiles.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(tiles.data_ptr(), index.data_ptr(), xs.data_ptr(), ys.data_ptr(), mb, t, bm,
+                 bn, x_len, b, *extra, sr.code, stream)
+    if err:
+        raise RuntimeError(f"{symbol}: kernel launch failed with cudaError_t {err}")
+    return ys
 
 
 def launch_tile_kernel(source: str, symbol: str, tiles: Tensor, indices: tuple[Tensor, ...],
@@ -151,3 +192,30 @@ def semiring_spmv_sell(tiles: Tensor, tile_cols: Tensor, row_meta: Tensor, x: Te
 
 
 semiring_spmv_sell.launches = 0
+
+
+# Vectors a warp folds against each tile-row chunk in kernel 1 over a block
+# (the kernel's template parameter NB: 1, 2, 4, 8 or 16). The tiles stream
+# ceil(B / NB) times. tools/block_fold_sweep.py times every value on
+# cit-HP at B = 32 (PERF.md §6): 4 and 8 come out within 1% over the five
+# semirings, 1, 2 and 16 slower.
+BATCH_NB = 4
+
+
+def semiring_spmv_padded_batch(tiles: Tensor, tile_cols: Tensor, xs: Tensor, *,
+                               sr: Semiring, nb: int = BATCH_NB) -> Tensor:
+    """ys [B, mb·bm]: row b = ``semiring_spmv_padded(tiles, tile_cols,
+    xs[b])``. xs [B, nb·bn] of dtype ``sr.dtype``, on the tiles' device;
+    ``nb`` vectors share each tile-row load on the card."""
+    name = "semiring_spmv_padded_batch"
+    check_block_operands(name, tiles, tile_cols, tuple(tiles.shape[:2]), xs, sr)
+    if nb not in (1, 2, 4, 8, 16):
+        raise ValueError(f"{name}: nb must be 1, 2, 4, 8 or 16, got {nb}")
+    if tiles.device.type == "cpu":
+        return ref.spmv_padded_batch_ref(tiles, tile_cols, xs, sr)
+    ys = launch_block_kernel("semiring_spmv.cu", name, tiles, tile_cols, xs, sr, nb)
+    semiring_spmv_padded_batch.launches += 1
+    return ys
+
+
+semiring_spmv_padded_batch.launches = 0

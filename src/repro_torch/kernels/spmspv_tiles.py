@@ -10,6 +10,10 @@ meta layout (int32 [mb, 1 + 2T], built by ``ops._spmspv_meta``):
     meta[i, 1+T : ]    = tile-column index per *permuted* slot
 Only the first n_active_i permuted slots of block row i are ⊕-folded.
 
+``semiring_spmspv_padded_batch`` (``csrc/spmspv_tiles.cu``) is the unfused
+kernel over a block of B vectors, each with its own meta [B, mb, 1+2T]:
+what the JAX package runs as ``jax.vmap`` of ``semiring_spmspv_padded``.
+
 On a CUDA tensor a wrapper launches its kernel on the current stream or
 raises; on a CPU tensor it runs the plain version from ``kernels/ref.py``.
 Each wrapper's ``.launches`` counts its kernel launches.
@@ -21,7 +25,8 @@ import torch
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels import ref
 from repro_torch.kernels.semiring_spmv import (
-    chunk_major, check_chunks, check_tile_operands, launch_tile_kernel,
+    check_block_operands, check_chunks, check_tile_operands, chunk_major, launch_block_kernel,
+    launch_tile_kernel,
 )
 
 Tensor = torch.Tensor
@@ -58,3 +63,21 @@ def semiring_spmspv_fused_padded(tiles: Tensor, meta: Tensor, x: Tensor, *, sr: 
 
 
 semiring_spmspv_fused_padded.launches = 0
+
+
+def semiring_spmspv_padded_batch(tiles: Tensor, meta: Tensor, xs: Tensor, *,
+                                 sr: Semiring) -> Tensor:
+    """ys [B, mb·bm]: row b = ``semiring_spmspv_padded(tiles, meta[b],
+    xs[b])``. meta int32 [B, mb, 1+2T], one per vector (as
+    ``ops._spmspv_meta_batch`` builds them); xs [B, nb·bn] densified."""
+    name = "semiring_spmspv_padded_batch"
+    mb, t = tiles.shape[:2]
+    check_block_operands(name, tiles, meta, (xs.shape[0], mb, 1 + 2 * t), xs, sr)
+    if tiles.device.type == "cpu":
+        return ref.spmspv_padded_batch_ref(tiles, meta, xs, sr)
+    ys = launch_block_kernel("spmspv_tiles.cu", name, tiles, meta, xs, sr)
+    semiring_spmspv_padded_batch.launches += 1
+    return ys
+
+
+semiring_spmspv_padded_batch.launches = 0

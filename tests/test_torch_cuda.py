@@ -1,5 +1,6 @@
 """The CUDA tile kernels on the card, held to their plain versions and the
-fused kernels also to the unfused ones (``torch.equal`` where pad ⊗ x is
+fused kernels and the [B, n] block launches of kernels 1 and 2 also to
+the single-vector kernels (``torch.equal`` where pad ⊗ x is
 the ⊕-identity, as the inputs here make it); the masked tile SpGEMM, its
 tensor-core variant for 0/1 operands (``torch.equal`` to its plain
 version and to kernel 6, the front door's choice between them) and the
@@ -163,6 +164,67 @@ def test_engine_on_the_card_matches_the_host(cuda):
     on_card = ppr(both(PLUS_TIMES, normalize=True)[0], src)
     np.testing.assert_allclose(on_card.rank.cpu().numpy(), ppr_reference(g.rows, g.cols, g.n, src),
                                rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("b", [1, 5, 32])
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("name", list(SEMIRINGS))
+def test_block_kernels_equal_single_launches_and_plain(cuda, name, block, b):
+    """Kernels 1 and 2 over a [B, n] block (B = 1, one not a multiple of
+    NB, 32), with an all-⊕-identity row and rows at other densities:
+    ``torch.equal`` to the single-vector kernel row by row at every NB, and
+    to the plain versions within assert_match."""
+    from repro_torch.kernels.semiring_spmv import semiring_spmv_padded_batch
+    from repro_torch.kernels.spmspv_tiles import semiring_spmspv_padded_batch
+
+    sr = SEMIRINGS[name]
+    (_, _, _, n), a, x, rng = random_problem(sr, block, cuda)
+    xs = torch.stack([x.roll(i) for i in range(b)]).contiguous()
+    xs[0] = sr.zero
+    single = torch.stack([semiring_spmv_padded(a.tiles, a.tile_cols, v, sr=sr) for v in xs])
+    for nb in (1, 2, 4, 8, 16):
+        before = semiring_spmv_padded_batch.launches
+        ys = semiring_spmv_padded_batch(a.tiles, a.tile_cols, xs, sr=sr, nb=nb)
+        assert semiring_spmv_padded_batch.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(ys, single), nb
+    assert_match(ys, ref.spmv_padded_batch_ref(a.tiles, a.tile_cols, xs, sr), sr)
+    dens = torch.tensor([(0.0, 0.01, 0.3, 1.0)[i % 4] for i in range(b)], device=cuda)
+    live = torch.rand(xs.shape, device=cuda) < dens[:, None]
+    xsp = torch.where(live, xs, sr.zero)[:, :n]
+    keep, xd = ops._frontier_block(a, xsp, sr, None)
+    meta = ops._spmspv_meta_batch(a, keep)
+    before = semiring_spmspv_padded_batch.launches
+    ys = semiring_spmspv_padded_batch(a.tiles, meta, xd, sr=sr)
+    assert semiring_spmspv_padded_batch.launches == before + 1
+    single = torch.stack([semiring_spmspv_padded(a.tiles, m, v, sr=sr) for m, v in zip(meta, xd)])
+    torch.cuda.synchronize()
+    assert torch.equal(ys, single)
+    assert_match(ys, ref.spmspv_padded_batch_ref(a.tiles, meta, xd, sr), sr)
+    assert torch.equal(ops.semiring_spmspv_batch(a, xsp, sr), ys)
+
+
+def test_multi_source_on_the_card_matches_the_host(cuda):
+    from repro_torch.core import BOOL_OR_AND, MIN_PLUS
+    from repro_torch.graphs import bfs_multi, build_engine, generate, sssp_multi, trained_stump
+    from repro_torch.kernels.semiring_spmv import semiring_spmv_padded_batch
+    from repro_torch.kernels.spmspv_tiles import semiring_spmspv_padded_batch
+
+    g = generate("face", scale=0.15, seed=1)
+    srcs = [int(s) for s in np.random.default_rng(42).integers(0, g.n, 8)]
+    stump = trained_stump()
+
+    def both(sr, **kw):
+        return [build_engine(g, sr, stump, fmt_spmv="bsr", fmt_spmspv="bsr", device=d, **kw)
+                for d in (cuda, "cpu")]
+
+    before = semiring_spmv_padded_batch.launches + semiring_spmspv_padded_batch.launches
+    on_card, on_host = (bfs_multi(e, srcs) for e in both(BOOL_OR_AND))
+    assert torch.equal(on_card.levels.cpu(), on_host.levels)
+    assert torch.equal(on_card.kernel_used.cpu(), on_host.kernel_used)
+    on_card, on_host = (sssp_multi(e, srcs) for e in both(MIN_PLUS, weighted=True, seed=5))
+    assert torch.equal(on_card.dist.cpu(), on_host.dist)
+    assert semiring_spmv_padded_batch.launches + semiring_spmspv_padded_batch.launches > before
 
 
 def test_wrapper_rejects_operands_on_two_devices(cuda):
