@@ -80,11 +80,12 @@ Phases:
      1e-3, atol 1e-4.
  14. Multi-source traversals. Kernels 1 and 2 over a [B, n] block
      (``semiring_spmv_padded_batch``, ``semiring_spmspv_padded_batch``) on
-     full cit-HP at 128×128 for all five semirings, at B = 1, 5 (not a
-     multiple of the kernel's NB) and 32, with an all-pad row and kernel 2's
+     full cit-HP at 128×128 for all five semirings, at B = 1, 5, 32 and 40
+     (two vector groups of the fold), with an all-pad row and kernel 2's
      rows at densities 0.1%, 5% and 60%: ``torch.equal`` to kernels 1 and 2
-     row by row and held to their plain versions; kernel, 32 sequential
-     single launches, plain (⟨+,×⟩), bound and (⟨+,×⟩) library
+     row by row and held to their plain versions; kernel (kernel 2's alone
+     and with the wrapper's union operands), 32 sequential single
+     launches, plain (⟨+,×⟩), bound and (⟨+,×⟩) library
      (``torch.sparse_bsr_tensor @ Xᵀ``) times, medians of 10. Then through
      ``build_engine(fmt_spmv="bsr", fmt_spmspv="bsr")`` on full cit-HP,
      ``bfs_multi``, ``sssp_multi`` (weighted) and ``ppr_multi``
@@ -94,11 +95,15 @@ Phases:
      held to ``bfs_reference``/``sssp_reference``; ``traverse_multi_buckets``
      on buckets of 32, 32 and 20 padded to 32, identical at depth 0 and 2;
      on full r-TX ``bfs_multi`` at B = 8 over 256 levels on the tile route
-     (two rows held to the clipped oracle) and ``sssp_multi`` at B = 8 on
-     the csr/csc route, which must run ``spmspv_batch_union``. Per app: wall
-     ms against the 32 (8) sequential single-source calls, queries/s, host
-     syncs per level (the profiler's count of device-to-host reads), block
-     launches and peak memory.
+     (two rows held to the clipped oracle), kernel 2 over the block on its
+     rows' level-64 frontiers (``torch.equal`` to kernel 2 row by row,
+     timed, with its CTAs and non-empty block rows), and ``sssp_multi`` at
+     B = 8 on the csr/csc route, which must run ``spmspv_batch_union``. Per
+     app: wall ms against the 32 (8) sequential single-source calls,
+     queries/s, host syncs per level (the profiler's count of
+     device-to-host reads), block launches and peak memory; for cit-HP's
+     ``ppr_multi`` and r-TX's ``bfs_multi`` one more run in a profiler
+     window: wall, all device time and the block fold's device time.
  15. Dynamic graphs on full cit-HP: a grow (inserts, ~1% of nnz) and a
      churn delta (inserts and deletes), built by the rule of
      ``benchmarks/dynamic_updates.py::_deltas``, go through
@@ -469,8 +474,10 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
         sssp_incremental, traffic_of,
     )
     from repro_torch.graphs.engine import edge_values
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.semiring_spmv import semiring_spmv_padded, semiring_spmv_padded_batch
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.semiring_spmv import (
+        launch_block_kernel, semiring_spmv_padded, semiring_spmv_padded_batch,
+    )
     from repro_torch.kernels.spmspv_tiles import (
         semiring_spmspv_padded, semiring_spmspv_padded_batch,
     )
@@ -507,6 +514,29 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
+    def trace_window(fn) -> dict:
+        """One call of fn under the profiler with CUDA activity: its wall,
+        all device time, and the device time of the block fold (kernels 1
+        and 2 over a block, tile_fold_block_kernel)."""
+        from torch.autograd import DeviceType
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        block = [e for e in kernels if "tile_fold_block_kernel" in e.key]
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+        return {"wall_ms": wall_ms, "device_ms": device_ms,
+                "block_fold_ms": sum(e.self_device_time_total for e in block) / 1e3,
+                "block_fold_launches": sum(e.count for e in block),
+                "device_launches": sum(e.count for e in kernels),
+                "device_idle_share": 1 - device_ms / wall_ms if wall_ms else None,
+                "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+
     def syncs(fn) -> int:
         """Device-to-host reads in one call of fn: the profiler's count of
         aten::_local_scalar_dense (every bool(), int() and item())."""
@@ -516,7 +546,8 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
 
     # ---------------------------------------------------------------- 14
     rng = np.random.default_rng(SEED)
-    for name, sr in SEMIRINGS.items():
+    extra = np.random.default_rng(SEED + 1)
+    for name_i, (name, sr) in enumerate(SEMIRINGS.items()):
         vals = edge_values(cit, sr, weighted=sr.collective == "pmin", seed=5,
                            normalize=name == "plus_times")
         a = build_bsr_padded(cit.cols.astype(np.int32), cit.rows.astype(np.int32), vals,
@@ -532,8 +563,14 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
         dens = np.array([0.0] + [DENSITIES[i % 3] for i in range(b - 1)])
         live = torch.from_numpy(rng.random((b, cit.n)) < dens[:, None]).to(dev)
         xsp = torch.where(live, xs[:, : cit.n], sr.zero)
-        for lo, hi in ((1, 2), (0, 5), (0, b)):           # B = 1, 5 (not a multiple of NB), b
-            blk, blk_sp = xs[lo:hi].contiguous(), xsp[lo:hi]
+        # 8 more rows, from their own generator, for a block over two
+        # vector groups of the fold (32 + 8)
+        xs40 = torch.cat([xs, xs[1:9].roll(1 + name_i, dims=1)])
+        xsp40 = torch.cat([xsp, torch.where(
+            torch.from_numpy(extra.random((8, cit.n)) < 0.05).to(dev), xs40[b:, : cit.n],
+            sr.zero)])
+        for lo, hi in ((1, 2), (0, 5), (0, b + 8), (0, b)):   # B = 1, 5, b + 8, b
+            blk, blk_sp = xs40[lo:hi].contiguous(), xsp40[lo:hi]
             ys = semiring_spmv_padded_batch(a.tiles, a.tile_cols, blk, sr=sr)
             same(ys, torch.stack([semiring_spmv_padded(a.tiles, a.tile_cols, x, sr=sr)
                                   for x in blk]),
@@ -575,14 +612,18 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
         # bytes: each tile that some row's frontier needs, read once; the
         # operations: every row's active slots
         n_active = int(meta[:, :, 0].sum())
-        needed = int(ops._spmspv_meta_batch(a, keep.any(dim=0, keepdim=True))[:, :, 0].sum())
+        union = ops._spmspv_union_batch(meta)
+        needed = int(union[:, :, 0].sum())
         nbytes2 = (needed * bm * bn + meta.numel() + xd.numel() + b * mb * bm) * 4
         bound2, by2 = bound(nbytes2, 2 * n_active * bm * bn, rate)
         row2 = {"kernel": "semiring_spmspv_padded_batch", "semiring": name, "graph": "cit-HP",
                 "B": b, "row_densities": list(DENSITIES), "n_active": n_active,
                 "tiles_needed": needed,
                 "max_abs_err": worst["semiring_spmspv_padded_batch"],
-                "ms": time_ms(lambda: semiring_spmspv_padded_batch(a.tiles, meta, xd, sr=sr)),
+                "ms": time_ms(lambda: launch_block_kernel(
+                    "spmspv_tiles.cu", "semiring_spmspv_padded_batch", a.tiles, union, xd, sr)),
+                "wrapper_ms": time_ms(lambda: semiring_spmspv_padded_batch(a.tiles, meta, xd,
+                                                                           sr=sr)),
                 "seq_kernel2_ms": time_ms(lambda: [semiring_spmspv_padded(a.tiles, m, x, sr=sr)
                                                    for m, x in zip(meta, xd)]),
                 "plain_ms": time_ms(lambda: ref.spmspv_padded_batch_ref(a.tiles, meta, xd, sr),
@@ -593,18 +634,20 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
         if lib is not None:
             summary["semiring_spmv_padded_batch"] = row
             summary["semiring_spmspv_padded_batch"] = row2
-        del a, xs, xsp, live, ys, ys2, meta, xd, lib
+        del a, xs, xsp, xs40, xsp40, live, ys, ys2, meta, union, xd, lib
         torch.cuda.empty_cache()
     print("phase 14: kernels 1 and 2 over a block equal kernels 1 and 2 row by row and match "
-          "their plain versions for all five semirings at B = 1, 5 and "
-          f"{b}, an all-pad row and per-row densities {list(DENSITIES)}")
+          f"their plain versions for all five semirings at B = 1, 5, {b} and {b + 8}, an "
+          f"all-pad row and per-row densities {list(DENSITIES)}")
 
     apps = {}
 
-    def run_multi(label, g, sr, multi, single, field, srcs, exact=True, oracle=None, **kw):
+    def run_multi(label, g, sr, multi, single, field, srcs, exact=True, oracle=None,
+                  traced=False, **kw):
         """The batched app once through the main path, then its sequential
         single-source runs on the same engine; every row held to its
-        single-source run. Returns the engine (for more runs) and the row."""
+        single-source run; with ``traced``, one more run in a profiler
+        window. Returns the engine (for more runs) and the row."""
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         eng = build_engine(g, sr, stump, device=dev, **kw)
@@ -645,6 +688,8 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
                "host_syncs": n_sync, "host_syncs_per_level": n_sync / max(levels, 1),
                "launches": launches, "rows_held_to_oracle": n_oracle,
                "max_memory_allocated": peak}
+        if traced:
+            row["trace"] = trace_window(lambda: multi(eng, srcs))
         apps[f"{label} {g.name}"] = row
         print(json.dumps(row))
         return eng, res, row
@@ -676,7 +721,7 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
     del eng
     torch.cuda.empty_cache()
     eng, _, _ = run_multi("ppr", cit, PLUS_TIMES, ppr_multi, ppr, "rank", srcs, exact=False,
-                          normalize=True, **tiles)
+                          normalize=True, traced=True, **tiles)
     del eng
     torch.cuda.empty_cache()
     print(f"phase 14: cit-HP bfs/sssp/ppr_multi at B = {b} equal the single-source runs row by "
@@ -685,14 +730,56 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
     src_rtx = [int(s) for s in rng.choice(rtx.n, b_rtx, replace=False)]
     eng, res, row = run_multi(
         "bfs", rtx, BOOL_OR_AND, lambda e, s: bfs_multi(e, s, max_iters=rtx_iters),
-        lambda e, s: bfs(e, s, max_iters=rtx_iters), "levels", src_rtx, **tiles)
+        lambda e, s: bfs(e, s, max_iters=rtx_iters), "levels", src_rtx, traced=True, **tiles)
     check(row["launches"]["semiring_spmspv_padded_batch"] > 0,
           "kernel 2 over a block was not launched on r-TX")
     for i in range(2):
         want = bfs_reference(rtx.rows, rtx.cols, rtx.n, src_rtx[i])
         check(np.array_equal(res.levels[i].cpu().numpy(), np.where(want > rtx_iters, -1, want)),
               f"r-TX BFS row {i}: differs from the clipped oracle")
+    # kernel 2 over the block at B = b_rtx on one real BFS level of r-TX:
+    # each row's frontier is its source's level-`depth` vertices; a CTA of
+    # the fold owns TILEFOLD_BLOCK_ROWS tile rows
+    rows_per_cta = int(re.search(r"#define TILEFOLD_BLOCK_ROWS (\d+)",
+                                 (_build.CSRC / "tile_fold.cuh").read_text()).group(1))
+    depth = min(64, rtx_iters)
+    levels = res.levels.cpu().numpy()
     del eng, res
+    torch.cuda.empty_cache()
+    sr = BOOL_OR_AND
+    a = build_bsr_padded(rtx.cols.astype(np.int32), rtx.rows.astype(np.int32),
+                         np.ones(rtx.nnz, np.int32), (rtx.n, rtx.n), sr, block=(128, 128),
+                         device=dev)
+    mb, t, bm, bn = a.tiles.shape
+    live = torch.from_numpy(levels == depth).to(dev)
+    keep, xd = ops._frontier_block(a, live.to(torch.int32), sr, None)
+    meta = ops._spmspv_meta_batch(a, keep)
+    union = ops._spmspv_union_batch(meta)
+    ys2 = semiring_spmspv_padded_batch(a.tiles, meta, xd, sr=sr)
+    same(ys2, torch.stack([semiring_spmspv_padded(a.tiles, m, x, sr=sr)
+                           for m, x in zip(meta, xd)]),
+         f"kernel 2 over a block on r-TX level {depth}: not kernel 2 row by row")
+    err = compare(ys2, ref.spmspv_padded_batch_ref(a.tiles, meta, xd, sr), sr,
+                  f"kernel 2 over a block on r-TX level {depth}")
+    worst["semiring_spmspv_padded_batch"] = max(worst["semiring_spmspv_padded_batch"], err)
+    needed, n_active = int(union[:, :, 0].sum()), int(meta[:, :, 0].sum())
+    bound_ms, bound_by = bound((needed * bm * bn + meta.numel() + xd.numel()
+                                + b_rtx * mb * bm) * 4, 2 * n_active * bm * bn, INT32_OPS_PER_S)
+    print(json.dumps({
+        "kernel": "semiring_spmspv_padded_batch", "semiring": sr.name, "graph": "r-TX",
+        "B": b_rtx, "level": depth, "frontier": int(live.sum()), "tiles": [mb, t, bm, bn],
+        "n_active": n_active, "tiles_needed": needed,
+        "nonempty_block_rows": int((union[:, :, 0] > 0).sum()),
+        "ctas": mb * union.shape[0] * -(-bm // rows_per_cta),
+        "ms": time_ms(lambda: launch_block_kernel(
+            "spmspv_tiles.cu", "semiring_spmspv_padded_batch", a.tiles, union, xd, sr)),
+        "wrapper_ms": time_ms(lambda: semiring_spmspv_padded_batch(a.tiles, meta, xd, sr=sr)),
+        "seq_kernel2_ms": time_ms(lambda: [semiring_spmspv_padded(a.tiles, m, x, sr=sr)
+                                           for m, x in zip(meta, xd)]),
+        "bound_ms": bound_ms, "bound_by": bound_by}))
+    print(f"phase 14: r-TX kernel 2 over a block at B = {b_rtx} on BFS level {depth} equals "
+          "kernel 2 row by row")
+    del a, live, keep, xd, meta, union, ys2
     torch.cuda.empty_cache()
     union_calls = [0]
     real_union = engine_module.spmspv_batch_union

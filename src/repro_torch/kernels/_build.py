@@ -114,11 +114,10 @@ def tile_kernel(source: str, symbol: str, n_index: int = 1):
 
 
 @functools.lru_cache(maxsize=None)
-def tile_batch_kernel(source: str, symbol: str, n_ints: int):
-    """A tile fold over a block of vectors: (tiles, index, xs, ys, then
-    ``n_ints`` ints — mb, T, bm, bn, x_len, batch, [nb,] semiring code —
-    and the stream)."""
-    return _entry(source, symbol, [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints
+def tile_batch_kernel(source: str, symbol: str):
+    """A tile fold over a block of vectors: (tiles, index, xs, ys, mb, T,
+    bm, bn, x_len, batch, semiring code, stream)."""
+    return _entry(source, symbol, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                   + [ctypes.c_void_p])
 
 

@@ -10,20 +10,23 @@
 // Bound on the card: bytes. It must read the active tiles once,
 // Σ n_active · bm·bn·4 bytes, plus meta, x and y, at 3.35 TB/s.
 //
-// semiring_spmspv_padded_batch is the same kernel over a block of B
-// vectors, each with its own meta: meta [B, mb, 1 + 2T], x [B, nb·bn] ->
-// y [B, mb·bm], one vector a block, the B blocks of a block row side by
-// side (tile_fold_batch_kernel). It is what jax.vmap of the Pallas kernel
-// computes in the JAX package's multi-source traversals; row b is
-// bit-identical to kernel 2 on meta[b] and x[b]. Each row's active set
-// differs, so no tile load is shared. Bound: every row's active tiles read
-// once, Σ_b Σ n_active · bm·bn·4 bytes, plus the metas, x and y.
+// semiring_spmspv_padded_batch is the same function over a block of B
+// vectors, each with its own active slots: what jax.vmap of the Pallas
+// kernel computes in the JAX package's multi-source traversals. Row b is
+// bit-identical to kernel 2 on meta[b] and x[b]. Its index is not the
+// metas but their union per group of 32 vectors, int32 [G, mb, 1 + 3T] =
+// n_union | union slots | tile-columns | masks, built on the card by
+// ops._spmspv_union_batch: tile_fold_block_kernel (kUnion) stages each
+// union slot's tile rows and x slice once for the group, and each vector
+// folds the slots whose mask bit it has, in slot order, which is its own
+// meta's order. A block row whose union is empty writes the identity and
+// returns. Bound: the tiles that some row needs, read once, against every
+// row's active slots at 2·bm·bn operations each, plus the metas, x and y.
 //
-// Left for later: every block row gets its blocks, even one with no
-// active slot, so a sparse frontier on a tall matrix (8,499 block rows on
-// r-TX) launches tens of thousands of blocks that only write the identity;
-// block rows with many active slots set the tail; no cp.async/TMA
-// pipeline; the meta is built by separate PyTorch ops on every call.
+// Left for later: a warp folds all its 8 vectors for a union slot that any
+// of them needs (rows of a sparse frontier pay for the dense ones), and
+// every block row still gets its CTAs (8,499 on r-TX at B <= 32, most
+// returning at once).
 
 #include "tile_fold.cuh"
 
@@ -34,11 +37,11 @@ extern "C" int semiring_spmspv_padded(const void* tiles, const void* meta,
                                              sr_code, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int semiring_spmspv_padded_batch(const void* tiles, const void* meta,
+extern "C" int semiring_spmspv_padded_batch(const void* tiles, const void* union_meta,
                                             const void* x, void* y, int mb, int t_slots,
                                             int bm, int bn, int x_len, int batch, int sr_code,
                                             void* stream) {
-  return tilefold::launch_batch<tilefold::kActive>(tiles, meta, x, y, mb, t_slots, bm, bn,
-                                                   x_len, batch, 1, sr_code,
-                                                   static_cast<cudaStream_t>(stream));
+  return tilefold::launch_block<tilefold::kUnion>(tiles, union_meta, x, y, mb, t_slots, bm, bn,
+                                                  x_len, batch, sr_code,
+                                                  static_cast<cudaStream_t>(stream));
 }

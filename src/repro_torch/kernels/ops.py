@@ -159,6 +159,42 @@ def _spmspv_meta_batch(a: PaddedBSR, keep: Tensor) -> Tensor:
     return torch.cat([n_active[..., None], perm.to(torch.int32), cols_perm], dim=2).contiguous()
 
 
+UNION_GROUP = 32    # vectors a CTA of the block fold owns (kVecGroup, csrc/tile_fold.cuh)
+
+
+def _spmspv_union_batch(meta: Tensor) -> Tensor:
+    """Kernel 2's operands over a block, from the per-vector metas [B, mb,
+    1+2T]: for each group g of 32 vectors and block row i, int32 [G, mb,
+    1+3T] = (n_union | union slots | their tile-columns | masks), the slots
+    active for some vector of the group, in slot order; bit k of a mask
+    (as uint32) says the slot is active for vector 32g + k. A meta lists its
+    active slots in slot order, so the union slots whose bit vector b has
+    are meta[b, i, 1:1+n_active], in that order. Built with tensor ops on
+    the metas' device, no host read."""
+    b, mb, w = meta.shape
+    t = (w - 1) // 2
+    if b == 0:
+        return meta.new_zeros((0, mb, 1 + 3 * t))
+    dev = meta.device
+    perm = meta[..., 1:1 + t].long()
+    listed = torch.arange(t, device=dev) < meta[..., :1]                # [B, mb, T] by position
+    active = torch.zeros((b, mb, t), dtype=torch.bool, device=dev).scatter_(2, perm, listed)
+    g = -(-b // UNION_GROUP)
+    active = torch.nn.functional.pad(active, (0, 0, 0, 0, 0, g * UNION_GROUP - b))
+    bit = torch.arange(UNION_GROUP, dtype=torch.int64, device=dev).view(1, -1, 1, 1)
+    masks = (active.view(g, UNION_GROUP, mb, t).long() << bit).sum(dim=1)   # [G, mb, T]
+    in_union = masks != 0
+    masks = torch.where(masks >= 2**31, masks - 2**32, masks).to(torch.int32)
+    # every meta holds the whole slot permutation: tile_cols from vector 0's
+    tile_cols = torch.empty((mb, t), dtype=torch.int32, device=dev).scatter_(
+        1, perm[0], meta[0, :, 1 + t:])
+    order = torch.argsort((~in_union).to(torch.int8), dim=2, stable=True)
+    n_union = in_union.sum(dim=2, dtype=torch.int32)
+    cols = torch.gather(tile_cols.expand(g, mb, t), 2, order)
+    return torch.cat([n_union[..., None], order.to(torch.int32), cols,
+                      torch.gather(masks, 2, order)], dim=2).contiguous()
+
+
 def semiring_spmspv_batch(a: PaddedBSR, xs: Tensor, sr: Semiring,
                           f_max: int | None = None) -> Tensor:
     """Y [B, a.shape[0]] with row b = ``semiring_spmspv(a,

@@ -96,20 +96,19 @@ def check_block_operands(name: str, tiles: Tensor, index: Tensor, index_shape: t
 
 
 def launch_block_kernel(source: str, symbol: str, tiles: Tensor, index: Tensor, xs: Tensor,
-                        sr: Semiring, *extra: int) -> Tensor:
+                        sr: Semiring) -> Tensor:
     """Allocate ys [B, mb·bm] and launch a tile fold over the block xs on
-    the tensors' current stream; ``extra`` ints (nb) go before the
-    semiring code."""
+    the tensors' current stream."""
     if tiles.device.type != "cuda":
         raise ValueError(f"{symbol}: no kernel for device {tiles.device}")
     mb, t, bm, bn = tiles.shape
     b, x_len = xs.shape
     ys = torch.empty((b, mb * bm), dtype=sr.dtype, device=tiles.device)
-    fn = _build.tile_batch_kernel(source, symbol, 7 + len(extra))
+    fn = _build.tile_batch_kernel(source, symbol)
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(tiles.data_ptr(), index.data_ptr(), xs.data_ptr(), ys.data_ptr(), mb, t, bm,
-                 bn, x_len, b, *extra, sr.code, stream)
+                 bn, x_len, b, sr.code, stream)
     if err:
         raise RuntimeError(f"{symbol}: kernel launch failed with cudaError_t {err}")
     return ys
@@ -194,26 +193,16 @@ def semiring_spmv_sell(tiles: Tensor, tile_cols: Tensor, row_meta: Tensor, x: Te
 semiring_spmv_sell.launches = 0
 
 
-# Vectors a warp folds against each tile-row chunk in kernel 1 over a block
-# (the kernel's template parameter NB: 1, 2, 4, 8 or 16). The tiles stream
-# ceil(B / NB) times. tools/block_fold_sweep.py times every value on
-# cit-HP at B = 32 (PERF.md §6): 4 and 8 come out within 1% over the five
-# semirings, 1, 2 and 16 slower.
-BATCH_NB = 4
-
-
 def semiring_spmv_padded_batch(tiles: Tensor, tile_cols: Tensor, xs: Tensor, *,
-                               sr: Semiring, nb: int = BATCH_NB) -> Tensor:
+                               sr: Semiring) -> Tensor:
     """ys [B, mb·bm]: row b = ``semiring_spmv_padded(tiles, tile_cols,
     xs[b])``. xs [B, nb·bn] of dtype ``sr.dtype``, on the tiles' device;
-    ``nb`` vectors share each tile-row load on the card."""
+    on the card each group of 32 vectors shares every tile load."""
     name = "semiring_spmv_padded_batch"
     check_block_operands(name, tiles, tile_cols, tuple(tiles.shape[:2]), xs, sr)
-    if nb not in (1, 2, 4, 8, 16):
-        raise ValueError(f"{name}: nb must be 1, 2, 4, 8 or 16, got {nb}")
     if tiles.device.type == "cpu":
         return ref.spmv_padded_batch_ref(tiles, tile_cols, xs, sr)
-    ys = launch_block_kernel("semiring_spmv.cu", name, tiles, tile_cols, xs, sr, nb)
+    ys = launch_block_kernel("semiring_spmv.cu", name, tiles, tile_cols, xs, sr)
     semiring_spmv_padded_batch.launches += 1
     return ys
 

@@ -13,6 +13,8 @@ Only the first n_active_i permuted slots of block row i are ⊕-folded.
 ``semiring_spmspv_padded_batch`` (``csrc/spmspv_tiles.cu``) is the unfused
 kernel over a block of B vectors, each with its own meta [B, mb, 1+2T]:
 what the JAX package runs as ``jax.vmap`` of ``semiring_spmspv_padded``.
+On the card it launches over the metas' union per group of 32 vectors
+(``ops._spmspv_union_batch``), built on the device with no host read.
 
 On a CUDA tensor a wrapper launches its kernel on the current stream or
 raises; on a CPU tensor it runs the plain version from ``kernels/ref.py``.
@@ -75,7 +77,9 @@ def semiring_spmspv_padded_batch(tiles: Tensor, meta: Tensor, xs: Tensor, *,
     check_block_operands(name, tiles, meta, (xs.shape[0], mb, 1 + 2 * t), xs, sr)
     if tiles.device.type == "cpu":
         return ref.spmspv_padded_batch_ref(tiles, meta, xs, sr)
-    ys = launch_block_kernel("spmspv_tiles.cu", name, tiles, meta, xs, sr)
+    from repro_torch.kernels.ops import _spmspv_union_batch     # ops imports this module
+
+    ys = launch_block_kernel("spmspv_tiles.cu", name, tiles, _spmspv_union_batch(meta), xs, sr)
     semiring_spmspv_padded_batch.launches += 1
     return ys
 

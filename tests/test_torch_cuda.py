@@ -166,14 +166,14 @@ def test_engine_on_the_card_matches_the_host(cuda):
                                rtol=1e-3, atol=1e-6)
 
 
-@pytest.mark.parametrize("b", [1, 5, 32])
+@pytest.mark.parametrize("b", [1, 5, 32, 40])
 @pytest.mark.parametrize("block", BLOCKS)
 @pytest.mark.parametrize("name", list(SEMIRINGS))
 def test_block_kernels_equal_single_launches_and_plain(cuda, name, block, b):
     """Kernels 1 and 2 over a [B, n] block (B = 1, one not a multiple of
-    NB, 32), with an all-⊕-identity row and rows at other densities:
-    ``torch.equal`` to the single-vector kernel row by row at every NB, and
-    to the plain versions within assert_match."""
+    8, 32, and 40 over two vector groups), with an all-⊕-identity row and
+    rows at other densities: ``torch.equal`` to the single-vector kernel
+    row by row, and to the plain versions within assert_match."""
     from repro_torch.kernels.semiring_spmv import semiring_spmv_padded_batch
     from repro_torch.kernels.spmspv_tiles import semiring_spmspv_padded_batch
 
@@ -182,12 +182,11 @@ def test_block_kernels_equal_single_launches_and_plain(cuda, name, block, b):
     xs = torch.stack([x.roll(i) for i in range(b)]).contiguous()
     xs[0] = sr.zero
     single = torch.stack([semiring_spmv_padded(a.tiles, a.tile_cols, v, sr=sr) for v in xs])
-    for nb in (1, 2, 4, 8, 16):
-        before = semiring_spmv_padded_batch.launches
-        ys = semiring_spmv_padded_batch(a.tiles, a.tile_cols, xs, sr=sr, nb=nb)
-        assert semiring_spmv_padded_batch.launches == before + 1
-        torch.cuda.synchronize()
-        assert torch.equal(ys, single), nb
+    before = semiring_spmv_padded_batch.launches
+    ys = semiring_spmv_padded_batch(a.tiles, a.tile_cols, xs, sr=sr)
+    assert semiring_spmv_padded_batch.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(ys, single)
     assert_match(ys, ref.spmv_padded_batch_ref(a.tiles, a.tile_cols, xs, sr), sr)
     dens = torch.tensor([(0.0, 0.01, 0.3, 1.0)[i % 4] for i in range(b)], device=cuda)
     live = torch.rand(xs.shape, device=cuda) < dens[:, None]
@@ -202,6 +201,82 @@ def test_block_kernels_equal_single_launches_and_plain(cuda, name, block, b):
     assert torch.equal(ys, single)
     assert_match(ys, ref.spmspv_padded_batch_ref(a.tiles, meta, xd, sr), sr)
     assert torch.equal(ops.semiring_spmspv_batch(a, xsp, sr), ys)
+
+
+@pytest.mark.parametrize("b", [8, 40])
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("name", list(SEMIRINGS))
+def test_block_kernel_2_on_a_tall_sparse_frontier(cuda, name, block, b):
+    """Kernel 2 over a block on a tall banded matrix (60,000 rows) whose
+    frontier rows hold one or two vertices each, off tile-column 0 (which
+    pad slots alias), so most block rows have an empty union:
+    ``torch.equal`` to kernel 2 row by row and to its plain version within
+    assert_match."""
+    from repro_torch.kernels.spmspv_tiles import semiring_spmspv_padded_batch
+
+    sr = SEMIRINGS[name]
+    rng = np.random.default_rng(1)
+    n, nnz = 60000, 180000
+    rows = rng.integers(0, n, nnz).astype(np.int32)
+    cols = np.clip(rows + rng.integers(-40, 41, nnz), 0, n - 1).astype(np.int32)
+    vals = (rng.integers(0, 2, nnz).astype(np.int32) if sr.dtype == torch.int32
+            else rng.uniform(1.0, 5.0, nnz).astype(np.float32))
+    a = build_bsr_padded(rows, cols, vals, (n, n), sr, block=block, device=cuda)
+    xs = torch.full((b, n), sr.zero, dtype=sr.dtype)
+    for i in range(1, b):
+        hot = torch.from_numpy(rng.integers(256, n, int(rng.integers(1, 3))))
+        xs[i, hot] = 1 if sr.dtype == torch.int32 else 2.5
+    keep, xd = ops._frontier_block(a, xs.to(cuda), sr, None)
+    meta = ops._spmspv_meta_batch(a, keep)
+    union = ops._spmspv_union_batch(meta)
+    assert int((union[:, :, 0] == 0).sum()) > union.shape[0] * union.shape[1] // 2
+    ys = semiring_spmspv_padded_batch(a.tiles, meta, xd, sr=sr)
+    single = torch.stack([semiring_spmspv_padded(a.tiles, m, v, sr=sr) for m, v in zip(meta, xd)])
+    torch.cuda.synchronize()
+    assert torch.equal(ys, single)
+    assert_match(ys, ref.spmspv_padded_batch_ref(a.tiles, meta, xd, sr), sr)
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("name", ["min_plus", "min_times", "plus_times"])
+def test_block_kernels_bit_identical_on_signed_zeros_and_nan(cuda, name, block):
+    """The float semirings on tiles and x with both signs, ±0.0, ±inf and
+    NaN: every row of kernels 1 and 2 over a block has the bits of the
+    single-vector kernel on its vector, NaN payloads and zero signs
+    included (the min semirings' outputs that are zero or NaN are the
+    block fold's recomputed ones)."""
+    from repro_torch.kernels.semiring_spmv import semiring_spmv_padded_batch
+    from repro_torch.kernels.spmspv_tiles import semiring_spmspv_padded_batch
+
+    sr = SEMIRINGS[name]
+    (_, _, _, n), a, x, _ = random_problem(sr, block, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tiles = a.tiles * torch.where(torch.rand(a.tiles.shape, device=cuda, generator=gen) < 0.3,
+                                  -1.0, 1.0)
+    tiles[torch.rand(tiles.shape, device=cuda, generator=gen) < 0.05] = -0.0
+    b = 12
+    xs = torch.stack([x.roll(7 * i) for i in range(b)])
+    u = torch.rand(xs.shape, device=cuda, generator=gen)
+    xs = torch.where(u < 0.3, -xs, xs)
+    xs[u < 0.08] = 0.0
+    xs[u < 0.04] = -0.0
+    xs[u < 0.01] = float("-inf")
+    xs[u < 0.004] = float("nan")
+    xs = xs.contiguous()
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    ys = semiring_spmv_padded_batch(tiles, a.tile_cols, xs, sr=sr)
+    single = torch.stack([semiring_spmv_padded(tiles, a.tile_cols, v, sr=sr) for v in xs])
+    torch.cuda.synchronize()
+    assert torch.equal(bits(ys), bits(single))
+    keep = torch.rand(xs.shape, device=cuda, generator=gen) < 0.2
+    meta = ops._spmspv_meta_batch(a, keep)
+    ys = semiring_spmspv_padded_batch(tiles, meta, xs, sr=sr)
+    single = torch.stack([semiring_spmspv_padded(tiles, m, v, sr=sr) for m, v in zip(meta, xs)])
+    torch.cuda.synchronize()
+    assert torch.equal(bits(ys), bits(single))
 
 
 def test_multi_source_on_the_card_matches_the_host(cuda):

@@ -135,8 +135,10 @@ def test_block_wrappers_on_cpu_launch_nothing_and_check_operands():
     tops.semiring_spmspv_batch(ta, x[:, :N], sr)
     assert (semiring_spmv_padded_batch.launches,
             semiring_spmspv_padded_batch.launches) == before
-    with pytest.raises(ValueError, match="nb"):
-        semiring_spmv_padded_batch(ta.tiles, ta.tile_cols, x, sr=sr, nb=3)
+    with pytest.raises(ValueError, match="index"):
+        semiring_spmv_padded_batch(ta.tiles, ta.tile_cols[:, :-1].contiguous(), x, sr=sr)
+    with pytest.raises(TypeError):
+        semiring_spmv_padded_batch(ta.tiles, ta.tile_cols, x, sr=sr, nb=4)   # no knob left
     with pytest.raises(ValueError, match=r"\[B, n\]"):
         semiring_spmv_padded_batch(ta.tiles, ta.tile_cols, x[0], sr=sr)
     with pytest.raises(TypeError):
