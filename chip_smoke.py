@@ -115,20 +115,58 @@ Phases:
      within rtol 1e-4, atol 1e-7 of a cold PageRank, in no more iterations
      on the grow delta (on churn the count is reported). Apply and repair
      ms, traffic, iterations, walls, peak memory.
+ 16. The mesh layer (``core/mesh.py``, ``partition.py``,
+     ``collectives.py``, ``distributed.py``, ``pipeline.iterate_phases``)
+     on D = 8 virtual devices of the card (mesh 2×4). Full cit-HP, bsr
+     128×128, ⟨+,×⟩ (integer weights), ⟨min,+⟩ and ⟨∨,∧⟩: row (8,1), col
+     (1,8) and 2d (2,4), each at balance rows and nnz, kernel 1 (SpMV) and
+     kernel 2 (SpMSpV at 5%), flat and fused (kernels 3 and 5), each output
+     ``torch.equal`` to the single-device kernel on the same graph
+     (integer-valued x; ⟨+,×⟩ on a float x within rtol 1e-5), and ring,
+     tree, staged2d rc (and cr on col) bit-equal to flat. Each partition's
+     stored bytes; per strategy the Load, Kernel and Retrieve+Merge of one
+     SpMV timed apart under the blocking schedule, with the Kernel phase's
+     launches, beside ``estimate_phase_costs`` and ``merge_wire_cost``.
+     Full r-TX (⟨∨,∧⟩) row, 2d and col (about 31 GB), against kernels 1 and
+     2. The paper's config (``configs/alpha_pim_graph.py``: CSC, SpMSpV)
+     through ``partitioned_matvec(strategy="auto", topology="auto")`` on
+     cit-HP and r-TX: the planner's pick beside the fastest of the six
+     fixed strategy:balance runs, each held to kernel 2. ``iterate_phases``
+     over ``build_phase_fns`` for 20 rank updates (⟨+,×⟩, column-stochastic)
+     and 20 ⟨min,+⟩ steps on cit-HP 2d/rows: depth 0 and 2 ``torch.equal``,
+     against 20 single-device kernel-1 steps (⟨min,+⟩ ``torch.equal``,
+     ⟨+,×⟩ within rtol 1e-4: every step folds in another order), both
+     walls and the device-to-host reads per phase and per iteration.
+     ``make_distributed_batched_matvec`` at B = 32 (kernels 1b and 2b on
+     every device), each row equal to the unbatched call. The distributed
+     SpGEMM on full ca-Q at 64×64, row/col/2d, 0/1 ⟨+,∧⟩ (kernel 6b) and
+     integer ⟨+,×⟩ (kernel 6), masked and not, equal to the single-device
+     front door. One row at D = 64 (8×8) on cit-HP 2d/rows. Every kernel
+     launched through the mesh (1, 2, 3, 5 in each strategy, balance and
+     semiring, on cit-HP, r-TX and at D = 64; 1b and 2b in the batched
+     call; 6 and 6b on ca-Q) is held on each virtual device to its plain
+     version on that device's part and gathered input, the shapes the mesh
+     gives it (``compare``: exact, ⟨+,×⟩ within rtol 1e-5, atol 1e-6);
+     the largest difference per kernel goes into the ``kernels`` line. A
+     warm distributed call (⟨min,+⟩, every strategy, topology, kernel,
+     fused form and the compressed Load) and one phase step of the pipeline under every topology
+     make no synchronising CUDA call (torch.cuda's sync debug mode). Peak
+     memory.
 
 Launch counters: all eight are set to 0 before phase 3 and kernels 1–2
-read after phase 4. In phases 6–8 every call of the fused path, in
-phase 9 every front-door SpGEMM, in phase 10 every app, in phase 12
-each serving run and in phases 14–15 every multi-source and incremental
-traversal runs with the counters set to 0 just before it and read just
-after; the comparisons and timings in between are not counted. The run
-fails unless kernels 1–2 launched in phases 3–4 and the block launches
-did not, kernels 3–5 in phases 6–8, kernels 6 and 6b in phase 9 (each
-for the cases it is chosen for), kernel 6b alone on phase 10's triangle
-path, kernel 1 on its CC and k-core paths, kernel 7 on the serving path,
-and kernels 1 and 2 over a block in phases 14–15 (kernel 2's on r-TX).
-Any mismatch raises, so the run exits non-zero without the final
-``{"ok": true, ...}`` line.
+read after phase 4. In phases 6–8 every call of the fused path, in phase
+9 every front-door SpGEMM, in phase 10 every app, in phase 12 each
+serving run, in phases 14–15 every multi-source and incremental
+traversal and in phase 16 every distributed call runs with the counters
+set to 0 just before it and read just after; the comparisons and timings
+in between are not counted. The run fails unless kernels 1–2 launched in
+phases 3–4 and the block launches did not, kernels 3–5 in phases 6–8,
+kernels 6 and 6b in phase 9 (each for the cases it is chosen for),
+kernel 6b alone on phase 10's triangle path, kernel 1 on its CC and
+k-core paths, kernel 7 on the serving path, kernels 1 and 2 over a block
+in phases 14–15 (kernel 2's on r-TX), and kernels 1, 2, 3, 5, 1b, 2b, 6
+and 6b through the mesh in phase 16. Any mismatch raises, so the run
+exits non-zero without the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -153,6 +191,10 @@ RTX_MAX_ITERS = 256
 PROMPT_LENS = (17, 64, 200, 511)
 MAX_NEW_TOKENS = 32
 MAX_SEQ = 1024
+MESH_GRID = (2, 4)             # phase 16: D = 8 virtual devices
+MESH_GRID_BIG = (8, 8)         # and one row at D = 64
+MESH_B = 32
+PIPE_ITERS = 20
 
 
 def check(cond: bool, msg: str) -> None:
@@ -897,6 +939,548 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
         summary[k.__name__]["max_abs_err"] = worst[k.__name__]
     print(f"phases 14-15: block launches on the multi-source path {json.dumps(tally)}")
     return summary
+
+
+def mesh_phases(torch, dev, cit, rtx, caq, time_ms, compare, all_kernels) -> tuple[dict, dict]:
+    """Phase 16: the mesh layer on D = R·C virtual devices of the card.
+    Every distributed call is held to the single-device kernels on the same
+    graph, and each kernel's launches on the virtual devices to its plain
+    version on that device's part and input (the shapes the mesh gives
+    it); the Load / Kernel / Retrieve+Merge split of each strategy is
+    timed under the blocking schedule beside the cost model's estimate;
+    a warm distributed call under every topology makes no synchronising
+    CUDA call; ``iterate_phases`` runs at depth 0 and 2; the planner's pick
+    for the paper's CSC-2D config is set beside the measured fastest
+    strategy. Returns ({kernel name: launches in phase 16's distributed
+    calls}, {kernel name: max |kernel - plain| over the parts})."""
+    import importlib
+    import warnings
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.alpha_pim_graph import CONFIG
+    from repro_torch.core import build_bsr_padded, frontier_from_dense
+    from repro_torch.core.collectives import plan_merge
+    from repro_torch.core.distributed import (
+        _fused_partials, build_phase_fns, make_distributed_batched_matvec,
+        make_distributed_matvec, make_distributed_spgemm, vec_to_2d_layout,
+    )
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.core.pipeline import iterate_phases, run_phases_once
+    from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, PLUS_AND, PLUS_TIMES
+    from repro_torch.core.spgemm import spgemm_masked
+    from repro_torch.core.spmspv import spmspv_batch
+    from repro_torch.core.spmv import spmv_batch
+    from repro_torch.graphs.cost_model import estimate_phase_costs, merge_wire_cost
+    from repro_torch.graphs.engine import edge_values
+    from repro_torch.graphs.multi import partitioned_matvec
+    from repro_torch.kernels import ops, ref
+
+    part = importlib.import_module("repro_torch.core.partition")
+    grid, grid_big, b, pipe_iters = MESH_GRID, MESH_GRID_BIG, MESH_B, PIPE_ITERS
+    r_parts, c_parts = grid
+    d = r_parts * c_parts
+    strategies = {"row": (d, 1), "col": (1, d), "2d": grid}
+    mesh = Mesh(grid, device=dev)
+    tally = {k.__name__: 0 for k in all_kernels}
+    kern = {k.__name__: k for k in all_kernels}
+    errs = {}           # kernel name -> max |kernel - plain| over the mesh's parts
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    def main_path(fn):
+        """Run one distributed call with every launch counter set to 0 just
+        before it; add the counts, read just after, to the tally."""
+        for k in all_kernels:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        for k in all_kernels:
+            tally[k.__name__] += k.launches
+        return out
+
+    def same(a, b_, what: str) -> None:
+        torch.cuda.synchronize()
+        check(torch.equal(a, b_), what)
+
+    def reads(fn) -> int:
+        """Device-to-host reads in one call of fn (aten::_local_scalar_dense)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if e.key == "aten::_local_scalar_dense")
+
+    def syncs(fn) -> int:
+        """Synchronising CUDA calls in one call of fn (a blocking copy, a
+        read, a nonzero, a synchronize), as torch.cuda's sync debug mode
+        reports them."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+    def held(name: str, y, y_plain, sr, what: str) -> None:
+        errs[name] = max(errs.get(name, 0.0), compare(y, y_plain, sr, what))
+
+    kernel_of = {("spmv", False): "semiring_spmv_padded",
+                 ("spmspv", False): "semiring_spmspv_padded",
+                 ("spmv", True): "semiring_spmv_fused_padded",
+                 ("spmspv", True): "semiring_spmspv_fused_padded"}
+
+    def hold_kernel_phase(pm, sr, strategy, x, kernel, fused=False, m=None, tag="") -> None:
+        """One Kernel phase of a distributed call, run as the main path;
+        device g's output held to its kernel's plain version on device g's
+        part and gathered input: the operands the mesh gives the kernel."""
+        use = m or mesh
+        xs = part.shard_tensor(pm.plan, x[:pm.plan.shape[1]], sr.zero)
+        fns = build_phase_fns(use, pm, sr, strategy, kernel, fused=fused)
+        xf = fns["load"](pm.parts, xs) if fns["load"] is not None else xs
+        if fused and strategy != "row":
+            # the fused closure merges too: its Kernel half alone
+            chunks = use.n_devices if strategy == "col" else use.grid[1]
+            ys = main_path(lambda: _fused_partials(pm.parts, xf, sr, kernel, chunks)[0])
+        else:
+            ys = main_path(lambda: fns["kernel"](pm.parts, xs, xf))
+        name = kernel_of[(kernel, fused)]
+        for g in range(pm.n_devices):
+            a, xg = part.device_part(pm.parts, g), xf[g]
+            if kernel == "spmspv":
+                y_plain = ops.semiring_spmspv_ref(a, frontier_from_dense(xg, sr), sr)
+            elif fused:
+                y_plain = ref.spmv_fused_padded_ref(a.tiles, ops._spmv_fused_meta(a), xg, sr)
+            else:
+                y_plain = ops.semiring_spmv_ref(a, xg, sr)
+            held(name, ys[g].reshape(-1), y_plain, sr, f"phase 16 {tag} {name} on device {g}")
+
+    def sync_check(pm, sr, strategy, x, tag: str) -> dict:
+        """Synchronising calls in a warm distributed call (its index tables
+        built by a first call), for every topology, kernel, fused form and
+        (row, 2d) the compressed Load: 0 each, or the depth-2 pipeline
+        would wait on the card."""
+        xs = part.shard_tensor(pm.plan, x[:pm.plan.shape[1]], sr.zero)
+        forms = [("spmv", False, None), ("spmv", True, None), ("spmspv", False, None),
+                 ("spmspv", True, None)]
+        if strategy != "col":
+            forms.append(("spmspv", False, pm.plan.in_per))
+        counts = {}
+        for topology in (("flat",) if strategy == "row" else ("flat", "ring", "tree", "staged2d")):
+            for kernel, fused, f_local in forms:
+                fn = make_distributed_matvec(mesh, pm, sr, strategy, kernel=kernel,
+                                             topology=topology, fused=fused, f_local=f_local)
+                fn(pm.parts, xs)
+                form = "compressed" if f_local else "fused" if fused else "unfused"
+                counts[f"{topology}/{kernel}/{form}"] = syncs(lambda: fn(pm.parts, xs))
+        check(not any(counts.values()), f"{tag}: a warm distributed call synchronised: {counts}")
+        return counts
+
+    def transposed(g, sr, vals, shape=None, block=(128, 128)):
+        return build_bsr_padded(g.cols.astype(np.int32), g.rows.astype(np.int32), vals,
+                                shape or (g.n, g.n), sr, block=block, device=dev)
+
+    def partition_of(g, sr, vals, pgrid, balance, shape=None, fmt="bsr", block=(128, 128)):
+        t0 = time.perf_counter()
+        pm = part.partition(g.cols.astype(np.int64), g.rows.astype(np.int64), vals,
+                            shape or (g.n, g.n), pgrid, fmt, sr, block=block, balance=balance,
+                            device=dev)
+        torch.cuda.synchronize()
+        return pm, time.perf_counter() - t0
+
+    def run_e2e(pm, sr, strategy, x, n_true, m=None, **kw):
+        """Shard x (length n_true), one distributed call, unshard: y [m]."""
+        use = mesh if m is None else m
+        xs = part.shard_tensor(pm.plan, x[:n_true], sr.zero)
+        fn = make_distributed_matvec(use, pm, sr, strategy, **kw)
+        return part.unshard_tensor(pm.plan, main_path(lambda: fn(pm.parts, xs)))
+
+    def x_of(rng, sr, n, integer=True):
+        if sr.dtype == torch.int32:
+            v = rng.integers(0, 2, n).astype(np.int32)
+        elif integer:
+            v = rng.integers(0, 9, n).astype(np.float32)
+        else:
+            v = rng.uniform(0.5, 4.0, n).astype(np.float32)
+        return torch.from_numpy(v).to(dev)
+
+    def sparse(rng, sr, x, density):
+        keep = torch.from_numpy(rng.random(x.shape[0]) < density).to(dev)
+        return torch.where(keep, x, torch.as_tensor(sr.zero, dtype=sr.dtype, device=dev))
+
+    def phase_split(pm, sr, strategy, balance, x, t_single, m=None) -> dict:
+        """Load, Kernel and Retrieve+Merge of one spmv timed apart under the
+        blocking schedule (CUDA events around each phase, medians of 10),
+        the Kernel phase's launches, and the cost model's estimate beside
+        them (elements per device; the Merge priced for the flat merge)."""
+        use = m or mesh
+        xs = part.shard_tensor(pm.plan, x[:pm.plan.shape[1]], sr.zero)
+        fns = build_phase_fns(use, pm, sr, strategy, "spmv")
+        load, kern, rm = fns["load"], fns["kernel"], fns["retrieve_merge"]
+        xf = load(pm.parts, xs) if load is not None else xs
+        for k in all_kernels:
+            k.launches = 0
+        ys = kern(pm.parts, xs, xf)
+        torch.cuda.synchronize()
+        launched = {k.__name__: k.launches for k in all_kernels if k.launches}
+        m_merge = {"row": 0, "col": pm.plan.padded_shape[0],
+                   "2d": pm.plan.local_shape[0]}[strategy]
+        return {"strategy": strategy, "balance": balance, "devices": use.n_devices,
+                "load_ms": time_ms(lambda: load(pm.parts, xs)) if load is not None else 0.0,
+                "kernel_ms": time_ms(lambda: kern(pm.parts, xs, xf)),
+                "retrieve_merge_ms": (time_ms(lambda: rm(pm.parts, ys)) if rm is not None
+                                      else 0.0),
+                "e2e_ms": time_ms(lambda: fns["e2e"](pm.parts, xs)),
+                "single_kernel1_ms": t_single, "kernel_phase_launches": launched,
+                "estimate": estimate_phase_costs(pm.plan, strategy, "spmv",
+                                                 mesh_grid=use.grid, merge="flat"),
+                "merge_wire": merge_wire_cost(strategy, use.grid, m_merge, "flat"),
+                "merge_steps_flat": (plan_merge(strategy, use.grid, "flat").n_steps
+                                     if strategy != "row" else 0)}
+
+    def batched(pm, sr) -> None:
+        """Kernels 1 and 2 over a [B, n] block on every device through
+        make_distributed_batched_matvec; each row equals the unbatched call
+        bit for bit."""
+        n_in = pm.plan.shape[1]
+        xb = torch.from_numpy(rng.uniform(0.5, 4.0, (b, n_in)).astype(np.float32)).to(dev)
+        xb[:, n:] = 0
+        live = torch.from_numpy(rng.random((b, n_in)) < 0.05).to(dev)
+        for kernel, blk in (("spmv", xb), ("spmspv", torch.where(live, xb, 0.0))):
+            xs = part.shard_tensor(pm.plan, blk, sr.zero, dim=1)
+            fb = make_distributed_batched_matvec(mesh, pm, sr, "2d", kernel=kernel)
+            f1 = make_distributed_matvec(mesh, pm, sr, "2d", kernel=kernel)
+            singles = [xs[:, i].contiguous() for i in range(b)]
+            before = dict(tally)
+            ys = main_path(lambda: fb(pm.parts, xs))
+            same(ys, torch.stack([f1(pm.parts, x1) for x1 in singles], dim=1),
+                 f"batched {kernel}: a row differs from the unbatched call")
+            # each device's block launch against its plain version, on the
+            # block the batched Load gathers for it
+            xfb = mesh.all_gather(vec_to_2d_layout(xs, pm.grid), "dr", dim=2)
+            body = spmv_batch if kernel == "spmv" else spmspv_batch
+            name = f"semiring_{kernel}_padded_batch"
+            for g in range(d):
+                a = part.device_part(pm.parts, g)
+                held(name, body(a, xfb[g], sr), body(a, xfb[g], sr, impl="ref"), sr,
+                     f"phase 16 batched {kernel} on device {g}")
+            print(json.dumps({"phase": 16, "batched": kernel, "graph": "cit-HP",
+                              "strategy": "2d", "B": b,
+                              "launches": {k: tally[k] - before[k] for k in tally
+                                           if tally[k] - before[k]},
+                              "ms": time_ms(lambda: fb(pm.parts, xs), reps=5),
+                              "seq_ms": time_ms(lambda: [f1(pm.parts, x1) for x1 in singles],
+                                                reps=3)}))
+
+    rng = np.random.default_rng(SEED + 16)
+    n = cit.n
+    vals_of = {s.name: edge_values(cit, s, weighted=s.name != "bool_or_and", seed=5)
+               for s in (PLUS_TIMES, MIN_PLUS, BOOL_OR_AND)}
+    stored, splits, sync_rows = [], [], []
+    cfg_ref = {}
+
+    # ------------------------------------------- cit-HP: strategy × balance
+    for sr in (PLUS_TIMES, MIN_PLUS, BOOL_OR_AND):
+        a = transposed(cit, sr, vals_of[sr.name])
+        x_int = x_of(rng, sr, a.shape[1])
+        x_sp = sparse(rng, sr, x_int, 0.05)
+        x_sp[n:] = sr.zero
+        y1 = ops.semiring_spmv(a, x_int, sr)[:n]
+        y2 = ops.semiring_spmspv(a, frontier_from_dense(x_sp[:n], sr), sr)[:n]
+        x_fl = x_of(rng, sr, a.shape[1], integer=False) if sr.name == "plus_times" else None
+        y1f = ops.semiring_spmv(a, x_fl, sr)[:n] if x_fl is not None else None
+        if sr.name == "bool_or_and":
+            x_cfg = sparse(rng, sr, torch.ones(a.shape[1], dtype=torch.int32, device=dev), 0.05)
+            x_cfg[n:] = 0
+            cfg_ref["cit-HP"] = (x_cfg, ops.semiring_spmspv(
+                a, frontier_from_dense(x_cfg[:n], sr), sr)[:n])
+        t_single = time_ms(lambda: ops.semiring_spmv(a, x_int, sr))
+        del a
+        torch.cuda.empty_cache()
+        for strategy, pgrid in strategies.items():
+            for balance in ("rows", "nnz"):
+                pm, build_s = partition_of(cit, sr, vals_of[sr.name], pgrid, balance)
+                tag = f"{sr.name}/{strategy}/{balance}"
+                stored.append({"graph": "cit-HP", "semiring": sr.name, "strategy": strategy,
+                               "balance": balance, "tiles": list(pm.parts.tiles.shape),
+                               "stored_bytes": pm.stored_bytes(), "build_s": build_s,
+                               "imbalance": pm.plan.imbalance()})
+                y = run_e2e(pm, sr, strategy, x_int, n)
+                same(y, y1, f"{tag} spmv: not the single-device kernel 1")
+                if y1f is not None:
+                    yf = run_e2e(pm, sr, strategy, x_fl, n)
+                    torch.testing.assert_close(yf, y1f, rtol=1e-5, atol=0,
+                                               msg=lambda s: f"{tag} float x: {s}")
+                ysp = run_e2e(pm, sr, strategy, x_sp, n, kernel="spmspv")
+                same(ysp, y2, f"{tag} spmspv: not the single-device kernel 2")
+                same(run_e2e(pm, sr, strategy, x_int, n, fused=True), y,
+                     f"{tag} fused spmv: not the unfused bits")
+                same(run_e2e(pm, sr, strategy, x_sp, n, kernel="spmspv", fused=True), ysp,
+                     f"{tag} fused spmspv: not the unfused bits")
+                if strategy != "row":
+                    for topology, order in (("ring", "rc"), ("tree", "rc"), ("staged2d", "rc"),
+                                            ("staged2d", "cr")):
+                        if order == "cr" and strategy != "col":
+                            continue
+                        same(run_e2e(pm, sr, strategy, x_int, n, topology=topology,
+                                     merge_order=order), y,
+                             f"{tag} {topology}:{order}: not the flat merge's bits")
+                for xk, kernel in ((x_int, "spmv"), (x_sp, "spmspv")):
+                    for fused in (False, True):
+                        hold_kernel_phase(pm, sr, strategy, xk, kernel, fused, tag=tag)
+                if sr.name == "min_plus":
+                    sync_rows.append({"strategy": strategy, "balance": balance,
+                                      "syncs": sync_check(pm, sr, strategy, x_int, tag)})
+                if sr.name == "plus_times":
+                    splits.append(phase_split(pm, sr, strategy, balance, x_int, t_single))
+                del pm
+                torch.cuda.empty_cache()
+        print(f"phase 16: cit-HP {sr.name}: row/col/2d × rows/nnz on {d} virtual devices "
+              "equal the single-device kernels 1 and 2 (spmv, spmspv at 5%, fused); every "
+              "topology equals the flat merge bit for bit")
+    for row in stored:
+        print(json.dumps({"phase": 16, "partition": row}))
+    for row in splits:
+        print(json.dumps({"phase": 16, "split": row}))
+    for row in sync_rows:
+        print(json.dumps({"phase": 16, "graph": "cit-HP", "semiring": "min_plus",
+                          "syncs_in_a_warm_call": row}))
+
+    # --------------------------------------------------- r-TX: row, 2d, col
+    rtx_vals = edge_values(rtx, BOOL_OR_AND, weighted=False)
+    sr = BOOL_OR_AND
+    a = transposed(rtx, sr, rtx_vals)
+    x_int = x_of(rng, sr, a.shape[1])
+    x_sp = sparse(rng, sr, x_int, 0.05)
+    x_sp[rtx.n:] = 0
+    y1 = ops.semiring_spmv(a, x_int, sr)[:rtx.n]
+    y2 = ops.semiring_spmspv(a, frontier_from_dense(x_sp[:rtx.n], sr), sr)[:rtx.n]
+    x_cfg = sparse(rng, sr, torch.ones(a.shape[1], dtype=torch.int32, device=dev), 0.05)
+    x_cfg[rtx.n:] = 0
+    cfg_ref["r-TX"] = (x_cfg, ops.semiring_spmspv(a, frontier_from_dense(x_cfg[:rtx.n], sr),
+                                                  sr)[:rtx.n])
+    t_single = time_ms(lambda: ops.semiring_spmv(a, x_int, sr))
+    del a
+    torch.cuda.empty_cache()
+    rtx_rows = []
+    for strategy in ("row", "2d", "col"):
+        pm, build_s = partition_of(rtx, sr, rtx_vals, strategies[strategy], "rows")
+        y = run_e2e(pm, sr, strategy, x_int, rtx.n)
+        same(y, y1, f"r-TX {strategy} spmv: not the single-device kernel 1")
+        same(run_e2e(pm, sr, strategy, x_sp, rtx.n, kernel="spmspv"), y2,
+             f"r-TX {strategy} spmspv: not the single-device kernel 2")
+        same(run_e2e(pm, sr, strategy, x_sp, rtx.n, kernel="spmspv", fused=True), y2,
+             f"r-TX {strategy} fused spmspv: not kernel 2")
+        for xk, kernel, fused in ((x_int, "spmv", False), (x_sp, "spmspv", False),
+                                  (x_sp, "spmspv", True)):
+            hold_kernel_phase(pm, sr, strategy, xk, kernel, fused, tag=f"r-TX {strategy}")
+        row = {"graph": "r-TX", "semiring": sr.name, "strategy": strategy, "balance": "rows",
+               "tiles": list(pm.parts.tiles.shape), "stored_bytes": pm.stored_bytes(),
+               "build_s": build_s, "imbalance": pm.plan.imbalance(),
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        row.update(phase_split(pm, sr, strategy, "rows", x_int, t_single))
+        rtx_rows.append(row)
+        print(json.dumps({"phase": 16, "partition": row}))
+        del pm
+        torch.cuda.empty_cache()
+    print(f"phase 16: r-TX {sr.name}: {', '.join(r['strategy'] for r in rtx_rows)} equal the "
+          "single-device kernels 1 and 2")
+
+    # ------------------------------------- the paper's config: CSC-2D, auto
+    for g in (cit, rtx):
+        x_cfg, ref_y = cfg_ref[g.name]
+        pm, fn, choice = partitioned_matvec(g, BOOL_OR_AND, mesh, strategy="auto",
+                                            topology="auto", kernel="spmspv", fmt=CONFIG.fmt,
+                                            frontier_density=0.05)
+        measured = {}
+        for strategy in ("row", "col", "2d"):
+            for balance in ("rows", "nnz"):
+                pm_s, fn_s, ch = partitioned_matvec(
+                    g, BOOL_OR_AND, mesh, strategy=f"{strategy}:{balance}", topology="auto",
+                    kernel="spmspv", fmt=CONFIG.fmt, frontier_density=0.05)
+                xs = part.shard_tensor(pm_s.plan, x_cfg[:pm_s.plan.shape[1]], 0)
+                y = part.unshard_tensor(pm_s.plan, main_path(lambda: fn_s(pm_s.parts, xs)))
+                same(y[:g.n], ref_y, f"{g.name} config {strategy}:{balance}: not kernel 2")
+                measured[f"{strategy}:{balance}"] = {
+                    "ms": time_ms(lambda: fn_s(pm_s.parts, xs), reps=5),
+                    "merge": ch.merge, "merge_order": ch.merge_order,
+                    "estimate_total": ch.costs[(strategy, balance)]["total"]}
+                del pm_s, fn_s
+                torch.cuda.empty_cache()
+        picked = f"{choice.strategy}:{choice.balance}"
+        fastest = min(measured, key=lambda k: measured[k]["ms"])
+        print(json.dumps({"phase": 16, "config": "alpha_pim_graph", "graph": g.name,
+                          "fmt": CONFIG.fmt, "kernel": "spmspv", "density": 0.05,
+                          "planner": picked, "planner_merge": choice.merge,
+                          "planner_ms": measured[picked]["ms"], "fastest": fastest,
+                          "fastest_ms": measured[fastest]["ms"], "measured": measured}))
+        del pm, fn
+        torch.cuda.empty_cache()
+
+    # ------------------------------- the pipeline: 20 rank updates, 2d/rows
+    n_pad = -(-n // (128 * d)) * (128 * d)             # square: input chunks = output chunks
+    pipe = {}
+    for sr, vals in ((PLUS_TIMES, edge_values(cit, PLUS_TIMES, weighted=False, normalize=True)),
+                     (MIN_PLUS, vals_of["min_plus"])):
+        a = transposed(cit, sr, vals, shape=(n_pad, n_pad))
+        if sr.name == "plus_times":
+            x0 = torch.full((n_pad,), 1.0 / n, dtype=torch.float32, device=dev)
+            x0[n:] = 0
+        else:
+            x0 = torch.full((n_pad,), float("inf"), device=dev)
+            x0[torch.from_numpy(rng.choice(n, 64, replace=False)).to(dev)] = 0.0
+        y_single = x0
+        for _ in range(pipe_iters):
+            y_single = ops.semiring_spmv(a, y_single, sr)
+        del a
+        torch.cuda.empty_cache()
+        pm, _ = partition_of(cit, sr, vals, grid, "rows", shape=(n_pad, n_pad))
+        check(pm.plan.in_per == pm.plan.out_per, "pipeline partition is not chainable")
+        fns = build_phase_fns(mesh, pm, sr, "2d", "spmv")
+        xs0 = part.shard_tensor(pm.plan, x0, sr.zero)
+        walls = {}
+        outs = {}
+        for depth in (0, 2, 0, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = main_path(lambda: iterate_phases(fns, pm.parts, xs0, pipe_iters, depth=depth))
+            walls.setdefault(depth, []).append((time.perf_counter() - t0) * 1e3)
+            outs[depth] = out
+        same(outs[0], outs[2], f"pipeline {sr.name}: depth 0 and depth 2 differ")
+        y_d = part.unshard_tensor(pm.plan, outs[0])
+        if sr.name == "plus_times":
+            # 20 chained steps, each folding in another order than the single
+            # device: within rtol 1e-4 (not bit for bit)
+            torch.testing.assert_close(y_d, y_single, rtol=1e-4, atol=1e-12,
+                                       msg=lambda s: f"pipeline plus_times: {s}")
+            rel = ((y_d - y_single).abs() / y_single.abs().clamp_min(1e-30)).max()
+        else:
+            same(y_d, y_single, "pipeline min_plus: not 20 single-device kernel-1 steps")
+            rel = torch.zeros(())
+        xf = fns["load"](pm.parts, xs0)
+        ys = fns["kernel"](pm.parts, xs0, xf)
+        per_phase = {"load": reads(lambda: fns["load"](pm.parts, xs0)),
+                     "kernel": reads(lambda: fns["kernel"](pm.parts, xs0, xf)),
+                     "retrieve_merge": reads(lambda: fns["retrieve_merge"](pm.parts, ys))}
+        per_iter = reads(lambda: iterate_phases(fns, pm.parts, xs0, pipe_iters, depth=2))
+        step_syncs = {}
+        for topology in ("flat", "ring", "tree", "staged2d"):
+            fns_t = build_phase_fns(mesh, pm, sr, "2d", "spmv", topology=topology)
+            run_phases_once(fns_t, pm.parts, xs0)
+            step_syncs[topology] = syncs(lambda: run_phases_once(fns_t, pm.parts, xs0))
+        check(not any(step_syncs.values()),
+              f"pipeline {sr.name}: a phase step synchronised: {step_syncs}")
+        ring = build_phase_fns(mesh, pm, sr, "2d", "spmv", topology="ring")
+        pipe[sr.name] = {"iters": pipe_iters, "depth0_ms": walls[0], "depth2_ms": walls[2],
+                         "max_rel_err_vs_single": float(rel),
+                         "host_reads_per_phase": per_phase,
+                         "host_reads_per_iteration": per_iter / pipe_iters,
+                         "syncs_per_phase_step": step_syncs,
+                         "syncs_depth2_ring": syncs(lambda: iterate_phases(
+                             ring, pm.parts, xs0, pipe_iters, depth=2))}
+        print(json.dumps({"phase": 16, "pipeline": sr.name, "graph": "cit-HP",
+                          "strategy": "2d", "balance": "rows", "n_pad": n_pad,
+                          **pipe[sr.name]}))
+        if sr.name == "plus_times":
+            batched(pm, sr)
+        del pm, fns
+        torch.cuda.empty_cache()
+
+    # ----------------------------------------------------- SpGEMM on ca-Q
+    spgemm_rows = []
+    for sr, bvals in ((PLUS_AND, "01"), (PLUS_TIMES, "int")):
+        vals = np.ones(caq.nnz, np.int32 if sr.dtype == torch.int32 else np.float32)
+        a = transposed(caq, sr, vals, block=(64, 64))
+        kn = caq.n
+        bmat = (torch.from_numpy(rng.random((a.shape[1], kn)) < 0.3).to(dev).to(sr.dtype)
+                if bvals == "01" else
+                torch.from_numpy(rng.integers(0, 4, (a.shape[1], kn)).astype(np.float32)).to(dev))
+        bmat[caq.n:] = 0
+        mask = torch.from_numpy(rng.random((caq.n, kn)) < 0.4).to(dev).to(sr.dtype)
+        want = spgemm_masked(a, bmat, sr)[:caq.n]
+        want_m = torch.where(mask != 0, want, torch.zeros((), dtype=sr.dtype, device=dev))
+        t_single = time_ms(lambda: spgemm_masked(a, bmat, sr), reps=3)
+        del a
+        torch.cuda.empty_cache()
+        for strategy, pgrid in strategies.items():
+            pm, _ = partition_of(caq, sr, vals, pgrid, "rows", block=(64, 64))
+            bs = part.shard_tensor(pm.plan, bmat[:caq.n], sr.one)
+            ms = part.shard_tensor(pm.plan, mask, sr.zero, side="output")
+            fn = make_distributed_spgemm(mesh, pm, sr, strategy)
+            before = dict(tally)
+            c = part.unshard_tensor(pm.plan, main_path(lambda: fn(pm.parts, bs)))
+            same(c, want, f"ca-Q spgemm {sr.name}/{strategy}: not the single-device front door")
+            cm = part.unshard_tensor(pm.plan, main_path(lambda: fn(pm.parts, bs, ms)))
+            same(cm, want_m, f"ca-Q masked spgemm {sr.name}/{strategy}")
+            # each device's launch (the front door picks 6 or 6b) against
+            # that kernel's plain version, on B as the Load leaves it there
+            bf = {"row": lambda: mesh.all_gather(bs, ("dr", "dc")), "col": lambda: bs,
+                  "2d": lambda: mesh.all_gather(vec_to_2d_layout(bs, pm.grid), "dr")}[strategy]()
+            for g in range(d):
+                a = part.device_part(pm.parts, g)
+                n6b = kern["semiring_spgemm_binary"].launches
+                y = spgemm_masked(a, bf[g], sr)
+                bp, mk, meta, bn, ncol = ops._spgemm_operands(a, bf[g], sr, None)
+                if kern["semiring_spgemm_binary"].launches > n6b:
+                    name, y_plain = "semiring_spgemm_binary", ref.spgemm_binary_ref(
+                        a.tiles, meta, bp, mk, sr, bn)
+                else:
+                    name, y_plain = "semiring_spgemm_padded", ref.spgemm_padded_ref(
+                        a.tiles, meta, bp, mk, sr, bn)
+                held(name, y, y_plain[:, :ncol], sr, f"phase 16 ca-Q {strategy} {name} on "
+                                                     f"device {g}")
+            row = {"graph": "ca-Q", "semiring": sr.name, "B": bvals, "strategy": strategy,
+                   "tiles": list(pm.parts.tiles.shape),
+                   "launches": {k: tally[k] - before[k] for k in
+                                ("semiring_spgemm_padded", "semiring_spgemm_binary")},
+                   "ms": time_ms(lambda: fn(pm.parts, bs), reps=3), "single_ms": t_single,
+                   "host_reads": reads(lambda: fn(pm.parts, bs))}
+            spgemm_rows.append(row)
+            print(json.dumps({"phase": 16, "spgemm": row}))
+            del pm, bs, ms, c, cm
+            torch.cuda.empty_cache()
+    check(all(r["launches"]["semiring_spgemm_binary"] == 2 * d for r in spgemm_rows
+              if r["B"] == "01"), "0/1 ⟨+,∧⟩ did not take kernel 6b on every device")
+    check(all(r["launches"]["semiring_spgemm_padded"] == 2 * d for r in spgemm_rows
+              if r["B"] == "int"), "⟨+,×⟩ did not take kernel 6 on every device")
+    print("phase 16: ca-Q SpGEMM row/col/2d equals the single-device front door "
+          "(0/1 ⟨+,∧⟩ on kernel 6b, ⟨+,×⟩ on kernel 6), masked and unmasked")
+
+    # ------------------------------------------------ one row at D = R·C big
+    sr = PLUS_TIMES
+    a = transposed(cit, sr, vals_of["plus_times"])
+    x_int = x_of(rng, sr, a.shape[1])
+    y1 = ops.semiring_spmv(a, x_int, sr)[:n]
+    t_single = time_ms(lambda: ops.semiring_spmv(a, x_int, sr))
+    del a
+    torch.cuda.empty_cache()
+    big = Mesh(grid_big, device=dev)
+    pm, build_s = partition_of(cit, sr, vals_of["plus_times"], grid_big, "rows")
+    same(run_e2e(pm, sr, "2d", x_int, n, m=big), y1, "D=64 2d: not the single-device kernel 1")
+    hold_kernel_phase(pm, sr, "2d", x_int, "spmv", m=big, tag="D=64")
+    row = {"graph": "cit-HP", "semiring": sr.name, "strategy": "2d", "balance": "rows",
+           "grid": list(grid_big), "tiles": list(pm.parts.tiles.shape),
+           "stored_bytes": pm.stored_bytes(), "build_s": build_s}
+    row.update(phase_split(pm, sr, "2d", "rows", x_int, t_single, m=big))
+    print(json.dumps({"phase": 16, "partition": row}))
+    del pm
+    torch.cuda.empty_cache()
+
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s, peak memory {peak} bytes, "
+          f"launches in the distributed calls {json.dumps(tally)}")
+    print(json.dumps({"phase": 16, "plain_max_abs_err_on_the_parts": errs}))
+    for k in ("semiring_spmv_padded", "semiring_spmspv_padded", "semiring_spmv_fused_padded",
+              "semiring_spmspv_fused_padded", "semiring_spmv_padded_batch",
+              "semiring_spmspv_padded_batch", "semiring_spgemm_padded", "semiring_spgemm_binary"):
+        check(tally[k] > 0, f"{k} was not launched through the mesh in phase 16")
+        check(k in errs, f"{k} was not held to its plain version on the mesh's parts")
+    return tally, errs
 
 
 def main() -> int:
@@ -1645,6 +2229,13 @@ def main() -> int:
         summary[name] = row
         launches[name] = row["launches"]
         worst[name] = row["max_abs_err"]
+
+    # ---------------------------------------------------------------- 16
+    tally, errs = mesh_phases(torch, dev, cit, rtx, caq, time_ms, compare, all_kernels)
+    for name, count in tally.items():
+        launches[name] += count
+    for name, err in errs.items():
+        worst[name] = max(worst[name], err)
 
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
                                         "src/repro/kernels/semiring_spmv.py:56"),

@@ -7,8 +7,10 @@ literally the same matrix. ``to_numpy`` goes the other way, field by field.
 ``model_params_from_numpy`` takes a JAX params pytree with numpy leaves
 (segments stacked [L, ...]) and returns the port's model state, one
 entry per layer; ``mla_cache_from_numpy`` and ``mla_cache_to_numpy`` carry
-a segment's MLA caches both ways. Nothing here imports the JAX package:
-the caller hands over plain arrays.
+a segment's MLA caches both ways. ``partitioned_from_numpy`` carries a
+JAX ``PartitionedMatrix`` (stacked leaves, grid, shapes, format, plan) into
+the port's. Nothing here imports the JAX package: the caller hands over
+plain arrays.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.formats import (
     BSRMatrix, COOMatrix, CSCMatrix, CSRMatrix, PaddedBSR, SlicedELL,
 )
+from repro_torch.core.partition import PartitionedMatrix, PartitionPlan
 from repro_torch.models.attention import MLACache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import spec_leaves
@@ -77,6 +80,48 @@ def csc_from_numpy(col_ptr: np.ndarray, rows: np.ndarray, vals: np.ndarray, nnz,
     device = resolve_device(device)
     return CSCMatrix(_t(col_ptr, device), _t(rows, device), _t(vals, device),
                      int(nnz), tuple(shape), int(max_col_nnz))
+
+
+_STACKED = {"coo": (COOMatrix, ("rows", "cols", "vals")),
+            "csr": (CSRMatrix, ("row_ptr", "cols", "vals", "seg_ids")),
+            "csc": (CSCMatrix, ("col_ptr", "rows", "vals")),
+            "bsr": (PaddedBSR, ("tiles", "tile_cols"))}
+
+
+def partitioned_from_numpy(leaves: dict, fmt: str, grid: Tuple[int, int],
+                           shape: Tuple[int, int], local_shape: Tuple[int, int],
+                           plan: dict | None = None, block: Tuple[int, int] | None = None,
+                           max_col_nnz: int | None = None, device=None) -> PartitionedMatrix:
+    """A JAX ``PartitionedMatrix`` as the port's. ``leaves`` maps each field
+    of the stacked container to its numpy array with the leading device
+    axis (``nnz`` a [D] array, for the element formats); ``plan`` maps each
+    field of the JAX ``PartitionPlan`` to its value (tuples, numpy orders or
+    None). ``block`` is the BSR tile and ``max_col_nnz`` the CSC bound."""
+    device = resolve_device(device)
+    cls, names = _STACKED[fmt]
+    kw = {n: _t(leaves[n], device) for n in names}
+    for n in ("tile_cols", "row_ptr", "col_ptr", "seg_ids"):
+        if n in kw:
+            kw[n] = kw[n].to(torch.int32)
+    if fmt == "bsr":
+        parts = cls(**kw, shape=tuple(local_shape), block=tuple(block))
+    else:
+        kw["nnz"] = tuple(int(v) for v in np.asarray(leaves["nnz"]).reshape(-1))
+        if fmt == "csc":
+            kw["max_col_nnz"] = int(max_col_nnz)
+        parts = cls(**kw, shape=tuple(local_shape))
+    port_plan = None
+    if plan is not None:
+        port_plan = PartitionPlan(
+            grid=tuple(plan["grid"]), balance=plan["balance"], shape=tuple(plan["shape"]),
+            row_starts=tuple(int(v) for v in plan["row_starts"]),
+            col_starts=tuple(int(v) for v in plan["col_starts"]),
+            local_shape=tuple(plan["local_shape"]),
+            tile_nnz=tuple(int(v) for v in plan["tile_nnz"]),
+            row_order=None if plan.get("row_order") is None else np.asarray(plan["row_order"]),
+            col_order=None if plan.get("col_order") is None else np.asarray(plan["col_order"]))
+    return PartitionedMatrix(parts=parts, grid=tuple(grid), shape=tuple(shape),
+                             local_shape=tuple(local_shape), fmt=fmt, plan=port_plan)
 
 
 def to_numpy(m) -> dict:

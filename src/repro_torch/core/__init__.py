@@ -1,4 +1,5 @@
-"""Semiring sparse linear algebra with adaptive kernel selection."""
+"""Semiring sparse linear algebra with adaptive kernel selection and
+mesh-partitioned execution (the paper's contribution)."""
 from repro_torch.core.semiring import (  # noqa: F401
     BOOL_OR_AND, MIN_PLUS, MIN_TIMES, PLUS_AND, PLUS_TIMES, SEMIRINGS,
     Semiring,
@@ -22,4 +23,19 @@ from repro_torch.core.adaptive import (  # noqa: F401
     DecisionStump, GraphFeatures, adaptive_matvec, adaptive_matvec_batch,
     fit_decision_stump, select_kernel, select_kernel_batch,
 )
-from repro_torch.core.pipeline import pipeline_buckets  # noqa: F401
+from repro_torch.core.pipeline import (  # noqa: F401
+    iterate_phases, pipeline_buckets, run_phases_once,
+)
+from repro_torch.core.mesh import Mesh  # noqa: F401
+from repro_torch.core.partition import (  # noqa: F401
+    PartitionedMatrix, PartitionPlan, balanced_cuts, partition, plan_partition,
+    shard_tensor, shard_vector, unpartition, unshard_tensor,
+)
+from repro_torch.core.collectives import (  # noqa: F401
+    MERGE_FAMILIES, MergePlan, MergeStage, merge, merge_chunks, plan_merge,
+)
+from repro_torch.core.distributed import (  # noqa: F401
+    build_phase_fns, gather_frontier, make_distributed_batched_matvec,
+    make_distributed_matvec, make_distributed_spgemm, make_distributed_spmspv,
+    make_distributed_spmv, vec_to_2d_layout,
+)

@@ -14,8 +14,13 @@ route the block goes through kernels 1 and 2 over [B, n]
 launches.
 
 ``traverse_multi_buckets`` drains several source buckets through
-core.pipeline.pipeline_buckets. The JAX package's ``mesh``/``axis_name``
-arguments and ``partitioned_matvec`` wait for the mesh layer (ROADMAP §1).
+core.pipeline.pipeline_buckets. ``partitioned_matvec`` partitions a
+graph's transposed adjacency over a ``core.mesh.Mesh`` as the cost-model
+planner picks and builds its distributed matvec (the Fig.-3 path). The
+JAX package's ``mesh``/``axis_name`` arguments of the traversal makers,
+which row-shard the [B, n] block over devices, wait for a process-group
+mesh (ROADMAP §1): on the virtual devices of one card they would change
+nothing.
 """
 from __future__ import annotations
 
@@ -339,3 +344,52 @@ def traverse_multi_buckets(engine: GraphEngine, alg: str, buckets,
     if materialize is None:
         materialize = lambda _b, res: _synchronize(engine, res)  # noqa: E731
     return pipeline_buckets(issue, materialize, buckets, depth=pipeline_depth)
+
+
+def partitioned_matvec(graph, sr: Semiring, mesh, strategy: str = "auto",
+                       balance: str | None = None, kernel: str = "spmv",
+                       fmt: str | None = None, frontier_density: float = 1.0,
+                       weighted: bool = False, normalize: bool = False,
+                       seed: int = 0, batched: bool = False,
+                       topology: str = "auto", merge_order: str | None = None):
+    """Partition ``graph``'s transposed adjacency over ``mesh`` (axes
+    ``dr``/``dc``, a ``core.mesh.Mesh``) and build its distributed matvec,
+    with the partition decided by the cost-model planner.
+
+    ``strategy="auto"`` lets ``graphs.cost_model.choose_partition`` pick
+    strategy+balance from the graph's degree histogram and
+    ``frontier_density``; a fixed ``"row"``/``"col"``/``"2d"`` (optionally
+    suffixed ``:rows``/``:nnz``, or with an explicit ``balance``) pins it
+    while still producing the planner's cost table. ``topology="auto"``
+    takes the Merge collective the planner priced cheapest; a fixed name
+    pins it (``merge_order`` selects the staged-2D order, default "rc").
+
+    Returns ``(pm, fn, choice)``: the PartitionedMatrix on the mesh's device
+    (its ``plan`` carries the layouts), the matvec (``batched=True``
+    builds the [B, n]-block variant), and the PlannerChoice.
+    """
+    from repro_torch.core.distributed import (
+        make_distributed_batched_matvec, make_distributed_matvec,
+    )
+    from repro_torch.core.partition import partition
+    from repro_torch.graphs.cost_model import candidate_space, parse_strategy, plan_for_graph
+    from repro_torch.graphs.engine import edge_values
+
+    strategy, balance = parse_strategy(strategy, balance)
+    strategies, balances = candidate_space(strategy, balance)
+    grid2d = (mesh.shape["dr"], mesh.shape["dc"])
+    choice = plan_for_graph(graph, n_devices=mesh.n_devices, grid2d=grid2d,
+                            kernel=kernel, frontier_density=frontier_density,
+                            strategies=strategies, balances=balances)
+    vals = edge_values(graph, sr, weighted, seed, normalize)
+    fmt = fmt or ("csc" if kernel == "spmspv" else "csr")
+    rows = graph.cols.astype(np.int64)   # transposed: pull from in-neighbours
+    cols = graph.rows.astype(np.int64)
+    pm = partition(rows, cols, vals, choice.plan.shape, choice.grid, fmt, sr,
+                   plan=choice.plan, device=mesh.device)
+    if topology == "auto":
+        topology, merge_order = choice.merge, choice.merge_order
+    maker = make_distributed_batched_matvec if batched else make_distributed_matvec
+    fn = maker(mesh, pm, sr, choice.strategy, kernel=kernel,
+               topology=topology, merge_order=merge_order or "rc")
+    return pm, fn, choice

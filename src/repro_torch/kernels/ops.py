@@ -73,8 +73,10 @@ def _spmspv_meta(a: PaddedBSR, f: Frontier, sr: Semiring) -> Tensor:
     # active tile-columns from the frontier indices; pads (index n) land in
     # the spill entry nb, which is sliced off
     tile_idx = torch.where(f.indices < f.n, f.indices // bn, nb).long()
-    active_cols = torch.zeros(nb + 1, dtype=torch.bool, device=dev)
-    active_cols[tile_idx] = True
+    # index_fill_, not ``active_cols[tile_idx] = True``: a Python value set
+    # through an index tensor is copied to the card first, and that copy
+    # waits for the stream
+    active_cols = torch.zeros(nb + 1, dtype=torch.bool, device=dev).index_fill_(0, tile_idx, True)
     slot_active = active_cols[:nb][a.tile_cols.long()]                # [mb, T]
     # pad slots alias tile-column 0 but hold identity tiles: harmless
     perm = torch.argsort((~slot_active).to(torch.int8), dim=1, stable=True)

@@ -566,3 +566,145 @@ def test_moe_layer_on_the_card_matches_the_host(cuda):
         torch.testing.assert_close(y.cpu(), moe_ffn(xt, host, cfg), rtol=1e-4, atol=1e-5)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ---------------------------------------------------------------------------
+# The mesh layer on the card: D virtual devices on one card
+# ---------------------------------------------------------------------------
+
+MESH_STRATEGIES = {"row": (8, 1), "col": (1, 8), "2d": (2, 4)}
+
+
+def mesh_problem(sr, device, n=700, seed=3, n_pad=768):
+    """A skewed n-node edge list in the semiring's domain (integer values,
+    so every ⊕ order is exact) and its partitions at the padded square
+    shape (n_pad, n_pad), whose input and output chunks coincide, on
+    ``device``; x has n_pad entries."""
+    from repro_torch.core.partition import partition
+
+    rng = np.random.default_rng(seed)
+    rows = (n * rng.random(6000) ** 2).astype(np.int64)
+    cols = rng.integers(0, n, 6000).astype(np.int64)
+    keys = np.unique(rows * n + cols)
+    rows, cols = keys // n, keys % n
+    vals = (np.ones(rows.shape[0], np.int32) if sr.dtype == torch.int32
+            else rng.integers(1, 9, rows.shape[0]).astype(np.float32))
+    parts = {s: partition(rows, cols, vals, (n_pad, n_pad), g, "bsr", sr, block=(16, 16),
+                          device=device) for s, g in MESH_STRATEGIES.items()}
+    xv = (rng.integers(0, 2, n_pad) if sr.dtype == torch.int32 else rng.integers(0, 5, n_pad))
+    x = torch.from_numpy(xv.astype(np.int32 if sr.dtype == torch.int32 else np.float32))
+    return parts, x
+
+
+@pytest.mark.parametrize("name", ["plus_times", "min_plus", "bool_or_and"])
+def test_mesh_on_the_card_matches_the_host(cuda, name):
+    """Every strategy, topology and kernel (1, 2, fused 3, 5) on 8 virtual
+    devices of the card equals the same code on the host bit for bit
+    (integer-valued data), and each Kernel phase launches once per device."""
+    from repro_torch.core.distributed import make_distributed_matvec
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.core.partition import shard_tensor, unshard_tensor
+
+    sr = SEMIRINGS[name]
+    parts = {d: mesh_problem(sr, d) for d in (cuda, "cpu")}
+    meshes = {cuda: Mesh((2, 4), device=cuda), "cpu": Mesh((2, 4), device="cpu")}
+    for strategy in MESH_STRATEGIES:
+        for kernel, fused, launched in (("spmv", False, semiring_spmv_padded),
+                                        ("spmspv", False, semiring_spmspv_padded),
+                                        ("spmv", True, semiring_spmv_fused_padded),
+                                        ("spmspv", True, semiring_spmspv_fused_padded)):
+            for topology in ("flat", "ring", "tree", "staged2d"):
+                ys = []
+                for dev in (cuda, "cpu"):
+                    pms, x = parts[dev]
+                    pm = pms[strategy]
+                    xs = shard_tensor(pm.plan, x.to(dev), sr.zero)
+                    fn = make_distributed_matvec(meshes[dev], pm, sr, strategy, kernel=kernel,
+                                                 fused=fused, topology=topology)
+                    before = launched.launches
+                    ys.append(unshard_tensor(pm.plan, fn(pm.parts, xs)).cpu())
+                    if dev == cuda:
+                        assert launched.launches - before == 8
+                torch.cuda.synchronize()
+                assert torch.equal(ys[0], ys[1]), f"{strategy}/{kernel}/{fused}/{topology}"
+
+
+def test_mesh_batched_spgemm_and_pipeline_on_the_card(cuda):
+    """Kernels 1b/2b through the batched closures, kernel 6b through the
+    distributed SpGEMM and the pipelined phase loop at depths 0 and 2 on
+    the card equal the host bit for bit."""
+    from repro_torch.core.distributed import (
+        build_phase_fns, make_distributed_batched_matvec, make_distributed_spgemm,
+    )
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.core.partition import shard_tensor, unshard_tensor
+    from repro_torch.core.pipeline import iterate_phases
+    from repro_torch.kernels.semiring_spmv import semiring_spmv_padded_batch
+    from repro_torch.kernels.spmspv_tiles import semiring_spmspv_padded_batch
+
+    sr = SEMIRINGS["plus_and"]
+    out = {}
+    for dev in (cuda, "cpu"):
+        mesh = Mesh((2, 4), device=dev)
+        pms, x = mesh_problem(sr, dev)
+        pm = pms["2d"]
+        xb = torch.stack([x, x.roll(3), torch.zeros_like(x)]).to(dev)
+        res = []
+        for kernel in ("spmv", "spmspv"):
+            fb = make_distributed_batched_matvec(mesh, pm, sr, "2d", kernel=kernel)
+            res.append(unshard_tensor(pm.plan, fb(pm.parts, shard_tensor(pm.plan, xb, 0, dim=1)),
+                                      dim=1))
+        b = (torch.rand(768, 40, generator=torch.Generator().manual_seed(1)) < 0.3).int()
+        fg = make_distributed_spgemm(mesh, pm, sr, "2d")
+        res.append(unshard_tensor(pm.plan, fg(pm.parts, shard_tensor(pm.plan, b.to(dev), 1))))
+        fns = build_phase_fns(mesh, pm, sr, "2d", "spmv")
+        xs = shard_tensor(pm.plan, x.to(dev), 0)
+        res += [iterate_phases(fns, pm.parts, xs, 3, depth=d) for d in (0, 2)]
+        out[dev] = [r.cpu() for r in res]
+    torch.cuda.synchronize()
+    for a, h in zip(out[cuda], out["cpu"]):
+        assert torch.equal(a, h)
+    assert semiring_spmv_padded_batch.launches > 0 and semiring_spmspv_padded_batch.launches > 0
+    assert semiring_spgemm_binary.launches > 0
+
+
+@pytest.mark.parametrize("topology", ["flat", "ring", "tree", "staged2d"])
+def test_mesh_warm_calls_never_synchronise(cuda, topology):
+    """After its first call (which builds the mesh's index tables), a
+    distributed SpMV or SpMSpV on the card, fused or not, with the dense or
+    the compressed Load, and one step
+    through the phase closures make no synchronising CUDA call: under
+    ``torch.cuda.set_sync_debug_mode("error")`` a blocking copy, a read or
+    a synchronize raises. So the depth-2 pipeline never waits inside a
+    phase, whatever the Merge topology."""
+    from repro_torch.core.distributed import build_phase_fns, make_distributed_matvec
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.core.partition import shard_tensor
+    from repro_torch.core.pipeline import run_phases_once
+
+    sr = SEMIRINGS["min_plus"]
+    mesh = Mesh((2, 4), device=cuda)
+    pms, x = mesh_problem(sr, cuda)
+    calls = []
+    for strategy, pm in pms.items():
+        xs = shard_tensor(pm.plan, x.to(cuda), sr.zero)
+        topo = "flat" if strategy == "row" else topology
+        forms = [(k, f, None) for k in ("spmv", "spmspv") for f in (False, True)]
+        if strategy != "col":
+            forms.append(("spmspv", False, pm.plan.in_per))     # the compressed Load
+        for kernel, fused, f_local in forms:
+            fn = make_distributed_matvec(mesh, pm, sr, strategy, kernel=kernel, fused=fused,
+                                         topology=topo, f_local=f_local)
+            calls.append(lambda fn=fn, pm=pm, xs=xs: fn(pm.parts, xs))
+        fns = build_phase_fns(mesh, pm, sr, strategy, "spmv", topology=topo)
+        calls.append(lambda fns=fns, pm=pm, xs=xs: run_phases_once(fns, pm.parts, xs))
+    warm = [call() for call in calls]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = [call() for call in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for a, b in zip(warm, again):
+        assert torch.equal(a, b)
