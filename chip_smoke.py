@@ -86,7 +86,8 @@ Phases:
      row by row and held to their plain versions; kernel (kernel 2's alone
      and with the wrapper's union operands), 32 sequential single
      launches, plain (⟨+,×⟩), bound and (⟨+,×⟩) library
-     (``torch.sparse_bsr_tensor @ Xᵀ``) times, medians of 10. Then through
+     (``torch.sparse_bsr_tensor @ Xᵀ``) times, medians of 10 (of 3 for the
+     sequential launches and the plain versions). Then through
      ``build_engine(fmt_spmv="bsr", fmt_spmspv="bsr")`` on full cit-HP,
      ``bfs_multi``, ``sssp_multi`` (weighted) and ``ppr_multi``
      (normalized) at B = 32 sources from SEED: every row equal to the
@@ -152,20 +153,47 @@ Phases:
      fused form and the compressed Load) and one phase step of the pipeline under every topology
      make no synchronising CUDA call (torch.cuda's sync debug mode). Peak
      memory.
+ 17. Graph serving (``repro_torch.serve.graph_engine``): one
+     ``AsyncGraphServer`` on a ``FakeClock`` hosts full cit-HP and r-TX
+     (batch 32, csr/csc engines, max_iters 64, pipeline depth 2, strategy
+     auto, eager windows), 256 seeded traversals each (bfs/sssp/ppr in
+     equal shares, 30% repeats). The deep-backlog capacity, traced: each
+     bucket's wall from its ``pipeline/*`` spans. Open loop at 0.5×, 1×
+     and 2× capacity with the cache off, Poisson arrivals, each flush
+     advancing the clock by its wall, one deadline budget of 4 median
+     bucket walls: misses equal the per-ticket slack oracle, conservation
+     in every snapshot, bfs/sssp checksums equal at every load, the miss
+     rate not falling with the load (within a window's step). Every
+     served (algorithm, source) equal to the single-source run on the same
+     engine (PPR within rtol 1e-3, atol 1e-6), a cit-HP sample of 32 per
+     algorithm to ``bfs/sssp/ppr_multi`` on bsr engines (kernels 1b, 2b)
+     and scipy. Host syncs per flush (profiler), one traced window against
+     the same window untraced (every ``serve/*`` span carries its
+     ``window_id``). With the cache on: PageRank, CC, k-core and triangles
+     on cit-HP, PageRank and k-core on r-TX, four askers and one run each,
+     against phase 10's oracles and the numpy references; ``mutate`` with
+     phase 15's grow delta, retained + invalidated equal to the entries
+     before, every re-ask equal to a cold server on the new snapshot, the
+     device memory dropping. A threaded run on the system clock (4
+     submitters, 128 queries per tenant, every wait with a timeout) equal
+     to the fake-clock answers. Seconds per part, peak memory.
 
 Launch counters: all eight are set to 0 before phase 3 and kernels 1–2
 read after phase 4. In phases 6–8 every call of the fused path, in phase
 9 every front-door SpGEMM, in phase 10 every app, in phase 12 each
 serving run, in phases 14–15 every multi-source and incremental
-traversal and in phase 16 every distributed call runs with the counters
-set to 0 just before it and read just after; the comparisons and timings
+traversal, in phase 16 every distributed call and in phase 17 the served
+path (capacity run) and each bsr batched run runs with the counters set
+to 0 just before it and read just after; the comparisons and timings
 in between are not counted. The run fails unless kernels 1–2 launched in
 phases 3–4 and the block launches did not, kernels 3–5 in phases 6–8,
 kernels 6 and 6b in phase 9 (each for the cases it is chosen for),
 kernel 6b alone on phase 10's triangle path, kernel 1 on its CC and
 k-core paths, kernel 7 on the serving path, kernels 1 and 2 over a block
-in phases 14–15 (kernel 2's on r-TX), and kernels 1, 2, 3, 5, 1b, 2b, 6
-and 6b through the mesh in phase 16. Any mismatch raises, so the run
+in phases 14–15 (kernel 2's on r-TX), kernels 1, 2, 3, 5, 1b, 2b, 6
+and 6b through the mesh in phase 16, and 1b and 2b in phase 17's bsr
+cross-check (the served path itself runs csr/csc engines and launches
+none; the count is printed). Any mismatch raises, so the run
 exits non-zero without the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -195,6 +223,12 @@ MESH_GRID = (2, 4)             # phase 16: D = 8 virtual devices
 MESH_GRID_BIG = (8, 8)         # and one row at D = 64
 MESH_B = 32
 PIPE_ITERS = 20
+SERVE_ALGS = ("bfs", "sssp", "ppr")
+SERVE_BATCH = 32               # phase 17: the servers' bucket
+SERVE_QUERIES = 256            # traversals per tenant
+SERVE_THREAD_QUERIES = 128     # per tenant in the threaded run
+SERVE_SAMPLE = 32              # cit-HP sources per algorithm held to bsr and scipy
+SERVE_LOADS = (0.5, 1.0, 2.0)  # offered load, × capacity
 
 
 def check(cond: bool, msg: str) -> None:
@@ -645,9 +679,9 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
                "B": b, "tiles": [mb, t, bm, bn], "max_abs_err": worst["semiring_spmv_padded_batch"],
                "ms": time_ms(lambda: semiring_spmv_padded_batch(a.tiles, a.tile_cols, xs, sr=sr)),
                "seq_kernel1_ms": time_ms(lambda: [semiring_spmv_padded(a.tiles, a.tile_cols, x,
-                                                                       sr=sr) for x in xs]),
+                                                                       sr=sr) for x in xs], reps=3),
                "plain_ms": time_ms(lambda: ref.spmv_padded_batch_ref(a.tiles, a.tile_cols, xs, sr),
-                                   warmup=1) if lib is not None else None,
+                                   reps=3, warmup=0) if lib is not None else None,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": time_ms(lambda: lib @ xs.T) if lib is not None else None}
         print(json.dumps(row))
@@ -667,9 +701,9 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
                 "wrapper_ms": time_ms(lambda: semiring_spmspv_padded_batch(a.tiles, meta, xd,
                                                                            sr=sr)),
                 "seq_kernel2_ms": time_ms(lambda: [semiring_spmspv_padded(a.tiles, m, x, sr=sr)
-                                                   for m, x in zip(meta, xd)]),
+                                                   for m, x in zip(meta, xd)], reps=3),
                 "plain_ms": time_ms(lambda: ref.spmspv_padded_batch_ref(a.tiles, meta, xd, sr),
-                                    warmup=1) if lib is not None else None,
+                                    reps=3, warmup=0) if lib is not None else None,
                 "bound_ms": bound2, "bound_by": by2,
                 "library_ms": time_ms(lambda: lib @ xd.T) if lib is not None else None}
         print(json.dumps(row2))
@@ -1483,6 +1517,514 @@ def mesh_phases(torch, dev, cit, rtx, caq, time_ms, compare, all_kernels) -> tup
     return tally, errs
 
 
+def serve_workload(g, n: int, seed: int) -> list:
+    """``n`` traversal queries (bfs/sssp/ppr in equal shares) on ``g``:
+    70% distinct (algorithm, source) pairs, the rest repeats of them, in a
+    seeded order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_distinct = int(round(0.7 * n))
+    sources = rng.choice(g.n, n_distinct, replace=False)
+    pairs = [(SERVE_ALGS[i % 3], int(s)) for i, s in enumerate(sources)]
+    pairs += [pairs[int(i)] for i in rng.integers(0, n_distinct, n - n_distinct)]
+    return [pairs[int(i)] for i in rng.permutation(n)]
+
+
+def serve_checksum(payloads) -> str:
+    """sha1 of integer-exact payload arrays (unreached as -1)."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha1()
+    for a in payloads:
+        a = np.asarray(a, np.float64)
+        h.update(np.where(np.isfinite(a), a, -1.0).astype(np.int64).tobytes())
+    return h.hexdigest()[:12]
+
+
+def ppr_reference_block(g, sources, alpha: float = 0.85, iters: int = 64) -> "np.ndarray":
+    """``ppr_reference(..., sparse=True)`` for many sources at once: the same
+    float64 power iteration on the columns of one [n, B] block, each column
+    stopped where its own L1 change first drops to 1e-6. Returns [B, n]."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    deg = np.maximum(np.bincount(g.rows, minlength=g.n), 1).astype(np.float64)
+    p = sp.csr_matrix((1.0 / deg[g.rows], (g.cols, g.rows)), shape=(g.n, g.n))
+    e = np.zeros((g.n, len(sources)))
+    e[sources, np.arange(len(sources))] = 1.0
+    r, live = e.copy(), np.ones(len(sources), bool)
+    for _ in range(iters):
+        r_new = (1 - alpha) * e[:, live] + alpha * (p @ r[:, live])
+        done = np.abs(r_new - r[:, live]).sum(axis=0) <= 1e-6
+        r[:, live] = r_new
+        live[np.flatnonzero(live)[done]] = False
+        if not live.any():
+            break
+    return r.T
+
+
+def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SERVE_QUERIES,
+                 n_thread_queries: int = SERVE_THREAD_QUERIES, sample: int = SERVE_SAMPLE,
+                 loads=SERVE_LOADS) -> dict:
+    """Phase 17: graph serving through ``repro_torch.serve.graph_engine``.
+    One AsyncGraphServer on a FakeClock hosts cit-HP and r-TX (batch 32,
+    the JAX defaults otherwise: csr/csc engines, max_iters 64, pipeline
+    depth 2, strategy "auto"). Open loop as ``benchmarks/slo_openloop.py``
+    runs it: the deep-backlog capacity, then Poisson arrivals at each of
+    ``loads`` × capacity, each flush consuming simulated time equal to its
+    wall. Then the whole-graph kinds with the cache on, a mutate of cit-HP,
+    one traced window against the same window untraced, and a threaded run
+    on the system clock. ``oracles`` holds phase 10's cit-HP answers (cc,
+    kcore, triangles, pagerank). Every served traversal is held to the
+    port's single-source run on the same engine; on cit-HP a sample is also
+    held to the bsr engines' batched runs and the scipy oracles. Returns
+    the block kernels' launches in those batched runs."""
+    import threading
+
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csgraph
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.delta import EdgeDelta
+    from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, PLUS_TIMES
+    from repro_torch.graphs import (
+        bfs, bfs_multi, build_engine, kcore_reference, pagerank_reference, ppr, ppr_multi,
+        sssp, sssp_multi, trained_stump,
+    )
+    from repro_torch.graphs.engine import edge_values
+    from repro_torch.kernels.semiring_spmv import semiring_spmv_padded_batch
+    from repro_torch.kernels.spmspv_tiles import semiring_spmspv_padded_batch
+    from repro_torch.obs import trace
+    from repro_torch.obs.metrics import percentile_exact
+    from repro_torch.serve import AsyncGraphServer, FakeClock, GraphQueryServer
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    split, t_lap = {}, [t_phase]
+
+    def lap(part: str) -> None:
+        """Seconds since the previous lap, under ``part``."""
+        now = time.perf_counter()
+        split[part] = now - t_lap[0]
+        t_lap[0] = now
+
+    graphs = {"cit-HP": cit, "r-TX": rtx}
+    work = {name: serve_workload(g, n_queries, 17 + i) for i, (name, g) in enumerate(graphs.items())}
+    field = {"bfs": "levels", "sssp": "dist", "ppr": "rank"}
+    server_kw = {"batch_size": SERVE_BATCH, "device": dev}
+    stump = trained_stump()
+    answers: dict = {}          # (tenant, algorithm, source) -> the first payload served
+    ppr_bits = {"same": 0, "close": 0}
+
+    def hold(tenant, alg, src, payload, want, what: str) -> None:
+        """bfs/sssp exact (values and iterations); ppr within rtol 1e-3, atol
+        1e-6, its iterations within one (the ⟨+,×⟩ CSR reduce sums with
+        atomics on the card, so the tol crossing may move)."""
+        got = payload[field[alg]]
+        if alg == "ppr":
+            np.testing.assert_allclose(got, want[field[alg]], rtol=1e-3, atol=1e-6,
+                                       err_msg=f"{what}: {tenant} ppr/{src}")
+            check(abs(payload["iterations"] - want["iterations"]) <= 1,
+                  f"{what}: {tenant} ppr/{src} iterations {payload['iterations']} against "
+                  f"{want['iterations']}")
+            ppr_bits["same" if np.array_equal(got, want[field[alg]]) else "close"] += 1
+        else:
+            check(np.array_equal(got, want[field[alg]]) and got.dtype == want[field[alg]].dtype,
+                  f"{what}: {tenant} {alg}/{src} differs")
+            check(payload["iterations"] == want["iterations"],
+                  f"{what}: {tenant} {alg}/{src} iterations differ")
+
+    def record(tenant, tickets, what: str) -> None:
+        for tk in tickets:
+            check(tk.done() and tk.result is not None, f"{what}: ticket {tk.request_id} unresolved")
+            key = (tenant, tk.algorithm, tk.source)
+            if key in answers:
+                hold(tenant, tk.algorithm, tk.source, tk.result, answers[key], what)
+            else:
+                answers[key] = tk.result
+
+    def timed_flushes(srv, clock) -> None:
+        """Each tenant's flush consumes simulated time equal to its wall,
+        which ends in the host pull of its last bucket."""
+        for name in graphs:
+            server = srv.tenant(name)
+            orig = server.flush
+
+            def flush(orig=orig):
+                t0 = time.perf_counter()
+                out = orig()
+                clock.advance(time.perf_counter() - t0)
+                return out
+            server.flush = flush
+
+    def fake_server(max_wait: float, cache_capacity: int = 0, warm: bool = True):
+        clock = FakeClock()
+        srv = AsyncGraphServer(clock=clock, max_pending=1 << 16, max_wait=max_wait,
+                               cache_capacity=cache_capacity)
+        for name, g in graphs.items():
+            srv.add_tenant(name, g, **server_kw)
+        timed_flushes(srv, clock)
+        t0 = time.perf_counter()
+        for name in graphs if warm else ():  # builds every traversal engine, no deadline
+            tks = [srv.submit(name, a, 0) for a in SERVE_ALGS]
+            srv.drain(name)
+            record(name, tks, "warm-up")
+            for a in SERVE_ALGS:
+                check(srv.tenant(name).engine(a).device.type == dev.type,
+                      f"{name} {a} engine is not on {dev}")
+        return srv, clock, time.perf_counter() - t0
+
+    for k in all_kernels:
+        k.launches = 0
+    # ---------------------------------------------------------------- capacity
+    # One server for the capacity and open-loop runs. Its windows are
+    # eager (max_wait 0): a window is due when it opens and holds what
+    # arrived while the previous flush ran. A timer window that times out
+    # partial costs as much as a full one (one bucket per algorithm), which
+    # made the lowest load miss more deadlines than the highest.
+    ol, clock, build_s = fake_server(0.0)
+    sched = ol.scheduler
+    # the deep backlog drained as one window; its spans time each bucket:
+    # the runner's issue (the traversal, which syncs every level) plus its
+    # materialize (the host pull)
+    capacity, bucket_wall, window_wall = {}, {}, {}
+    for name in graphs:
+        with trace.tracing() as tracer:
+            t0 = time.perf_counter()
+            tks = [ol.submit(name, a, s) for a, s in work[name]]
+            ol.drain(name)
+            capacity[name] = len(tks) / (time.perf_counter() - t0)
+        record(name, tks, "capacity")
+        by_t0 = lambda spans: sorted(spans, key=lambda s: s.t0)  # noqa: E731
+        issues, mats, pulls = (by_t0(tracer.filter(p)) for p in (
+            "pipeline/issue", "pipeline/materialize", "serve/bucket_compute"))
+        check(len(issues) == len(mats) == len(pulls) > 0, f"{name}: unpaired bucket spans")
+        walls = [(p.attrs["algorithm"], i.duration + m.duration)
+                 for i, m, p in zip(issues, mats, pulls)]
+        bucket_wall[name] = statistics.median(w for _, w in walls)
+        # a window of mixed queries runs one bucket of each algorithm
+        window_wall[name] = sum(statistics.median(w for b, w in walls if b == a)
+                                for a in SERVE_ALGS)
+        print(json.dumps({"phase": 17, "tenant": name, "capacity_qps": capacity[name],
+                          "buckets": len(walls), "bucket_wall_ms_median": bucket_wall[name] * 1e3,
+                          "bucket_wall_ms": [[a, w * 1e3] for a, w in walls],
+                          "window_wall_ms": window_wall[name] * 1e3, "set_up_s": build_s}))
+    lap("set_up_and_capacity")
+    served_launches = {k.__name__: k.launches for k in all_kernels}
+    print(f"phase 17: hand-written kernel launches on the served path (csr/csc engines) "
+          f"{json.dumps(served_launches)}")
+
+    # every served (algorithm, source) against the single-source run on the
+    # tenant's own engine and max_iters
+    t0 = time.perf_counter()
+    n_single = 0
+    for (name, alg, src), payload in answers.items():
+        server = ol.tenant(name)
+        eng = server.engine(alg)
+        if alg == "bfs":
+            r = bfs(eng, src, max_iters=server.max_iters)
+            want = {"levels": r.levels.cpu().numpy(), "iterations": r.iterations}
+        elif alg == "sssp":
+            r = sssp(eng, src, max_iters=server.max_iters)
+            want = {"dist": r.dist.cpu().numpy(), "iterations": r.iterations}
+        else:
+            r = ppr(eng, src, alpha=server.alpha, max_iters=server.max_iters)
+            want = {"rank": r.rank.cpu().numpy(), "iterations": r.iterations}
+        hold(name, alg, src, payload, want, "single-source")
+        n_single += 1
+    single_s = time.perf_counter() - t0
+    lap("single_source")
+    print(f"phase 17: {n_single} served (tenant, algorithm, source) answers equal the "
+          f"single-source runs on the same csr/csc engines ({single_s:.1f} s)")
+
+    # cit-HP sample: bsr engines' batched runs (kernels 1b and 2b) and scipy
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    block_tally = {k.__name__: 0 for k in (semiring_spmv_padded_batch,
+                                           semiring_spmspv_padded_batch)}
+    w_keyed = edge_values(cit, MIN_PLUS, weighted=True, seed=5, content_keyed=True)
+    for alg, sr, kw in (("bfs", BOOL_OR_AND, {}),
+                        ("sssp", MIN_PLUS, {"weighted": True, "seed": 5, "content_keyed": True}),
+                        ("ppr", PLUS_TIMES, {"normalize": True})):
+        pool = sorted({s for a, s in work["cit-HP"] if a == alg})
+        srcs = [int(s) for s in rng.choice(pool, min(sample, len(pool)), replace=False)]
+        eng = build_engine(cit, sr, stump, fmt_spmv="bsr", fmt_spmspv="bsr", device=dev, **kw)
+        for k in all_kernels:
+            k.launches = 0
+        if alg == "bfs":
+            res = bfs_multi(eng, srcs, max_iters=64)
+        elif alg == "sssp":
+            res = sssp_multi(eng, srcs, max_iters=64)
+        else:
+            res = ppr_multi(eng, srcs, max_iters=64)
+        torch.cuda.synchronize()
+        for k in (semiring_spmv_padded_batch, semiring_spmspv_padded_batch):
+            block_tally[k.__name__] += k.launches
+        check(int(res.iterations.max()) < 64, f"cit-HP {alg} sample hit max_iters")
+        rows = getattr(res, field[alg]).cpu().numpy()
+        iters = res.iterations.cpu().numpy()
+        if alg == "ppr":
+            want = ppr_reference_block(cit, srcs)
+            for i, s in enumerate(srcs):
+                hold("cit-HP", alg, s, {"rank": rows[i], "iterations": int(iters[i])},
+                     answers[("cit-HP", alg, s)], "bsr ppr_multi")
+                np.testing.assert_allclose(rows[i], want[i], rtol=1e-3, atol=1e-6,
+                                           err_msg=f"cit-HP ppr/{s} against the oracle")
+        else:
+            for i, s in enumerate(srcs):
+                hold("cit-HP", alg, s, {field[alg]: rows[i], "iterations": int(iters[i])},
+                     answers[("cit-HP", alg, s)], f"bsr {alg}_multi")
+            weights = np.ones(cit.nnz) if alg == "bfs" else w_keyed
+            dist = csgraph.dijkstra(sp.csr_matrix((weights, (cit.rows, cit.cols)),
+                                                  shape=(cit.n, cit.n)), indices=srcs)
+            if alg == "bfs":
+                want = np.where(np.isfinite(dist), dist, -1).astype(np.int32)
+            else:
+                want = dist.astype(np.float32)
+            check(np.array_equal(rows, want), f"cit-HP {alg} sample differs from scipy")
+        del eng, res
+        torch.cuda.empty_cache()
+    for name, count in block_tally.items():
+        check(count > 0, f"{name} was not launched by the bsr cross-check")
+    lap("bsr_and_scipy")
+    print(f"phase 17: cit-HP, {sample} sources per algorithm: served answers equal "
+          f"bfs/sssp/ppr_multi on the bsr engines and the scipy oracles "
+          f"({time.perf_counter() - t0:.1f} s; block launches {json.dumps(block_tally)})")
+
+    # ---------------------------------------------------------------- open loop
+    budget = {name: 4 * bucket_wall[name] for name in graphs}   # 4 median bucket walls
+    curves = {}
+    for name in graphs:
+        queries = work[name]
+        gaps = np.random.default_rng(SEED).exponential(1.0, len(queries))
+        curves[name] = {}
+        for mult in loads:
+            slo0 = ol.stats(name)["slo"]
+            h0 = ol.stats(name)["latency"]["bucket_s"]
+            rate = mult * capacity[name]
+            arrivals = clock.now() + np.cumsum(gaps / rate)
+            tickets, i = [], 0
+            while i < len(queries) or sched.pending() > 0:
+                due = sched.next_wakeup()
+                if i < len(queries) and (due is None or arrivals[i] <= due):
+                    if arrivals[i] > clock.now():
+                        clock.advance(arrivals[i] - clock.now())
+                    alg, src = queries[i]
+                    tickets.append(ol.submit(name, alg, src, deadline=float(
+                        arrivals[i] + budget[name] - clock.now())))
+                    i += 1
+                else:
+                    if due > clock.now():
+                        clock.advance(due - clock.now())
+                    ol.poll()
+            record(name, tickets, f"open loop {mult}x")
+            st = ol.stats(name)
+            slo, h1 = st["slo"], st["latency"]["bucket_s"]
+            check(slo["admitted"] == slo["dispatched"] + slo["pending"] + slo["abandoned"],
+                  f"{name} {mult}x: admission not conserved {slo}")
+            check(slo["goodput"] + slo["deadline_misses"] + slo["no_deadline"] == slo["resolved"],
+                  f"{name} {mult}x: resolutions not conserved {slo}")
+            check(slo["pending"] == 0 and slo["resolved"] == slo["dispatched"],
+                  f"{name} {mult}x: unresolved tickets {slo}")
+            misses = slo["deadline_misses"] - slo0["deadline_misses"]
+            oracle = sum(1 for tk in tickets if tk.slack() < 0)
+            check(misses == oracle, f"{name} {mult}x: {misses} misses against the slack "
+                                    f"oracle's {oracle}")
+            lat = [tk.resolved_at - a for tk, a in zip(tickets, arrivals)]
+            n_b = h1["count"] - h0.get("count", 0)
+            mean_b = (h1["mean"] * h1["count"] - h0.get("mean", 0.0) * h0.get("count", 0)) / n_b
+            csum = {a: serve_checksum(tk.result[field[a]] for tk in tickets if tk.algorithm == a)
+                    for a in ("bfs", "sssp")}
+            row = {"phase": 17, "tenant": name, "load_x": mult, "offered_qps": rate,
+                   "achieved_qps": len(tickets) / (max(tk.resolved_at for tk in tickets)
+                                                   - arrivals[0]),
+                   "p50_ms": percentile_exact(lat, 0.5) * 1e3,
+                   "p99_ms": percentile_exact(lat, 0.99) * 1e3,
+                   "miss_rate": misses / len(tickets), "misses": misses,
+                   "budget_ms": budget[name] * 1e3,
+                   "windows": len({tk.window_id for tk in tickets}),
+                   "buckets": n_b, "bucket_s_mean": mean_b, "checksums": csum}
+            curves[name][mult] = row
+            print(json.dumps(row))
+        # 256 queries make 3-8 windows, so the rate moves a window at a
+        # time: the highest load misses no fewer than the lowest, and each
+        # step up in load loses at most 0.1 (benchmarks/slo_openloop.py's
+        # slack)
+        rates = [curves[name][m]["miss_rate"] for m in loads]
+        check(rates[-1] >= rates[0] and all(a <= b + 0.1 for a, b in zip(rates, rates[1:])),
+              f"{name}: the miss rate falls as the load rises: {rates}")
+        sums = {json.dumps(curves[name][m]["checksums"]) for m in loads}
+        check(len(sums) == 1, f"{name}: bfs/sssp checksums differ across loads: {sums}")
+
+    lap("open_loop")
+    # host syncs per flush: one window per tenant under the profiler
+    for name in graphs:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tks = [ol.submit(name, a, s) for a, s in work[name][:SERVE_BATCH]]
+            ol.drain(name)
+        record(name, tks, "profiled window")
+        reads = sum(e.count for e in prof.key_averages() if e.key == "aten::_local_scalar_dense")
+        print(json.dumps({"phase": 17, "tenant": name, "flushes": 1,
+                          "buckets": len({t.algorithm for t in tks}),
+                          "host_syncs_per_flush": reads}))
+
+    # one traced window against the same window untraced
+    window = work["cit-HP"][:SERVE_BATCH]
+    tks = [ol.submit("cit-HP", a, s) for a, s in window]
+    ol.drain("cit-HP")
+    with trace.tracing() as tr:
+        traced = [ol.submit("cit-HP", a, s) for a, s in window]
+        ol.drain("cit-HP")
+    for a, b in zip(tks, traced):
+        check(a.result.keys() == b.result.keys(), "traced payload keys differ")
+        if a.algorithm == "ppr":
+            hold("cit-HP", "ppr", a.source, b.result, a.result, "traced window")
+            np.testing.assert_allclose(b.result["residual"], a.result["residual"], rtol=1e-3,
+                                       atol=1e-6)
+            continue
+        for k in a.result:
+            check(np.array_equal(a.result[k], b.result[k]),
+                  f"traced {a.algorithm}/{a.source} {k} differs from untraced")
+    spans = tr.filter("serve/")
+    wid = traced[0].window_id
+    check(spans and all(s.attrs.get("window_id") == wid for s in spans),
+          "a serve/* span lacks the window_id")
+    print(json.dumps({"phase": 17, "traced_window": wid, "serve_spans": len(spans),
+                      "span_names": sorted({s.name for s in spans}),
+                      "bucket_compute_ms": sum(s.duration for s in tr.filter(
+                          "serve/bucket_compute")) * 1e3}))
+    del ol
+    torch.cuda.empty_cache()
+    lap("profile_and_trace")
+
+    # ---------------------------------------------------------------- globals, mutate
+    gs, _, _ = fake_server(0.0, cache_capacity=4096, warm=False)
+    globals_run = {"cit-HP": ("pagerank", "cc", "kcore", "triangles"),
+                   "r-TX": ("pagerank", "kcore")}
+    rtx_oracles = {"kcore": kcore_reference(rtx.rows, rtx.cols, rtx.n),
+                   "pagerank": pagerank_reference(rtx.rows, rtx.cols, rtx.n, iters=64,
+                                                  sparse=True)}
+    for name, algs in globals_run.items():
+        want = oracles if name == "cit-HP" else rtx_oracles
+        for alg in algs:
+            runs0 = gs.stats(name)["global_runs"]
+            t0 = time.perf_counter()
+            tks = [gs.submit(name, alg) for _ in range(4)]
+            gs.drain(name)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            check(gs.stats(name)["global_runs"] == runs0 + 1, f"{name} {alg} ran more than once")
+            check(sum(tk.cached for tk in tks) == 3, f"{name} {alg}: three askers not cached")
+            p = tks[0].result
+            if alg == "pagerank":
+                np.testing.assert_allclose(p["rank"], want["pagerank"], rtol=1e-3, atol=1e-6,
+                                           err_msg=f"{name} pagerank")
+            elif alg == "cc":
+                check(np.array_equal(p["labels"], want["cc"]), f"{name} CC labels differ")
+            elif alg == "kcore":
+                check(np.array_equal(p["coreness"], want["kcore"]), f"{name} coreness differs")
+            else:
+                check(p["total"] == want["triangles"], f"{name} triangle total differs")
+            print(json.dumps({"phase": 17, "tenant": name, "global": alg, "wall_ms": wall_ms,
+                              "iterations": p["iterations"]}))
+
+    lap("globals")
+    # the cit-HP workload with the cache on, then the grow delta
+    t0 = time.perf_counter()
+    tks = [gs.submit("cit-HP", a, s) for a, s in work["cit-HP"]]
+    gs.drain("cit-HP")
+    record("cit-HP", tks, "cached run")
+    st = gs.stats("cit-HP")
+    distinct = set(work["cit-HP"])
+    entries = len(distinct) + len(globals_run["cit-HP"])
+    check(len(gs.cache) == entries + len(globals_run["r-TX"]),
+          f"the LRU holds {len(gs.cache)} entries, expected {entries} + 2")
+    delta = graph_deltas(cit, EdgeDelta)[0][1]
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    report = gs.mutate("cit-HP", delta)
+    mutate_ms = (time.perf_counter() - t0) * 1e3
+    mem_after = torch.cuda.memory_allocated()
+    check(report["retained"] + report["invalidated"] == entries,
+          f"mutate: retained + invalidated = {report['retained'] + report['invalidated']}, "
+          f"entries before = {entries}")
+    check(mem_after < mem_before or dev.type == "cpu",
+          f"mutate kept the old snapshot's engines: {mem_after} >= {mem_before} bytes")
+    again = [gs.submit("cit-HP", a, s) for a, s in sorted(distinct)]
+    gs.drain("cit-HP")
+    cold = GraphQueryServer(gs.tenant("cit-HP").graph, cache_capacity=0, **server_kw)
+    reqs = [cold.submit(a, s) for a, s in sorted(distinct)]
+    cold.flush()
+    for tk, rq in zip(again, reqs):
+        hold("cit-HP", tk.algorithm, tk.source, tk.result, rq.result,
+             "after the mutate (cold run on the new snapshot)")
+    retained_hits = sum(tk.cached for tk in again)
+    check(retained_hits == report["retained"],
+          f"{retained_hits} re-asks hit the cache, {report['retained']} entries retained")
+    print(json.dumps({"phase": 17, "mutate": "cit-HP grow", "mutate_ms": mutate_ms, **report,
+                      "entries_before": entries, "lru_hit_rate": st["latency"]["lru_hit_rate"],
+                      "cache": st["cache"], "memory_before": mem_before,
+                      "memory_after": mem_after}))
+    del gs, cold
+    torch.cuda.empty_cache()
+    lap("mutate")
+
+    # ---------------------------------------------------------------- threads
+    ts = AsyncGraphServer(max_pending=4096, max_wait=0.005, cache_capacity=0)
+    for name, g in graphs.items():
+        ts.add_tenant(name, g, **server_kw)
+    got: dict = {}
+    errors: list = []
+
+    def submitter(tid):
+        name = list(graphs)[tid % 2]
+        half = work[name][:n_thread_queries][tid // 2::2]
+        try:
+            got[tid] = (name, [ts.submit(name, a, s) for a, s in half])
+        except Exception as e:         # reported below; the run fails
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    ts.start()
+    threads = [threading.Thread(target=submitter, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        check(not t.is_alive(), "a submitter thread hung")
+    check(not errors, f"submitters failed: {errors[:2]}")
+    try:
+        for name, tks in got.values():
+            for tk in tks:
+                tk.wait(timeout=120)
+    except TimeoutError as e:
+        ts.close()
+        check(False, f"threaded run: {e}")
+    thread_s = time.perf_counter() - t0
+    ts.close()
+    check(ts._thread is None, "the loop thread outlived close()")
+    sched_st = ts.scheduler.stats()
+    check(sched_st["pending"] == 0 and sched_st["admitted"] == sched_st["dispatched"]
+          == 2 * n_thread_queries, f"threaded run lost tickets: {sched_st}")
+    for name, tks in got.values():
+        record(name, tks, "threaded run")
+    print(json.dumps({"phase": 17, "threaded_wall_s": thread_s, "queries": 2 * n_thread_queries,
+                      "windows": len({tk.window_id for _, tks in got.values() for tk in tks}),
+                      "ppr_bit_identical": ppr_bits["same"], "ppr_within_tol": ppr_bits["close"]}))
+    del ts
+    torch.cuda.empty_cache()
+    lap("threads")
+    peak = torch.cuda.max_memory_allocated()
+    print(json.dumps({"phase": 17, "seconds": time.perf_counter() - t_phase,
+                      "split_s": split, "max_memory_allocated": peak,
+                      "answers_held": len(answers)}))
+    return block_tally
+
+
 def main() -> int:
     import torch
 
@@ -2194,18 +2736,21 @@ def main() -> int:
     split["real_macs"], split["real_bytes"] = st["real_macs"], st["real_bytes"]
     print(json.dumps({"phase": 10, "triangle_split": split}))
 
+    # phase 10's oracles, kept for phase 17's served answers
+    oracles = {"triangles": want_total, "cc": cc_reference(cit.rows, cit.cols, cit.n),
+               "kcore": kcore_reference(cit.rows, cit.cols, cit.n),
+               "pagerank": pagerank_reference(cit.rows, cit.cols, cit.n, sparse=True)}
     res = run_app("connected_components", MIN_TIMES, connected_components)
-    check(np.array_equal(res.labels.cpu().numpy(), cc_reference(cit.rows, cit.cols, cit.n)),
+    check(np.array_equal(res.labels.cpu().numpy(), oracles["cc"]),
           "cit-HP CC labels differ from cc_reference")
     res = run_app("kcore", PLUS_TIMES, kcore)
-    check(np.array_equal(res.coreness.cpu().numpy(), kcore_reference(cit.rows, cit.cols, cit.n)),
+    check(np.array_equal(res.coreness.cpu().numpy(), oracles["kcore"]),
           "cit-HP coreness differs from kcore_reference")
     for label in ("connected_components", "kcore"):
         check(apps[label]["launches"]["semiring_spmv_padded"] > 0,
               f"kernel 1 was not launched on the {label} path")
     res = run_app("pagerank", PLUS_TIMES, pagerank, normalize=True)
-    np.testing.assert_allclose(res.rank.cpu().numpy(),
-                               pagerank_reference(cit.rows, cit.cols, cit.n, sparse=True),
+    np.testing.assert_allclose(res.rank.cpu().numpy(), oracles["pagerank"],
                                rtol=1e-3, atol=1e-6)
     del res
     print("phase 10: cit-HP CC, k-core and PageRank match the references")
@@ -2236,6 +2781,10 @@ def main() -> int:
         launches[name] += count
     for name, err in errs.items():
         worst[name] = max(worst[name], err)
+
+    # ---------------------------------------------------------------- 17
+    for name, count in serve_phases(torch, dev, cit, rtx, oracles, all_kernels).items():
+        launches[name] += count
 
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
                                         "src/repro/kernels/semiring_spmv.py:56"),
