@@ -75,9 +75,10 @@ Phases:
      gives device busy time and the top kernels.
  13. The same model cut to 2 layers (the dense one and one MoE layer) in
      f32 with TF32 off, on the card and on the host from the same
-     weights: prefill and 4 greedy decode steps route every token to the
-     same experts, pick the same tokens, and give logits within rtol
-     1e-3, atol 1e-4.
+     weights (``card_against_host``): prefill and 4 greedy decode steps
+     route every token to the same experts, every card launch of kernel 7
+     equals its plain version and the host path's rows, the same tokens,
+     logits within rtol 1e-3, atol 1e-4.
  14. Multi-source traversals. Kernels 1 and 2 over a [B, n] block
      (``semiring_spmv_padded_batch``, ``semiring_spmspv_padded_batch``) on
      full cit-HP at 128×128 for all five semirings, at B = 1, 5, 32 and 40
@@ -177,19 +178,57 @@ Phases:
      device memory dropping. A threaded run on the system clock (4
      submitters, 128 queries per tenant, every wait with a timeout) equal
      to the fake-clock answers. Seconds per part, peak memory.
+ 18. The GQA families at full width in bf16, random weights from seed 0
+     by the reference's init rule, each built, run and freed before the
+     next: ``quantize_kv`` on the card equal to the host's bit for bit on
+     the same f32 input; mistral-nemo-12b (40 layers, 12.25 B
+     parameters, head_dim 128), deepseek-7b (int8 KV), minitron-4b and
+     qwen1.5-32b (qkv bias, int8 KV, 35.2 B parameters whole) each serve
+     phase 12's 4 requests (32 new tokens, max_seq 1024) through
+     ``ServingEngine.run``, nemo twice with the same tokens; every request
+     gets its budget with finite logits, the cache tensors' bytes equal
+     ``kv_cache.cache_bytes``, the int8 caches hold ``torch.int8`` codes
+     in [−127, 127]. hubert-xlarge encodes [4, 1500, 512] frames (full
+     logits, no cache). llama-3.2-vision-11b serves the requests, then
+     prefills them with random ``image_embeds`` [4, 1601, 7680] (its
+     gates start closed, so the logits equal the text-only prefill's) and
+     decodes with ``vision_kv``. mixtral-8x22b at the most layers that
+     fit (14 of 56 unless fewer leave 6 GB free), window 4,096, capacity
+     factor 1.25: batch 2, a 4,000-token prompt and 128 decode steps
+     through the ring (it wraps at position 4,096); kernel 7 launches
+     once per MoE layer in prefill and in every decode step, and its
+     first prefill and decode plans (D = 6144) are held to the plain
+     version and timed against their bound and ``index_select``. Per arch:
+     parameters, layers run, weight and cache bytes, peak memory, init s,
+     prefill ms, decode ms a step, tokens/s, kernel 7 launches; a profiler
+     window of 3 decode steps on nemo and mixtral (device busy time,
+     launches a step).
+ 19. In f32 with TF32 off, matrices redrawn with std 1/√(input width) as
+     in phase 13: a 2-layer cut of mistral-nemo-12b at full width and a
+     1-MoE-layer cut of mixtral-8x22b, each on the card and on the host
+     from the same weights, prefill phase 13's prompts and take 4 greedy
+     steps: the same routing at every MoE call, every card launch of
+     kernel 7 equal to its plain version and to the host path's rows, the
+     same greedy tokens, logits within rtol 1e-3, atol 1e-4. Then on the
+     card the mixtral cut at capacity factor 4.0 (no drops) prefills
+     2 × 4,000 tokens and decodes 128 through the ring, each step's
+     logits within rtol 1e-3, atol 1e-4 of ``forward`` over the same
+     4,128 tokens, window-masked.
 
 Launch counters: all eight are set to 0 before phase 3 and kernels 1–2
 read after phase 4. In phases 6–8 every call of the fused path, in phase
 9 every front-door SpGEMM, in phase 10 every app, in phase 12 each
 serving run, in phases 14–15 every multi-source and incremental
 traversal, in phase 16 every distributed call and in phase 17 the served
-path (capacity run) and each bsr batched run runs with the counters set
-to 0 just before it and read just after; the comparisons and timings
+path (capacity run) and each bsr batched run, and in phase 18 each
+serving run, runs with the counters set to 0 just before it and read
+just after; the comparisons and timings
 in between are not counted. The run fails unless kernels 1–2 launched in
 phases 3–4 and the block launches did not, kernels 3–5 in phases 6–8,
 kernels 6 and 6b in phase 9 (each for the cases it is chosen for),
 kernel 6b alone on phase 10's triangle path, kernel 1 on its CC and
-k-core paths, kernel 7 on the serving path, kernels 1 and 2 over a block
+k-core paths, kernel 7 on both serving paths (deepseek-v2-lite's
+phase 12 and mixtral's phase 18), kernels 1 and 2 over a block
 in phases 14–15 (kernel 2's on r-TX), kernels 1, 2, 3, 5, 1b, 2b, 6
 and 6b through the mesh in phase 16, and 1b and 2b in phase 17's bsr
 cross-check (the served path itself runs csr/csc engines and launches
@@ -199,6 +238,7 @@ exits non-zero without the final ``{"ok": true, ...}`` line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -229,6 +269,12 @@ SERVE_QUERIES = 256            # traversals per tenant
 SERVE_THREAD_QUERIES = 128     # per tenant in the threaded run
 SERVE_SAMPLE = 32              # cit-HP sources per algorithm held to bsr and scipy
 SERVE_LOADS = (0.5, 1.0, 2.0)  # offered load, × capacity
+HUBERT_FRAMES = 1500           # phase 18: frames per request, 512 wide
+MIXTRAL_LAYERS = 14            # of 56, 5.01 GB each in bf16: what one card holds
+MIXTRAL_FREE_BYTES = 6e9       # left free when fewer fit
+MIXTRAL_BATCH = 2
+MIXTRAL_PROMPT = 4000          # and 128 decode steps: the ring wraps at 4,096
+MIXTRAL_DECODE = 128
 
 
 def check(cond: bool, msg: str) -> None:
@@ -258,59 +304,62 @@ def random_plan(torch, dev, b: int, t: int, cfg, gen):
                          capacity(t, cfg)).slot_tok
 
 
+def device_ms(torch, fn, reps: int = 50) -> float:
+    """Device time of one call, in ms: ``reps`` calls queued behind a
+    ~20 ms sleep kernel, so they run back to back however long the
+    host takes to launch them; CUDA events around the run, over reps.
+    Kernel 7 runs for microseconds, less than a call's host time, so
+    a single-call timing would measure the host."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gather_row(torch, dev, x, tok, label: str, time_ms) -> dict:
+    """Kernel 7 against its plain version (``torch.equal``) and the
+    library's index_select on a zero-row-extended x; device times of
+    each, and the kernel's single-call time with the host's share."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+
+    y = moe_dispatch_gather(x, tok)
+    y_plain = ref.moe_dispatch_gather_ref(x, tok)
+    torch.cuda.synchronize()
+    check(torch.equal(y, y_plain), f"kernel 7 {label}: differs from the plain version")
+    x_ext = torch.cat([x, torch.zeros((1, x.shape[1]), dtype=x.dtype, device=dev)])
+    tok_lib = tok.clamp(max=x.shape[0])
+    check(torch.equal(x_ext.index_select(0, tok_lib), y), f"kernel 7 {label}: index_select")
+    bound_ms, bound_by, n_valid, n_rows = gather_bound(x, tok)
+    return {"kernel": "moe_dispatch_gather", "plan": label, "dtype": str(x.dtype),
+            "T": x.shape[0], "S": tok.shape[0], "D": x.shape[1], "n_valid": n_valid,
+            "rows_read": n_rows,
+            "max_abs_err": float((y.float() - y_plain.float()).abs().max()),
+            "ms": device_ms(torch, lambda: moe_dispatch_gather(x, tok)),
+            "call_ms": time_ms(lambda: moe_dispatch_gather(x, tok)),
+            "plain_ms": device_ms(torch, lambda: ref.moe_dispatch_gather_ref(x, tok)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": device_ms(torch, lambda: x_ext.index_select(0, tok_lib))}
+
+
 def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
               cfg13) -> dict:
     """Phases 11-13: kernel 7 against its plain version, the serving path
     on the full model in bf16, and a 2-layer f32 cut of it on the card
-    against the host. Returns kernel 7's row of the kernels line."""
+    against the host. Returns kernel 7's row on phase 12's decode plan,
+    with phase 12's launches."""
     import numpy as np
 
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
-    from repro_torch.models import moe
+    from repro_torch.kernels import ops
     from repro_torch.models.transformer import build_model
     from repro_torch.models.zoo import count_params
-    from repro_torch.serve.engine import Request, ServingEngine
-
-    def device_ms(fn, reps: int = 50) -> float:
-        """Device time of one call, in ms: ``reps`` calls queued behind a
-        ~20 ms sleep kernel, so they run back to back however long the
-        host takes to launch them; CUDA events around the run, over reps.
-        Kernel 7 runs for microseconds, less than a call's host time, so
-        a single-call timing would measure the host."""
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(40_000_000)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def gather_row(x, tok, label: str) -> dict:
-        """Kernel 7 against its plain version (``torch.equal``) and the
-        library's index_select on a zero-row-extended x; device times of
-        each, and the kernel's single-call time with the host's share."""
-        y = moe_dispatch_gather(x, tok)
-        y_plain = ref.moe_dispatch_gather_ref(x, tok)
-        torch.cuda.synchronize()
-        check(torch.equal(y, y_plain), f"kernel 7 {label}: differs from the plain version")
-        x_ext = torch.cat([x, torch.zeros((1, x.shape[1]), dtype=x.dtype, device=dev)])
-        tok_lib = tok.clamp(max=x.shape[0])
-        check(torch.equal(x_ext.index_select(0, tok_lib), y), f"kernel 7 {label}: index_select")
-        bound_ms, bound_by, n_valid, n_rows = gather_bound(x, tok)
-        return {"kernel": "moe_dispatch_gather", "plan": label, "dtype": str(x.dtype),
-                "T": x.shape[0], "S": tok.shape[0], "D": x.shape[1], "n_valid": n_valid,
-                "rows_read": n_rows,
-                "max_abs_err": float((y.float() - y_plain.float()).abs().max()),
-                "ms": device_ms(lambda: moe_dispatch_gather(x, tok)),
-                "call_ms": time_ms(lambda: moe_dispatch_gather(x, tok)),
-                "plain_ms": device_ms(lambda: ref.moe_dispatch_gather_ref(x, tok)),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": device_ms(lambda: x_ext.index_select(0, tok_lib))}
 
     # ---------------------------------------------------------------- 11
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -320,7 +369,7 @@ def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
         for label, t in (("decode", 1), ("prefill", t_pre)):
             x = torch.randn((b * t, d), generator=gen, device=dev).to(dtype)
             tok = random_plan(torch, dev, b, t, m, gen)
-            print(json.dumps(gather_row(x, tok, f"random {label}")))
+            print(json.dumps(gather_row(torch, dev, x, tok, f"random {label}", time_ms)))
     print("phase 11: kernel 7 equals its plain version on decode- and prefill-shaped plans, "
           "bf16 and f32")
 
@@ -331,27 +380,8 @@ def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in prompt_lens]
-    engine = ServingEngine(model, max_seq=max_seq, device=dev)
-
-    timings = {"prefill": [], "decode": []}
-    finite = torch.ones((), dtype=torch.bool, device=dev)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in prompt_lens]
     captured = {}
-
-    def timed(label, fn):
-        def step(*args):
-            nonlocal finite
-            t0 = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            timings[label].append((time.perf_counter() - t0) * 1e3)
-            logits = out[0] if label == "prefill" else out[1]
-            finite = finite & torch.isfinite(logits).all()
-            return out
-        return step
-
-    engine._prefill = timed("prefill", engine._prefill)
-    engine._decode = timed("decode", engine._decode)
     real_gather = ops.moe_dispatch_gather
 
     def capture(x, slot_tok):
@@ -359,33 +389,14 @@ def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
         captured.setdefault(key, (x.clone(), slot_tok.to(torch.int32).clone()))
         return real_gather(x, slot_tok)
 
-    runs = []
-    for run in range(2):
-        for k in timings.values():
-            k.clear()
-        ops.moe_dispatch_gather = capture
-        moe_dispatch_gather.launches = 0
-        t0 = time.perf_counter()
-        try:
-            done = engine.run([Request(prompt=p, max_new_tokens=max_new) for p in prompts])
-        finally:
-            ops.moe_dispatch_gather = real_gather
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = moe_dispatch_gather.launches
-        steps = len(timings["decode"])
-        decode_ms = sum(timings["decode"])
-        runs.append({"run": run + 1, "wall_ms": wall_ms, "prefill_ms": timings["prefill"][0],
-                     "decode_steps": steps, "decode_ms_per_step": decode_ms / max(steps, 1),
-                     "decode_tokens_per_s": b * steps / (decode_ms / 1e3),
-                     "tokens_per_s": sum(len(r.generated) for r in done) / (wall_ms / 1e3),
-                     "kernel7_launches": launches,
-                     "generated": [r.generated for r in done]})
-        check(all(len(r.generated) == max_new for r in done), "a request missed its budget")
-        routed = cfg.n_layers - m.first_dense_layers
-        check(launches == routed * (1 + steps),
-              f"kernel 7 launched {launches} times, not {routed} × (1 + {steps})")
-    check(bool(finite), "non-finite logits on the serving path")
+    runs, cache = serve_runs(torch, dev, model, prompts, max_new, max_seq, runs=2,
+                             capture=capture)
+    del cache
+    routed = cfg.n_layers - m.first_dense_layers
+    for r in runs:
+        check(r["kernel7_launches"] == routed * (1 + r["decode_steps"]),
+              f"kernel 7 launched {r['kernel7_launches']} times, not {routed} × "
+              f"(1 + {r['decode_steps']})")
     check(runs[0]["generated"] == runs[1]["generated"], "a second run gave other tokens")
     peak = torch.cuda.max_memory_allocated()
     check(peak < 80e9, f"peak memory {peak} bytes")
@@ -397,14 +408,192 @@ def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
                       "max_memory_allocated": peak,
                       "first_tokens": [g[:8] for g in runs[0]["generated"]]}))
     # a traced window of 3 decode steps: device busy time against the wall
+    print(json.dumps({"phase": 12, **decode_profile(torch, model, prompts, max_seq)}))
+    summary = gather_row(torch, dev, *captured["decode"], "phase-12 decode", time_ms)
+    print(json.dumps(summary))
+    print(json.dumps(gather_row(torch, dev, *captured["prefill"], "phase-12 prefill", time_ms)))
+    summary["launches"] = runs[0]["kernel7_launches"]
+    print(f"phase 12: {cfg.arch_id} served {b} requests × {max_new} tokens in bf16 "
+          f"twice with identical tokens; kernel 7 launched {summary['launches']} times")
+    del model, captured
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 13
+    card_against_host(torch, dev, cfg13, prompt_lens, max_seq, 13,
+                      f"{cfg.arch_id}, {cfg13.n_layers} layers")
+    torch.cuda.empty_cache()
+    return summary
+
+
+def serve_runs(torch, dev, model, prompts, budget: int, seq: int, runs: int = 1,
+               capture=None):
+    """``ServingEngine.run`` ``runs`` times, each with the kernel-7
+    count set to 0 just before it and read just after (``capture``, if
+    given, stands in for ``ops.moe_dispatch_gather`` meanwhile); prefill
+    and each decode step timed on the host clock (each ends in a sync).
+    Every request must get its budget and every logit be finite. Returns
+    the runs' rows and the last cache."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    real_gather = ops.moe_dispatch_gather
+    engine = ServingEngine(model, max_seq=seq, device=dev)
+    timings = {"prefill": [], "decode": []}
+    state = {"finite": torch.ones((), dtype=torch.bool, device=dev), "cache": None}
+
+    def timed(label, fn):
+        def step(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            timings[label].append((time.perf_counter() - t0) * 1e3)
+            logits = out[0] if label == "prefill" else out[1]
+            state["finite"] = state["finite"] & torch.isfinite(logits).all()
+            state["cache"] = out[-1]
+            return out
+        return step
+
+    engine._prefill = timed("prefill", engine._prefill)
+    engine._decode = timed("decode", engine._decode)
+    out = []
+    for _ in range(runs):
+        for k in timings.values():
+            k.clear()
+        if capture is not None:
+            ops.moe_dispatch_gather = capture
+        moe_dispatch_gather.launches = 0
+        t0 = time.perf_counter()
+        try:
+            done = engine.run([Request(prompt=p.tolist(), max_new_tokens=budget)
+                               for p in prompts])
+        finally:
+            ops.moe_dispatch_gather = real_gather
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = moe_dispatch_gather.launches
+        steps = len(timings["decode"])
+        decode_ms = sum(timings["decode"])
+        check(all(len(r.generated) == budget for r in done),
+              f"{model.cfg.arch_id}: a request missed its budget")
+        out.append({"run": len(out) + 1, "wall_ms": wall_ms, "prefill_ms": timings["prefill"][0],
+                    "decode_steps": steps, "decode_ms_per_step": decode_ms / max(steps, 1),
+                    "decode_tokens_per_s": len(prompts) * steps / (decode_ms / 1e3),
+                    "tokens_per_s": sum(len(r.generated) for r in done) / (wall_ms / 1e3),
+                    "kernel7_launches": launches,
+                    "generated": [r.generated for r in done]})
+    check(bool(state["finite"]), f"{model.cfg.arch_id}: non-finite logits on the serving path")
+    return out, state["cache"]
+
+
+def left_padded(torch, prompts, device):
+    """Prompts left-padded with token 0 to the longest, as
+    ``ServingEngine.run`` pads them: int64 [B, T] on ``device``."""
+    import numpy as np
+
+    toks = np.zeros((len(prompts), max(len(p) for p in prompts)), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, -len(p):] = p
+    return torch.from_numpy(toks).to(device)
+
+
+def card_against_host(torch, dev, cfg, prompt_lens, max_seq: int, phase: int, label: str):
+    """A cut of a model in f32 (TF32 off) on the card and on the host from
+    the same weights, matrices redrawn by ``redraw_matrices``: prefill
+    phase 12's prompts and take 4 greedy steps. Every MoE call routes
+    alike, every card launch of kernel 7 equals its plain version on the
+    card's inputs and the host path's rows, the greedy tokens are the
+    same, the logits within rtol 1e-3, atol 1e-4. Prints the row and
+    returns the card model."""
+    import numpy as np
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import build_model
+    from repro_torch.models.zoo import count_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    card = build_model(cfg, device=dev).init(g)
+    redraw_matrices(torch, card, g)
+    host = build_model(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in prompt_lens]
+    routes, gathers, out = {}, {}, {}
+    real_plan, real_gather = moe.dispatch_plan, ops.moe_dispatch_gather
+
+    def record(top_ids, *args):
+        routes[where].append(top_ids.cpu())
+        return real_plan(top_ids, *args)
+
+    def gather(x, slot_tok):
+        y = real_gather(x, slot_tok)
+        gathers[where].append((x, slot_tok, y) if where == "card" else (slot_tok, y))
+        return y
+
+    moe.dispatch_plan, ops.moe_dispatch_gather = record, gather
+    moe_dispatch_gather.launches = 0
+    try:
+        for where, mdl in (("card", card), ("host", host)):
+            routes[where], gathers[where] = [], []
+            t0 = time.perf_counter()
+            cache = mdl.init_cache(len(prompts), max_seq)
+            logits, cache = mdl.prefill(left_padded(torch, prompts, mdl.embed.device), cache)
+            seq = [logits.float().cpu()]
+            for _ in range(4):
+                tok = torch.argmax(logits, dim=-1)[:, None]
+                logits, cache = mdl.decode(tok, cache)
+                seq.append(logits.float().cpu())
+            if where == "card":
+                torch.cuda.synchronize()
+            out[where] = (seq, (time.perf_counter() - t0) * 1e3)
+            del cache
+    finally:
+        moe.dispatch_plan, ops.moe_dispatch_gather = real_plan, real_gather
+    n_moe = 5 * sum(blk.ffn == "moe" for _, blocks in card.stack_modules() for blk in blocks)
+    check(len(routes["card"]) == len(routes["host"]) == n_moe,
+          f"phase {phase} {label}: routing not recorded")
+    check(moe_dispatch_gather.launches == n_moe,
+          f"phase {phase} {label}: kernel 7 launched {moe_dispatch_gather.launches} times")
+    for i, (rc, rh) in enumerate(zip(routes["card"], routes["host"])):
+        check(torch.equal(rc, rh), f"phase {phase} {label}: routing differs at MoE call {i}")
+    gather_err = 0.0
+    for i, ((x, tok, y), (tok_h, y_h)) in enumerate(zip(gathers["card"], gathers["host"])):
+        check(torch.equal(y, ref.moe_dispatch_gather_ref(x, tok)),
+              f"phase {phase} {label}: kernel 7 differs from its plain version at call {i}")
+        check(torch.equal(tok.cpu(), tok_h), f"phase {phase} {label}: slot plans differ at {i}")
+        torch.testing.assert_close(y.cpu(), y_h, rtol=1e-3, atol=1e-4,
+                                   msg=lambda m: f"phase {phase} {label} gather {i}: {m}")
+        gather_err = max(gather_err, float((y.cpu() - y_h).abs().max()))
+    worst = 0.0
+    for i, (lc, lh) in enumerate(zip(out["card"][0], out["host"][0])):
+        check(torch.equal(lc.argmax(-1), lh.argmax(-1)),
+              f"phase {phase} {label}: greedy tokens differ at {i}")
+        torch.testing.assert_close(lc, lh, rtol=1e-3, atol=1e-4,
+                                   msg=lambda m: f"phase {phase} {label} step {i}: {m}")
+        worst = max(worst, float((lc - lh).abs().max()))
+    print(json.dumps({"phase": phase, "cut": label, "layers": cfg.n_layers,
+                      "params": count_params(cfg), "dtype": str(cfg.dtype),
+                      "card_ms": out["card"][1], "host_ms": out["host"][1],
+                      "moe_calls": n_moe, "max_abs_logit_diff": worst,
+                      "max_abs_gather_diff": gather_err,
+                      "tokens": [lc.argmax(-1).tolist() for lc in out["card"][0]]}))
+    print(f"phase {phase}: {label}, f32, TF32 off: card and host route every token alike and "
+          f"pick the same greedy tokens; largest logit difference {worst:.3g}")
+    return card
+
+
+def decode_profile(torch, model, prompts, seq: int) -> dict:
+    """A traced window of 3 decode steps after a prefill of ``prompts``:
+    device busy time against the wall, launches a step, top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    toks = np.zeros((b, t_pre), np.int64)
-    for i, p in enumerate(prompts):
-        toks[i, -len(p):] = p
-    cache = model.init_cache(b, max_seq)
-    logits, cache = model.prefill(torch.from_numpy(toks).to(dev), cache)
+    cache = model.init_cache(len(prompts), seq)
+    logits, cache = model.prefill(left_padded(torch, prompts, model.device), cache)
     tok = torch.argmax(logits, dim=-1)[:, None]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -417,83 +606,290 @@ def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
-    print(json.dumps({"phase": 12, "traced_decode_steps": 3, "window_ms": window_ms,
-                      "device_busy_ms": busy_ms,
-                      "device_idle_share": 1 - busy_ms / window_ms if window_ms else None,
-                      "kernel_launches_per_step": sum(e.count for e in kernels) / 3,
-                      "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                                         for e in top}}))
-    del cache
-    summary = gather_row(*captured["decode"], "phase-12 decode")
-    print(json.dumps(summary))
-    print(json.dumps(gather_row(*captured["prefill"], "phase-12 prefill")))
-    summary["launches"] = runs[0]["kernel7_launches"]
-    print(f"phase 12: {cfg.arch_id} served {b} requests × {max_new} tokens in bf16 "
-          f"twice with identical tokens; kernel 7 launched {summary['launches']} times")
-    del model, engine, captured
-    torch.cuda.empty_cache()
+    return {"traced_decode_steps": 3, "window_ms": window_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / window_ms if window_ms else None,
+            "kernel_launches_per_step": sum(e.count for e in kernels) / 3,
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
 
-    # ---------------------------------------------------------------- 13
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    card = build_model(cfg13, device=dev).init(gen)
-    # Matrices redrawn with std 1/√(input width). Under the reference's
-    # rule a one-layer segment draws with std 1, the residual stream grows
-    # by orders of magnitude per layer, and f32 rounding alone, in any
-    # order, moves the logits past the tolerance below; at this scale the
-    # tolerance tests the card, not the conditioning.
+
+def cache_tensor_bytes(cache: dict) -> int:
+    """Bytes of a model's caches as ``kv_cache.cache_bytes`` counts them:
+    every tensor, plus one int32 ``pos`` per layer."""
+    return sum(sum(t.numel() * t.element_size() for t in c[:-1]) + 4
+               for seg in cache.values() for c in seg)
+
+
+def redraw_matrices(torch, model, gen) -> None:
+    """Every matrix but the embedding redrawn with std 1/√(input width), as
+    phase 13 does: under the reference's stacked fan-in a one-layer segment
+    draws with std 1, and f32 rounding alone then moves the logits past
+    the card-against-host tolerance."""
     with torch.no_grad():
-        for name, p in card.named_parameters():
+        for name, p in model.named_parameters():
             if p.dim() >= 2 and name != "embed":
                 p.normal_(0.0, p.shape[-2] ** -0.5, generator=gen)
-    host = build_model(cfg13, device="cpu")
-    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
-    toks = np.zeros((b, t_pre), np.int64)
-    for i, p in enumerate(prompts):
-        toks[i, -len(p):] = p
-    routes = {}
-    real_plan = moe.dispatch_plan
 
-    def record(top_ids, *args):
-        routes[where].append(top_ids.cpu())
-        return real_plan(top_ids, *args)
 
-    out = {}
-    moe.dispatch_plan = record
-    try:
-        for where, mdl in (("card", card), ("host", host)):
-            routes[where] = []
-            t0 = time.perf_counter()
-            cache = mdl.init_cache(b, max_seq)
-            logits, cache = mdl.prefill(torch.from_numpy(toks).to(mdl.embed.device), cache)
-            seq = [logits.float().cpu()]
-            for _ in range(4):
-                tok = torch.argmax(logits, dim=-1)[:, None]
-                logits, cache = mdl.decode(tok, cache)
-                seq.append(logits.float().cpu())
-            if where == "card":
-                torch.cuda.synchronize()
-            out[where] = (seq, (time.perf_counter() - t0) * 1e3)
-    finally:
-        moe.dispatch_plan = real_plan
-    check(len(routes["card"]) == len(routes["host"]) == 5, "phase 13: routing not recorded")
-    for i, (rc, rh) in enumerate(zip(routes["card"], routes["host"])):
-        check(torch.equal(rc, rh), f"phase 13: routing differs at MoE call {i}")
-    worst = 0.0
-    for i, (lc, lh) in enumerate(zip(out["card"][0], out["host"][0])):
-        check(torch.equal(lc.argmax(-1), lh.argmax(-1)), f"phase 13: greedy tokens differ at {i}")
-        torch.testing.assert_close(lc, lh, rtol=1e-3, atol=1e-4,
-                                   msg=lambda s: f"phase 13 step {i}: {s}")
-        worst = max(worst, float((lc - lh).abs().max()))
-    print(json.dumps({"phase": 13, "layers": cfg13.n_layers, "dtype": str(cfg13.dtype),
-                      "card_ms": out["card"][1], "host_ms": out["host"][1],
-                      "max_abs_logit_diff": worst,
-                      "tokens": [lc.argmax(-1).tolist() for lc in out["card"][0]]}))
-    print(f"phase 13: {cfg13.n_layers}-layer f32 cut, TF32 off: card and host route every token "
-          f"alike and pick the same greedy tokens; largest logit difference {worst:.3g}")
-    del card, host
+def gqa_phases(torch, dev, time_ms, prompt_lens, max_new: int, max_seq: int) -> dict:
+    """Phases 18-19: the GQA families at full width in bf16 on the card
+    (mistral-nemo-12b served twice, deepseek-7b, minitron-4b, qwen1.5-32b,
+    hubert-xlarge, llama-3.2-vision-11b, mixtral-8x22b cut in depth), then
+    f32 cuts of nemo and mixtral on the card against the host and the
+    ring check. Returns kernel 7's row of the kernels line (phase 18's
+    mixtral decode plan, D = 6144) with phase 18's launches."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import QuantKVCache, quantize_kv
+    from repro_torch.models.transformer import build_model
+    from repro_torch.models.zoo import count_params, get_config
+    from repro_torch.serve import kv_cache
+    from repro_torch.serve.engine import make_prefill_step, make_serve_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
     torch.cuda.empty_cache()
+    print(json.dumps({"phase": 18, "allocated_at_start": torch.cuda.memory_allocated()}))
+    b = len(prompt_lens)
+    real_gather = ops.moe_dispatch_gather
+
+    def build(cfg, seed=SEED):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0
+
+    def report(cfg, model, init_s, run, cache, full_layers, seq, batch, **extra):
+        c_bytes = kv_cache.cache_bytes(cfg, batch, seq)
+        if cache is not None:
+            check(cache_tensor_bytes(cache) == c_bytes,
+                  f"{cfg.arch_id}: cache tensors hold {cache_tensor_bytes(cache)} bytes, "
+                  f"cache_bytes says {c_bytes}")
+            if cfg.kv_quant:
+                for seg in cache.values():
+                    for c in seg:
+                        check(isinstance(c, QuantKVCache) and c.k.dtype == torch.int8
+                              and c.v.dtype == torch.int8, f"{cfg.arch_id}: not an int8 cache")
+                        check(int(c.k.min()) >= -127 and int(c.v.min()) >= -127,
+                              f"{cfg.arch_id}: an int8 code below -127")
+        row = {"phase": 18, "arch": cfg.arch_id, "params": count_params(cfg),
+               "layers_run": cfg.n_layers, "layers": full_layers, "dtype": str(cfg.dtype),
+               "weight_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+               "cache_bytes": c_bytes, "batch": batch, "max_seq": seq,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(), "init_s": init_s}
+        if run is not None:
+            row.update({k: v for k, v in run.items() if k != "generated"})
+            row["first_tokens"] = [g[:8] for g in run["generated"]]
+        row.update(extra)
+        print(json.dumps(row))
+        return row
+
+    # ---------------------------------------------------------------- 18
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((b, 64, 32, 128), generator=gen, device=dev) * 3
+    qc, sc = quantize_kv(x)
+    qh, sh = quantize_kv(x.cpu())
+    check(torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh),
+          "quantize_kv on the card differs from the host")
+    print(json.dumps({"phase": 18, "quantize_kv": "card equals host bit for bit",
+                      "shape": list(x.shape), "codes_at_127": int((qh.abs() == 127).sum())}))
+    del x, qc, sc
+
+    rows = {}
+    for arch in ("mistral-nemo-12b", "deepseek-7b", "minitron-4b", "qwen1.5-32b"):
+        cfg = get_config(arch)
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in prompt_lens]
+        model, init_s = build(cfg)
+        runs, cache = serve_runs(torch, dev, model, prompts, max_new, max_seq,
+                                 runs=2 if arch == "mistral-nemo-12b" else 1)
+        if len(runs) == 2:
+            check(runs[0]["generated"] == runs[1]["generated"],
+                  f"{arch}: a second run gave other tokens")
+        for r in runs:
+            check(r["kernel7_launches"] == 0, f"{arch}: kernel 7 launched on a dense model")
+        rows[arch] = report(cfg, model, init_s, runs[-1], cache, cfg.n_layers, max_seq, b,
+                            runs=len(runs))
+        del cache
+        if arch == "mistral-nemo-12b":
+            print(json.dumps({"phase": 18, "arch": arch, **decode_profile(torch, model, prompts,
+                                                                          max_seq)}))
+        del model
+        torch.cuda.empty_cache()
+
+    # hubert: encode [4, 1500, 512] frames, non-causal, no cache
+    cfg = get_config("hubert-xlarge")
+    model, init_s = build(cfg)
+    frames = torch.randn((b, HUBERT_FRAMES, cfg.frontend_dim), generator=gen,
+                         device=dev).to(cfg.dtype)
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(frames=frames)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    check(cache == {} and tuple(logits.shape) == (b, HUBERT_FRAMES, cfg.vocab),
+          f"hubert: encode gave {tuple(logits.shape)} and a cache")
+    check(bool(torch.isfinite(logits).all()), "hubert: non-finite logits")
+    rows[cfg.arch_id] = report(cfg, model, init_s, None, None, cfg.n_layers, HUBERT_FRAMES, b,
+                               frames=list(frames.shape), encode_ms=walls[-1],
+                               first_encode_ms=walls[0],
+                               frames_per_s=b * HUBERT_FRAMES / (walls[-1] / 1e3))
+    del model, frames, logits
+    torch.cuda.empty_cache()
+
+    # llama-3.2-vision: served (text only), then prefill with image_embeds
+    # and decode with vision_kv
+    cfg = get_config("llama-3.2-vision-11b")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in prompt_lens]
+    model, init_s = build(cfg)
+    runs, cache = serve_runs(torch, dev, model, prompts, max_new, max_seq)
+    del cache
+    image = torch.randn((b, cfg.vlm.vision_tokens, cfg.vlm.vision_dim), generator=gen,
+                        device=dev).to(cfg.dtype)
+    toks = left_padded(torch, prompts, dev)
+    prefill_step, serve_step = make_prefill_step(model), make_serve_step(model)
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(toks, model.init_cache(b, max_seq), image)
+    vision = model.vision_kv(image)
+    torch.cuda.synchronize()
+    vlm_prefill_ms = (time.perf_counter() - t0) * 1e3
+    text_logits, _ = model.prefill(toks, model.init_cache(b, max_seq))
+    # the reference's init zeroes every gate, tanh(0) = 0: the vision
+    # path adds exact zeros
+    check(torch.equal(logits, text_logits), "llama-vision: a closed gate moved the logits")
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    finite = torch.isfinite(logits).all()
+    t0 = time.perf_counter()
+    for _ in range(max_new - 1):
+        tok, logits, cache = serve_step(tok, cache, vision)
+        finite = finite & torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    vlm_decode_ms = (time.perf_counter() - t0) * 1e3 / (max_new - 1)
+    check(bool(finite), "llama-vision: non-finite logits with vision_kv")
+    rows[cfg.arch_id] = report(cfg, model, init_s, runs[0], cache, cfg.n_layers, max_seq, b,
+                               image_embeds=list(image.shape), vision_kv=list(vision.shape),
+                               vision_prefill_ms=vlm_prefill_ms,
+                               vision_decode_ms_per_step=vlm_decode_ms)
+    del model, cache, image, vision, logits, text_logits, prefill_step, serve_step
+    torch.cuda.empty_cache()
+
+    # mixtral: the most layers one card holds with MIXTRAL_FREE_BYTES left
+    full = get_config("mixtral-8x22b")
+    seq = MIXTRAL_PROMPT + MIXTRAL_DECODE
+    one = dataclasses.replace(full, n_layers=1)
+    per_layer = (count_params(dataclasses.replace(full, n_layers=2)) - count_params(one)) * 2
+    base = count_params(one) * 2 - per_layer
+    cache_per_layer = kv_cache.cache_bytes(one, MIXTRAL_BATCH, seq)
+    free_bytes = torch.cuda.mem_get_info()[0]
+    fit = int((free_bytes - MIXTRAL_FREE_BYTES - base) // (per_layer + cache_per_layer))
+    n_layers = min(MIXTRAL_LAYERS, fit)
+    check(n_layers >= 1, f"mixtral: not one layer fits in {free_bytes} free bytes")
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    captured = {}
+
+    def capture(x, slot_tok):
+        key = "prefill" if x.shape[0] > MIXTRAL_BATCH else "decode"
+        captured.setdefault(key, (x.clone(), slot_tok.to(torch.int32).clone()))
+        return real_gather(x, slot_tok)
+
+    gen_m = torch.Generator(device=dev).manual_seed(SEED)
+    prompts = [torch.randint(0, cfg.vocab, (MIXTRAL_PROMPT,), generator=gen_m, device=dev).cpu()
+               .numpy() for _ in range(MIXTRAL_BATCH)]
+    model, init_s = build(cfg)
+    runs, cache = serve_runs(torch, dev, model, prompts, MIXTRAL_DECODE + 1, seq,
+                             capture=capture)
+    run = runs[0]
+    check(run["decode_steps"] == MIXTRAL_DECODE, f"mixtral: {run['decode_steps']} decode steps")
+    check(run["kernel7_launches"] == n_layers * (1 + MIXTRAL_DECODE),
+          f"mixtral: kernel 7 launched {run['kernel7_launches']} times, not {n_layers} × "
+          f"(1 + {MIXTRAL_DECODE})")
+    ring = cache["moe_layers"][0]
+    check(ring.k.shape[1] == cfg.sliding_window and ring.pos == seq,
+          f"mixtral: ring of {ring.k.shape[1]} slots at pos {ring.pos}")
+    n_valid = {k: gather_bound(*v)[2] for k, v in captured.items()}
+    rows[cfg.arch_id] = report(
+        cfg, model, init_s, run, cache, full.n_layers, seq, MIXTRAL_BATCH,
+        prompt_tokens=MIXTRAL_PROMPT, window=cfg.sliding_window,
+        capacity_factor=cfg.moe.capacity_factor, free_bytes_before=free_bytes,
+        bytes_per_layer=per_layer, layers_that_fit=fit,
+        prefill_assignments_dropped=MIXTRAL_BATCH * MIXTRAL_PROMPT * cfg.moe.top_k
+        - n_valid["prefill"])
+    del cache, ring
+    print(json.dumps({"phase": 18, "arch": cfg.arch_id, **decode_profile(torch, model, prompts, seq)}))
+    del model
+    torch.cuda.empty_cache()
+    summary = gather_row(torch, dev, *captured["decode"], "phase-18 mixtral decode", time_ms)
+    print(json.dumps(summary))
+    pre = gather_row(torch, dev, *captured["prefill"], "phase-18 mixtral prefill", time_ms)
+    print(json.dumps(pre))
+    summary["launches"] = run["kernel7_launches"]
+    summary["max_abs_err"] = max(summary["max_abs_err"], pre["max_abs_err"])
+    del captured
+    torch.cuda.empty_cache()
+    print(f"phase 18: {len(rows)} GQA archs at full width in bf16 ({n_layers} of "
+          f"{full.n_layers} mixtral layers); mistral-nemo-12b served twice with identical "
+          f"tokens; kernel 7 launched {summary['launches']} times in mixtral's layers")
+
+    # ---------------------------------------------------------------- 19
+    nemo = get_config("mistral-nemo-12b")
+    card_against_host(torch, dev, dataclasses.replace(nemo, n_layers=2, dtype=torch.float32),
+                      prompt_lens, max_seq, 19, "mistral-nemo-12b, 2 layers")
+    torch.cuda.empty_cache()
+    card = card_against_host(torch, dev, dataclasses.replace(full, n_layers=1,
+                                                             dtype=torch.float32),
+                             prompt_lens, max_seq, 19, "mixtral-8x22b, 1 MoE layer")
+
+    # the ring (f32, TF32 off since card_against_host): capacity factor
+    # 4.0 (no token drops, as the reference's reduced config sets it),
+    # prefill then decode across the wrap against the window-masked
+    # forward over the same tokens
+    cfg4 = dataclasses.replace(card.cfg, moe=dataclasses.replace(card.cfg.moe,
+                                                                  capacity_factor=4.0))
+    model = build_model(cfg4, device=dev)
+    model.load_state_dict(card.state_dict())
+    del card
+    torch.cuda.empty_cache()
+    gen_r = torch.Generator(device=dev).manual_seed(SEED + 2)
+    toks = torch.randint(0, cfg4.vocab, (MIXTRAL_BATCH, MIXTRAL_PROMPT), generator=gen_r,
+                         device=dev)
+    t0 = time.perf_counter()
+    cache = model.init_cache(MIXTRAL_BATCH, seq)
+    logits, cache = model.prefill(toks, cache)
+    steps, fed = [logits], []
+    for _ in range(MIXTRAL_DECODE):
+        fed.append(torch.argmax(logits, dim=-1)[:, None])
+        logits, cache = model.decode(fed[-1], cache)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    ring = cache["moe_layers"][0]
+    check(ring.k.shape[1] == cfg4.sliding_window and ring.pos == seq,
+          f"phase 19 ring: {ring.k.shape[1]} slots at pos {ring.pos}")
+    del cache, ring
+    t0 = time.perf_counter()
+    full_logits = model.forward(torch.cat([toks] + fed, dim=1))
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    worst = 0.0
+    for i, lg in enumerate(steps):
+        want = full_logits[:, MIXTRAL_PROMPT - 1 + i]
+        torch.testing.assert_close(lg, want, rtol=1e-3, atol=1e-4,
+                                   msg=lambda s: f"phase 19 ring step {i}: {s}")
+        worst = max(worst, float((lg - want).abs().max()))
+    print(json.dumps({"phase": 19, "ring": "mixtral-8x22b, 1 MoE layer, f32, cf 4.0",
+                      "batch": MIXTRAL_BATCH, "prompt": MIXTRAL_PROMPT,
+                      "decode_steps": MIXTRAL_DECODE, "window": cfg4.sliding_window,
+                      "wrapped_at": cfg4.sliding_window, "prefill_and_decode_ms": ring_ms,
+                      "forward_ms": forward_ms, "max_abs_logit_diff": worst}))
+    del model, full_logits, steps, fed
+    torch.cuda.empty_cache()
+    print(f"phase 19: f32 cuts on the card equal the host (same routing and greedy tokens); "
+          f"the ring decode across position {cfg4.sliding_window} equals the window-masked "
+          f"forward (largest logit difference {worst:.3g})")
+    print(json.dumps({"phase": "18-19", "seconds": time.perf_counter() - t_phase}))
     return summary
 
 
@@ -2785,6 +3181,12 @@ def main() -> int:
     # ---------------------------------------------------------------- 17
     for name, count in serve_phases(torch, dev, cit, rtx, oracles, all_kernels).items():
         launches[name] += count
+
+    # ---------------------------------------------------------------- 18, 19
+    row = gqa_phases(torch, dev, time_ms, PROMPT_LENS, MAX_NEW_TOKENS, MAX_SEQ)
+    launches["moe_dispatch_gather"] += row["launches"]
+    worst["moe_dispatch_gather"] = max(worst["moe_dispatch_gather"], row["max_abs_err"])
+    summary["moe_dispatch_gather"] = row
 
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
                                         "src/repro/kernels/semiring_spmv.py:56"),

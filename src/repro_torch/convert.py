@@ -5,9 +5,11 @@ container, passed as ``np.asarray``, and returns the port's container on
 ``device`` (the CUDA card unless named), so both packages can run on
 literally the same matrix. ``to_numpy`` goes the other way, field by field.
 ``model_params_from_numpy`` takes a JAX params pytree with numpy leaves
-(segments stacked [L, ...]) and returns the port's model state, one
-entry per layer; ``mla_cache_from_numpy`` and ``mla_cache_to_numpy`` carry
-a segment's MLA caches both ways. ``partitioned_from_numpy`` carries a
+(segments stacked [L, ...], the VLM's self layers [groups, per, ...]) and
+returns the port's model state, one entry per layer;
+``mla_cache_from_numpy``/``mla_cache_to_numpy`` and
+``gqa_cache_from_numpy``/``gqa_cache_to_numpy`` carry a segment's MLA and
+GQA (KVCache, QuantKVCache) caches both ways. ``partitioned_from_numpy`` carries a
 JAX ``PartitionedMatrix`` (stacked leaves, grid, shapes, format, plan) into
 the port's. Nothing here imports the JAX package: the caller hands over
 plain arrays.
@@ -27,8 +29,9 @@ from repro_torch.core.formats import (
 from repro_torch.core.partition import PartitionedMatrix, PartitionPlan
 from repro_torch.models.attention import MLACache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import AnyKVCache, KVCache, QuantKVCache
 from repro_torch.models.params import spec_leaves
-from repro_torch.models.transformer import model_specs, plan
+from repro_torch.models.transformer import model_specs
 
 
 def _t(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -150,21 +153,22 @@ def _leaf(tree: dict, dotted: str):
 def model_params_from_numpy(cfg: ModelConfig, params_np: dict, device=None) -> dict:
     """The port's model state (``Model.load_state_dict``) from the JAX
     params pytree: each segment's stacked leaf [L, ...] split into its L
-    layers, every leaf in the spec's dtype and checked against its shape."""
+    layers (the VLM's self layers [g, per, ...] into g·per, group-major),
+    every leaf in the spec's dtype and checked against its shape."""
     device = resolve_device(device)
-    specs = model_specs(cfg)
-    segments = {name for name, _, _ in plan(cfg)}
     state = {}
-    for name, spec in spec_leaves(specs):
+    for name, spec in spec_leaves(model_specs(cfg)):
         a = np.asarray(_leaf(params_np, name))
         if tuple(a.shape) != tuple(spec.shape):
             raise ValueError(f"{name}: shape {a.shape}, the spec has {spec.shape}")
         seg, _, rest = name.partition(".")
-        if seg in segments:
-            for i in range(a.shape[0]):
-                state[f"{seg}.{i}.{rest}"] = _float_tensor(a[i], spec.dtype, device)
-        else:
+        if not rest:                               # a top-level leaf
             state[name] = _float_tensor(a, spec.dtype, device)
+            continue
+        if seg == "self_layers":                   # [g, per, ...] → g·per layers
+            a = a.reshape((-1,) + a.shape[2:])
+        for i in range(a.shape[0]):
+            state[f"{seg}.{i}.{rest}"] = _float_tensor(a[i], spec.dtype, device)
     return state
 
 
@@ -183,3 +187,31 @@ def mla_cache_to_numpy(caches: list[MLACache]) -> dict:
     return {"c_kv": np.stack([c.c_kv.float().cpu().numpy() for c in caches]),
             "k_rope": np.stack([c.k_rope.float().cpu().numpy() for c in caches]),
             "pos": np.array([c.pos for c in caches], np.int32)}
+
+
+def gqa_cache_from_numpy(k: np.ndarray, v: np.ndarray, pos: np.ndarray, dtype: torch.dtype,
+                         k_scale: np.ndarray | None = None, v_scale: np.ndarray | None = None,
+                         device=None) -> list[AnyKVCache]:
+    """A segment's JAX ``KVCache`` (k, v [L, B, S, KH, D], pos [L]) as the
+    port's per-layer caches, k/v in ``dtype``; with ``k_scale``/``v_scale``
+    ([L, B, S]) a ``QuantKVCache``: int8 k/v, f32 scales."""
+    device = resolve_device(device)
+    if k_scale is None:
+        return [KVCache(_float_tensor(k[i], dtype, device), _float_tensor(v[i], dtype, device),
+                        int(pos[i])) for i in range(len(pos))]
+    return [QuantKVCache(_t(np.asarray(k[i], np.int8), device), _t(np.asarray(v[i], np.int8), device),
+                         _t(np.asarray(k_scale[i], np.float32), device),
+                         _t(np.asarray(v_scale[i], np.float32), device), int(pos[i]))
+            for i in range(len(pos))]
+
+
+def gqa_cache_to_numpy(caches: list[AnyKVCache]) -> dict:
+    """The port's per-layer GQA caches of a segment, stacked as the JAX
+    cache is: a ``KVCache``'s k/v as float32, a ``QuantKVCache``'s as int8
+    with float32 scales, pos as int32."""
+    out = {"pos": np.array([c.pos for c in caches], np.int32)}
+    quant = isinstance(caches[0], QuantKVCache)
+    for f in ("k", "v", "k_scale", "v_scale") if quant else ("k", "v"):
+        out[f] = np.stack([(getattr(c, f) if quant else getattr(c, f).float()).cpu().numpy()
+                           for c in caches])
+    return out

@@ -1,4 +1,4 @@
 """The LM stack of the port: configurations, parameter specs and init,
-the layers, MLA attention, the routed MoE and the model assembly, for the
-``moe`` family (DeepSeek-V2-Lite); ``repro.models`` is the JAX
-counterpart."""
+the layers and GQA caches, GQA/MLA/cross attention, the routed MoE and
+the model assembly, for the ``dense``, ``audio``, ``moe`` and ``vlm``
+families; ``repro.models`` is the JAX counterpart."""

@@ -1,11 +1,11 @@
-"""DeepSeek-V2 multi-head latent attention (``repro.models.attention``,
-the MLA half): the expanded form for a whole sequence, prefill that also
-fills the compressed-latent cache, and the absorbed single-token decode.
+"""Attention variants (``repro.models.attention``): GQA self-attention
+(whole sequence, prefill, decode; the linear, ring-buffer and int8
+caches), DeepSeek-V2 multi-head latent attention (the expanded form,
+prefill that also fills the compressed-latent cache, the absorbed
+single-token decode) and the gated cross-attention of the VLM.
 
-The cache is updated in place (the JAX functions return a new one): the
-returned ``MLACache`` holds the same tensors with ``pos`` advanced.
-GQA, its ring-buffer and int8 caches, and cross-attention are not ported
-yet (ROADMAP §1).
+Caches are updated in place (the JAX functions return new ones): the
+returned cache holds the same tensors with ``pos`` advanced.
 """
 from __future__ import annotations
 
@@ -15,7 +15,10 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import flash_attention, rms_norm, rope
+from repro_torch.models.layers import (
+    AnyKVCache, KVCache, QuantKVCache, cache_update, decode_attention, flash_attention,
+    quant_cache_update, rms_norm, rope,
+)
 from repro_torch.models.params import P_
 
 Tensor = torch.Tensor
@@ -32,6 +35,102 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
+def _positions(start: int, t: int, device) -> Tensor:
+    return (start + torch.arange(t, device=device))[None, :]
+
+
+# ----------------------------- GQA self-attention --------------------------
+
+
+def gqa_specs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> dict:
+    hd = cfg.resolved_head_dim
+    d = cfg.d_model
+    ld = layer_dim
+    specs = {
+        "wq": P_(ld + (d, cfg.n_heads * hd), dtype=cfg.dtype),
+        "wk": P_(ld + (d, cfg.n_kv_heads * hd), dtype=cfg.dtype),
+        "wv": P_(ld + (d, cfg.n_kv_heads * hd), dtype=cfg.dtype),
+        "wo": P_(ld + (cfg.n_heads * hd, d), dtype=cfg.dtype),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = P_(ld + (cfg.n_heads * hd,), init="zeros", dtype=cfg.dtype)
+        specs["bk"] = P_(ld + (cfg.n_kv_heads * hd,), init="zeros", dtype=cfg.dtype)
+        specs["bv"] = P_(ld + (cfg.n_kv_heads * hd,), init="zeros", dtype=cfg.dtype)
+    return specs
+
+
+def _qkv(p, x: Tensor, cfg: ModelConfig, positions: Tensor):
+    hd = cfg.resolved_head_dim
+    b, t, _ = x.shape
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = rope(q.reshape(b, t, cfg.n_heads, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(b, t, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    return q, k, v.reshape(b, t, cfg.n_kv_heads, hd)
+
+
+def _out(p, o: Tensor) -> Tensor:
+    b, t = o.shape[:2]
+    return o.reshape(b, t, -1) @ p["wo"]
+
+
+def gqa_forward(p, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
+                q_offset: int = 0) -> Tensor:
+    """Whole-sequence self-attention (no cache)."""
+    q, k, v = _qkv(p, x, cfg, _positions(q_offset, x.shape[1], x.device))
+    o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window, q_offset=q_offset)
+    return _out(p, o)
+
+
+def _update(cache: AnyKVCache):
+    return quant_cache_update if isinstance(cache, QuantKVCache) else cache_update
+
+
+def gqa_prefill(p, x: Tensor, cfg: ModelConfig, cache: AnyKVCache) -> Tuple[Tensor, AnyKVCache]:
+    """Prompt self-attention that also fills the cache. On a ring cache
+    (``max_seq`` ≥ window) only the last ``window`` keys are kept, written
+    from slot ``cache.pos`` on, as the reference writes them: for a prompt
+    longer than the window whose length is not a multiple of it, the
+    slots disagree with ``ring_slot_positions`` (ROADMAP §3)."""
+    t = x.shape[1]
+    q, k, v = _qkv(p, x, cfg, _positions(cache.pos, t, x.device))
+    o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window, q_offset=cache.pos)
+    w = cfg.sliding_window
+    if w and cache.k.shape[1] == w:
+        new = _update(cache)(cache, k[:, -w:], v[:, -w:], window=w)
+        new = new._replace(pos=cache.pos + t)
+    else:
+        new = _update(cache)(cache, k, v)
+    return _out(p, o), new
+
+
+def gqa_decode(p, x: Tensor, cfg: ModelConfig, cache: AnyKVCache) -> Tuple[Tensor, AnyKVCache]:
+    """Single-token decode. x [B, 1, D]."""
+    q, k, v = _qkv(p, x, cfg, _positions(cache.pos, x.shape[1], x.device))
+    cache = _update(cache)(cache, k, v, window=cfg.sliding_window)
+    return _out(p, decode_attention(q, cache, window=cfg.sliding_window)), cache
+
+
+def gqa_cache_spec(cfg: ModelConfig, batch: int, max_seq: int, layer_dim: Tuple[int, ...]):
+    """Shapes and dtypes of a segment's GQA caches, stacked over its layers:
+    a ring of ``window`` slots when ``max_seq`` ≥ window, int8 with
+    per-token scales when ``cfg.kv_quant``."""
+    hd = cfg.resolved_head_dim
+    s = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+    shape = layer_dim + (batch, s, cfg.n_kv_heads, hd)
+    pos = TensorSpec(layer_dim, torch.int32)
+    if cfg.kv_quant:
+        sshape = layer_dim + (batch, s)
+        return QuantKVCache(k=TensorSpec(shape, torch.int8), v=TensorSpec(shape, torch.int8),
+                            k_scale=TensorSpec(sshape, torch.float32),
+                            v_scale=TensorSpec(sshape, torch.float32), pos=pos)
+    return KVCache(k=TensorSpec(shape, cfg.dtype), v=TensorSpec(shape, cfg.dtype), pos=pos)
+
+
+# --------------------------------- MLA -------------------------------------
+
+
 def mla_specs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> dict:
     m = cfg.mla
     d, h = cfg.d_model, cfg.n_heads
@@ -45,10 +144,6 @@ def mla_specs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> dict:
         "wv_b": P_(ld + (m.kv_lora_rank, h * m.v_head_dim), dtype=cfg.dtype),
         "wo": P_(ld + (h * m.v_head_dim, d), dtype=cfg.dtype),
     }
-
-
-def _positions(start: int, t: int, device) -> Tensor:
-    return (start + torch.arange(t, device=device))[None, :]
 
 
 def _mla_qc(p, x: Tensor, cfg: ModelConfig, positions: Tensor):
@@ -134,3 +229,33 @@ def mla_cache_spec(cfg: ModelConfig, batch: int, max_seq: int,
         k_rope=TensorSpec(layer_dim + (batch, max_seq, m.rope_head_dim), cfg.dtype),
         pos=TensorSpec(layer_dim, torch.int32),
     )
+
+
+# ----------------------------- cross-attention ------------------------------
+
+
+def cross_attn_specs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> dict:
+    hd = cfg.resolved_head_dim
+    d = cfg.d_model
+    ld = layer_dim
+    return {
+        "wq": P_(ld + (d, cfg.n_heads * hd), dtype=cfg.dtype),
+        "wk": P_(ld + (d, cfg.n_kv_heads * hd), dtype=cfg.dtype),
+        "wv": P_(ld + (d, cfg.n_kv_heads * hd), dtype=cfg.dtype),
+        "wo": P_(ld + (cfg.n_heads * hd, d), dtype=cfg.dtype),
+        "gate": P_(ld + (1,), init="zeros", dtype=cfg.dtype),
+    }
+
+
+def cross_attn(p, x: Tensor, kv_src: Tensor, cfg: ModelConfig) -> Tensor:
+    """Gated cross-attention (llama-3.2-vision style): q from the text, k/v
+    from the (already d_model-projected) vision sequence; the gate is
+    tanh(gate), zero at init."""
+    hd = cfg.resolved_head_dim
+    b, t, _ = x.shape
+    s = kv_src.shape[1]
+    q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, hd)
+    k = (kv_src @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (kv_src @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    o = flash_attention(q, k, v, causal=False)
+    return torch.tanh(p["gate"]) * _out(p, o)

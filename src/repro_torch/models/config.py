@@ -1,5 +1,7 @@
 """Model configuration (``repro.models.config``): the fields the ported
-families read, and the generic ones another family's config sets."""
+families read, the generic ones another family's config sets, and the
+dry-run shapes. ``SSMConfig`` and ``HybridConfig`` wait for their
+families."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,6 +31,13 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class VLMConfig:
+    cross_attn_every: int = 5
+    vision_dim: int = 7680
+    vision_tokens: int = 1601
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
     family: str                      # dense | moe | ssm | hybrid | audio | vlm
@@ -48,10 +57,38 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    vlm: Optional[VLMConfig] = None
+    # input frontend: "tokens" (LM) or "frames" (audio stub: precomputed embeds)
     frontend: str = "tokens"
     frontend_dim: int = 0
+    # int8 KV cache (per-token scales); halves the decode cache
     kv_quant: bool = False
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def subquadratic(self) -> bool:
+        """Supports long_500k (O(1)/O(w) decode state)."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -5,7 +5,10 @@ steps and a static-batch request loop.
 masked, and RoPE positions start at the cache position, as in the
 reference), prefills once, then decodes greedily until every request has
 its token budget or hit EOS. It takes one host sync per decode step, to
-read the new tokens.
+read the new tokens. Its requests are token prompts only, as the
+reference's are: a VLM serves them with no vision sequence (its cross
+layers pass through); ``make_prefill_step`` and ``make_serve_step`` take
+``image_embeds`` and ``vision_kv``.
 """
 from __future__ import annotations
 
@@ -20,19 +23,21 @@ from repro_torch.models.transformer import Model
 
 
 def make_prefill_step(model: Model):
-    """(tokens [B, T], cache) -> (last-token logits [B, V], cache)."""
+    """(tokens [B, T], cache, [image_embeds]) -> (last-token logits [B, V],
+    cache)."""
 
-    def prefill_step(tokens, cache):
-        return model.prefill(tokens, cache)
+    def prefill_step(tokens, cache, image_embeds=None):
+        return model.prefill(tokens, cache, image_embeds=image_embeds)
 
     return prefill_step
 
 
 def make_serve_step(model: Model):
-    """(token [B, 1], cache) -> (next token [B, 1] int32, logits, cache)."""
+    """(token [B, 1], cache, [vision_kv]) -> (next token [B, 1] int32,
+    logits, cache)."""
 
-    def serve_step(token, cache):
-        logits, cache = model.decode(token, cache)
+    def serve_step(token, cache, vision_kv=None):
+        logits, cache = model.decode(token, cache, vision_kv=vision_kv)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return next_tok, logits, cache
 

@@ -8,7 +8,9 @@ from typing import Dict
 
 import torch
 
+from repro_torch.models.attention import MLACache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import KVCache, QuantKVCache
 from repro_torch.models.transformer import cache_specs
 from repro_torch.models.zoo import count_params
 
@@ -17,11 +19,16 @@ H100_BYTES = 80e9
 
 
 def _leaves(tree):
+    """Every TensorSpec of a cache spec tree: a dict of segments, each an
+    ``MLACache``, ``KVCache`` or ``QuantKVCache`` of TensorSpecs (``pos``
+    included, one int32 per layer, as the reference counts it)."""
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    else:                     # an MLACache of TensorSpecs
+    elif isinstance(tree, (MLACache, KVCache, QuantKVCache)):
         yield from tree
+    else:
+        raise TypeError(f"not a cache spec: {type(tree).__name__}")
 
 
 def cache_bytes(cfg: ModelConfig, batch: int, max_seq: int) -> int:

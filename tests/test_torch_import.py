@@ -138,9 +138,11 @@ def test_chip_smoke_refuses_to_run_without_cuda():
 
 
 def test_lm_entry_points_raise_without_a_gpu(monkeypatch):
-    from repro_torch.convert import mla_cache_from_numpy, model_params_from_numpy
+    from repro_torch.convert import (
+        gqa_cache_from_numpy, mla_cache_from_numpy, model_params_from_numpy,
+    )
     from repro_torch.models.transformer import Model, build_model
-    from repro_torch.models.zoo import get_config, reduced_config
+    from repro_torch.models.zoo import ARCH_IDS, get_config, get_model, reduced_config
     from repro_torch.serve.engine import ServingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -154,12 +156,20 @@ def test_lm_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mla_cache_from_numpy(np.zeros((1, 1, 2, 4)), np.zeros((1, 1, 2, 2)), np.zeros(1),
                              torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gqa_cache_from_numpy(np.zeros((1, 1, 2, 1, 4)), np.zeros((1, 1, 2, 1, 4)), np.zeros(1),
+                             torch.float32)
+    for arch in ARCH_IDS:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(reduced_config(arch))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model("hubert-xlarge")
     model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(model)
     assert ServingEngine(model, device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(cfg, family="dense"), device="cpu")
+        build_model(dataclasses.replace(cfg, family="ssm"), device="cpu")
 
 
 def _top_level_names(path: pathlib.Path) -> set[str]:
