@@ -43,7 +43,11 @@ Phases:
      plain version, exact (NaN where NaN) for the integer and min
      semirings, ⟨+,×⟩ within rtol 1e-5, atol 1e-6; kernel 6b
      ``torch.equal`` to its plain version and to kernel 6. Kernel, plain
-     and bound times of both on the 64×64 ⟨+,∧⟩ masked case.
+     and bound times of both on the 64×64 ⟨+,∧⟩ masked case; kernel 6's
+     on the 64×64 ⟨+,×⟩ masked case (f32, operands the front door sends
+     it) beside ``torch.sparse.sampled_addmm`` with the mask as CSR and A
+     densified, the one library call for that function (⟨min,+⟩ and the
+     others have none): kernel 6's row of the kernels line.
  10. Whole-graph analytics on full-size cit-HP: ``triangle_count(impl=
      "bsr", block=(64, 64))``, which must launch kernel 6b and not kernel
      6 (total equal to ``triangle_reference``, per-edge counts equal to
@@ -62,8 +66,12 @@ Phases:
      ``torch.equal`` at D = 2048 in bf16 and f32, on a decode-shaped plan
      (S = 4·64·8 = 2,048 slots, 24 valid) and a prefill-shaped plan
      (S = 4·64·64 = 16,384) from random top-6 routing; after phase 12, on
-     the plans its first MoE layer built. Kernel, plain, bound and
-     library (``index_select`` on x with a zero row appended) times.
+     the plans its first MoE layer built (with the layout hint
+     ``moe_sparse`` passed, which phase 12 checks). Each plan through
+     ``ops.moe_dispatch_gather`` with the hint, as ``moe_sparse`` calls
+     it, and without it: device times of both, plain, bound and library
+     (``index_select`` on x with a zero row appended), and single-call
+     times (``call_ms``, the host's share) of the kernel and the library.
  12. Serving: the full deepseek-v2-lite-16b (27 layers, 15.7 B
      parameters) in bf16, initialised on the card from a seeded
      generator, serves 4 requests (prompts of 17, 64, 200 and 511 tokens,
@@ -296,12 +304,13 @@ def gather_bound(x, slot_tok) -> tuple[float, str, int, int]:
 
 def random_plan(torch, dev, b: int, t: int, cfg, gen):
     """The slot→token plan ``moe_sparse`` builds for [b, t] tokens routed
-    to distinct random top-k experts."""
+    to distinct random top-k experts, and the layout hint it passes."""
     from repro_torch.models.moe import capacity, dispatch_plan
 
     ids = torch.argsort(torch.rand((b, t, cfg.n_experts), generator=gen, device=dev), dim=-1)
-    return dispatch_plan(ids[..., :cfg.top_k].to(torch.int32), cfg.n_experts,
-                         capacity(t, cfg)).slot_tok
+    c = capacity(t, cfg)
+    plan = dispatch_plan(ids[..., :cfg.top_k].to(torch.int32), cfg.n_experts, c)
+    return plan.slot_tok, {"group": c, "experts": cfg.n_experts}
 
 
 def device_ms(torch, fn, reps: int = 50) -> float:
@@ -323,30 +332,55 @@ def device_ms(torch, fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def gather_row(torch, dev, x, tok, label: str, time_ms) -> dict:
-    """Kernel 7 against its plain version (``torch.equal``) and the
-    library's index_select on a zero-row-extended x; device times of
-    each, and the kernel's single-call time with the host's share."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+def host_us(torch, fn, reps: int = 200) -> float:
+    """Host time of one call, in µs: ``reps`` calls issued back to back
+    with no sync between them (the launch path alone, while the card
+    works behind it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / reps * 1e6
 
-    y = moe_dispatch_gather(x, tok)
+
+def gather_row(torch, dev, x, tok, hint: dict, label: str, time_ms) -> dict:
+    """Kernel 7 on the path ``moe_sparse`` takes (``ops.moe_dispatch_gather``
+    with the plan's layout ``hint``) and without the hint (the flat path),
+    each against its plain version (``torch.equal``), and the library's
+    index_select on a zero-row-extended x: device times of each; the
+    single-call times (``call_ms``, CUDA events around one call, the
+    host's share included) and host times a call (``host_us``) of the
+    kernel and index_select."""
+    from repro_torch.kernels import ops, ref
+
+    y = ops.moe_dispatch_gather(x, tok, **hint)
+    y_flat = ops.moe_dispatch_gather(x, tok)
     y_plain = ref.moe_dispatch_gather_ref(x, tok)
     torch.cuda.synchronize()
     check(torch.equal(y, y_plain), f"kernel 7 {label}: differs from the plain version")
+    check(torch.equal(y_flat, y_plain), f"kernel 7 {label}: unhinted, differs from the plain "
+          "version")
     x_ext = torch.cat([x, torch.zeros((1, x.shape[1]), dtype=x.dtype, device=dev)])
     tok_lib = tok.clamp(max=x.shape[0])
     check(torch.equal(x_ext.index_select(0, tok_lib), y), f"kernel 7 {label}: index_select")
     bound_ms, bound_by, n_valid, n_rows = gather_bound(x, tok)
     return {"kernel": "moe_dispatch_gather", "plan": label, "dtype": str(x.dtype),
-            "T": x.shape[0], "S": tok.shape[0], "D": x.shape[1], "n_valid": n_valid,
-            "rows_read": n_rows,
-            "max_abs_err": float((y.float() - y_plain.float()).abs().max()),
-            "ms": device_ms(torch, lambda: moe_dispatch_gather(x, tok)),
-            "call_ms": time_ms(lambda: moe_dispatch_gather(x, tok)),
+            "T": x.shape[0], "S": tok.shape[0], "D": x.shape[1], "hint": hint,
+            "n_valid": n_valid, "rows_read": n_rows,
+            "max_abs_err": max(float((z.float() - y_plain.float()).abs().max())
+                               for z in (y, y_flat)),
+            "ms": device_ms(torch, lambda: ops.moe_dispatch_gather(x, tok, **hint)),
+            "unhinted_ms": device_ms(torch, lambda: ops.moe_dispatch_gather(x, tok)),
+            "call_ms": time_ms(lambda: ops.moe_dispatch_gather(x, tok, **hint)),
             "plain_ms": device_ms(torch, lambda: ref.moe_dispatch_gather_ref(x, tok)),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": device_ms(torch, lambda: x_ext.index_select(0, tok_lib))}
+            "library_ms": device_ms(torch, lambda: x_ext.index_select(0, tok_lib)),
+            "library_call_ms": time_ms(lambda: x_ext.index_select(0, tok_lib)),
+            "host_us": host_us(torch, lambda: ops.moe_dispatch_gather(x, tok, **hint)),
+            "library_host_us": host_us(torch, lambda: x_ext.index_select(0, tok_lib))}
 
 
 def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
@@ -368,8 +402,8 @@ def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
     for dtype in (torch.bfloat16, torch.float32):
         for label, t in (("decode", 1), ("prefill", t_pre)):
             x = torch.randn((b * t, d), generator=gen, device=dev).to(dtype)
-            tok = random_plan(torch, dev, b, t, m, gen)
-            print(json.dumps(gather_row(torch, dev, x, tok, f"random {label}", time_ms)))
+            tok, hint = random_plan(torch, dev, b, t, m, gen)
+            print(json.dumps(gather_row(torch, dev, x, tok, hint, f"random {label}", time_ms)))
     print("phase 11: kernel 7 equals its plain version on decode- and prefill-shaped plans, "
           "bf16 and f32")
 
@@ -384,10 +418,10 @@ def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
     captured = {}
     real_gather = ops.moe_dispatch_gather
 
-    def capture(x, slot_tok):
+    def capture(x, slot_tok, **hint):
         key = "prefill" if x.shape[0] > b else "decode"
-        captured.setdefault(key, (x.clone(), slot_tok.to(torch.int32).clone()))
-        return real_gather(x, slot_tok)
+        captured.setdefault(key, (x.clone(), slot_tok.to(torch.int32).clone(), hint))
+        return real_gather(x, slot_tok, **hint)
 
     runs, cache = serve_runs(torch, dev, model, prompts, max_new, max_seq, runs=2,
                              capture=capture)
@@ -409,6 +443,8 @@ def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
                       "first_tokens": [g[:8] for g in runs[0]["generated"]]}))
     # a traced window of 3 decode steps: device busy time against the wall
     print(json.dumps({"phase": 12, **decode_profile(torch, model, prompts, max_seq)}))
+    check(all(v[2] == {"group": v[1].shape[0] // (b * m.n_experts), "experts": m.n_experts}
+              for v in captured.values()), "moe_sparse did not pass its plan's layout hint")
     summary = gather_row(torch, dev, *captured["decode"], "phase-12 decode", time_ms)
     print(json.dumps(summary))
     print(json.dumps(gather_row(torch, dev, *captured["prefill"], "phase-12 prefill", time_ms)))
@@ -529,8 +565,8 @@ def card_against_host(torch, dev, cfg, prompt_lens, max_seq: int, phase: int, la
         routes[where].append(top_ids.cpu())
         return real_plan(top_ids, *args)
 
-    def gather(x, slot_tok):
-        y = real_gather(x, slot_tok)
+    def gather(x, slot_tok, **hint):
+        y = real_gather(x, slot_tok, **hint)
         gathers[where].append((x, slot_tok, y) if where == "card" else (slot_tok, y))
         return y
 
@@ -790,10 +826,10 @@ def gqa_phases(torch, dev, time_ms, prompt_lens, max_new: int, max_seq: int) -> 
     cfg = dataclasses.replace(full, n_layers=n_layers)
     captured = {}
 
-    def capture(x, slot_tok):
+    def capture(x, slot_tok, **hint):
         key = "prefill" if x.shape[0] > MIXTRAL_BATCH else "decode"
-        captured.setdefault(key, (x.clone(), slot_tok.to(torch.int32).clone()))
-        return real_gather(x, slot_tok)
+        captured.setdefault(key, (x.clone(), slot_tok.to(torch.int32).clone(), hint))
+        return real_gather(x, slot_tok, **hint)
 
     gen_m = torch.Generator(device=dev).manual_seed(SEED)
     prompts = [torch.randint(0, cfg.vocab, (MIXTRAL_PROMPT,), generator=gen_m, device=dev).cpu()
@@ -809,7 +845,9 @@ def gqa_phases(torch, dev, time_ms, prompt_lens, max_new: int, max_seq: int) -> 
     ring = cache["moe_layers"][0]
     check(ring.k.shape[1] == cfg.sliding_window and ring.pos == seq,
           f"mixtral: ring of {ring.k.shape[1]} slots at pos {ring.pos}")
-    n_valid = {k: gather_bound(*v)[2] for k, v in captured.items()}
+    n_valid = {k: gather_bound(x, tok)[2] for k, (x, tok, _) in captured.items()}
+    check(all(hint["experts"] == cfg.moe.n_experts for _, _, hint in captured.values()),
+          "mixtral: moe_sparse did not pass its plan's layout hint")
     rows[cfg.arch_id] = report(
         cfg, model, init_s, run, cache, full.n_layers, seq, MIXTRAL_BATCH,
         prompt_tokens=MIXTRAL_PROMPT, window=cfg.sliding_window,
@@ -2913,6 +2951,37 @@ def main() -> int:
             b, mask = u(), (u() < 0.4).float()
         return vals, b, mask
 
+    def kernel6_library_row(a, bp, mk, meta, bn, sr, vals, b, mask, y) -> dict:
+        """Kernel 6 on operands it serves (ca-Q ⟨+,×⟩ f32, masked) against
+        the one library call for that function: cuSPARSE's sampled
+        product ``torch.sparse.sampled_addmm`` with the mask as CSR and
+        A densified before the timing. ⟨min,+⟩ and the other semirings
+        have no such call."""
+        n = caq.n
+        a_dense = torch.zeros((n, n), dtype=torch.float32, device=dev)
+        a_dense.index_put_((torch.from_numpy(caq.rows.astype(np.int64)).to(dev),
+                            torch.from_numpy(caq.cols.astype(np.int64)).to(dev)),
+                           torch.from_numpy(vals).to(dev), accumulate=True)
+        mask_csr = mask.to_sparse_csr()
+
+        def lib():
+            return torch.sparse.sampled_addmm(mask_csr, a_dense, b, beta=0.0)
+
+        lib_diff = float((lib().to_dense() - y[:n, :n]).abs().max())
+        bound_ms, bound_by = spgemm_bounds(a, bp, mk, meta, sr)["semiring_spgemm_padded"]
+        row = {"kernel": "semiring_spgemm_padded", "semiring": sr.name, "graph": "ca-Q",
+               "tiles": list(a.tiles.shape), "mask_nnz": mask_csr.values().numel(),
+               "ms": time_ms(lambda: semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr,
+                                                            bn=bn)),
+               "plain_ms": time_ms(lambda: ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn),
+                                   reps=3),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": time_ms(lib), "library": "torch.sparse.sampled_addmm",
+               "library_max_abs_diff": lib_diff}
+        print(json.dumps(row))
+        del a_dense, mask_csr
+        return row
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for k in spgemm_kernels:
         worst[k.__name__] = 0.0
@@ -2971,6 +3040,9 @@ def main() -> int:
                 else:
                     compare(y_front, y[:, :n], sr, f"{what}: the front door",
                             nan=label == "pad-nan")
+                if name == "plus_times" and block == (64, 64) and label == "masked":
+                    spgemm_rows["plus_times"] = kernel6_library_row(a, bp, mk, meta, bn, sr,
+                                                                    vals, b, mask, y)
                 if name == "plus_and" and block == (64, 64) and label == "masked":
                     bounds = spgemm_bounds(a, bp, mk, meta, sr)
                     for k, plain in ((semiring_spgemm_padded, ref.spgemm_padded_ref),
@@ -3128,6 +3200,9 @@ def main() -> int:
                           "bound_by": bound_by, "share_of_bound": bound_ms / ms,
                           "int_mm_ms": int_mm_ms, "fp32_matmul_ms": fp32_ms,
                           "plain_ms_ca_q_64": spgemm_rows[k.__name__]["plain_ms"]}))
+    # kernel 6's row of the kernels line: ca-Q ⟨+,×⟩, operands the front
+    # door sends it (the triangle operands above go to 6b)
+    summary["semiring_spgemm_padded"] = spgemm_rows["plus_times"]
     split["app_wall_ms"] = apps["triangle_count"]["wall_ms"]
     split["real_macs"], split["real_bytes"] = st["real_macs"], st["real_bytes"]
     print(json.dumps({"phase": 10, "triangle_split": split}))

@@ -102,3 +102,8 @@ PLUS_AND = Semiring(
 SEMIRINGS: dict[str, Semiring] = {
     s.name: s for s in (BOOL_OR_AND, MIN_PLUS, PLUS_TIMES, MIN_TIMES, PLUS_AND)
 }
+
+
+def get(name: str) -> Semiring:
+    """The semiring called ``name``; KeyError for an unknown name."""
+    return SEMIRINGS[name]

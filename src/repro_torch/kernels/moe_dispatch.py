@@ -7,6 +7,15 @@ Layout, as the TPU kernel's: x [T, D] (bf16 or f32), slot_tok int32
 [S] (the pad is T), out [S, D] in x's dtype. ``models/moe.py::moe_sparse``
 fills its expert buffer [B·E·C, D] with it.
 
+The optional hint ``group=C, experts=E`` says that the plan is laid out as
+``dispatch_plan`` lays it out: S = B·E·C slots of B batch rows of T/B
+tokens, each group of C slots holding its kept tokens ascending with the
+pads at the tail. The kernel then reads each routed token row once,
+however many experts it feeds. The hint changes which bytes the kernel
+reads, never its result: a plan that breaks the order is still gathered
+exactly. A hint that does not split S into B·E·C and T into B rows
+raises.
+
 On a CUDA tensor the wrapper launches the kernel on the current stream or
 raises; on a CPU tensor it runs the plain version from ``kernels/ref.py``.
 ``.launches`` counts its kernel launches.
@@ -22,9 +31,10 @@ Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_operands(name: str, x: Tensor, slot_tok: Tensor) -> None:
+def _check_operands(name: str, x: Tensor, slot_tok: Tensor) -> torch.device:
     """Raise unless x is a contiguous bf16 or f32 [T, D] and slot_tok a
-    contiguous int32 [S] on x's device, with T within the int32 index."""
+    contiguous int32 [S] on x's device, with T within the int32 index;
+    returns the device."""
     if x.dim() != 2:
         raise ValueError(f"{name}: x must be [T, D], got {tuple(x.shape)}")
     if x.dtype not in DTYPES:
@@ -32,29 +42,52 @@ def _check_operands(name: str, x: Tensor, slot_tok: Tensor) -> None:
     if slot_tok.dim() != 1 or slot_tok.dtype != torch.int32:
         raise ValueError(f"{name}: slot_tok must be int32 [S], "
                          f"got {slot_tok.dtype} {tuple(slot_tok.shape)}")
-    if x.device != slot_tok.device:
-        raise ValueError(f"{name}: operands on {x.device} and {slot_tok.device}")
+    dev = x.device
+    if dev != slot_tok.device:
+        raise ValueError(f"{name}: operands on {dev} and {slot_tok.device}")
     if not (x.is_contiguous() and slot_tok.is_contiguous()):
         raise ValueError(f"{name}: operands must be contiguous")
     if x.shape[0] >= 2**31:
         raise ValueError(f"{name}: {x.shape[0]} tokens exceed the int32 index")
+    return dev
 
 
-def moe_dispatch_gather(x: Tensor, slot_tok: Tensor) -> Tensor:
+def _check_hint(name: str, t: int, s: int, group, experts) -> None:
+    """Raise unless (group, experts) split S slots into B·E·C and T tokens
+    into B equal batch rows."""
+    if group is None or experts is None:
+        raise ValueError(f"{name}: give both group and experts, or neither")
+    if group < 1 or experts < 1 or group * experts >= 2**31:
+        raise ValueError(f"{name}: group {group} and experts {experts} must be positive, "
+                         "their product within int32")
+    per_row = group * experts
+    if s % per_row:
+        raise ValueError(f"{name}: {s} slots are not B × {experts} experts × {group}")
+    b = s // per_row
+    if (b == 0 and t != 0) or (b > 0 and t % b):
+        raise ValueError(f"{name}: {t} tokens do not split into {b} batch rows")
+
+
+def moe_dispatch_gather(x: Tensor, slot_tok: Tensor, *, group: int | None = None,
+                        experts: int | None = None) -> Tensor:
     """out [S, D]: row s is x[slot_tok[s]], or zeros for a pad slot."""
     name = "moe_dispatch_gather"
-    _check_operands(name, x, slot_tok)
-    if x.device.type == "cpu":
+    dev = _check_operands(name, x, slot_tok)
+    hinted = group is not None or experts is not None
+    if hinted:
+        _check_hint(name, x.shape[0], slot_tok.shape[0], group, experts)
+    if dev.type == "cpu":
         return ref.moe_dispatch_gather_ref(x, slot_tok)
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
     t, d = x.shape
-    out = torch.empty((slot_tok.shape[0], d), dtype=x.dtype, device=x.device)
-    fn = _build.moe_dispatch_kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), slot_tok.data_ptr(), out.data_ptr(), t, slot_tok.shape[0], d,
-                 x.element_size(), stream)
+    s = slot_tok.shape[0]
+    out = torch.empty((s, d), dtype=x.dtype, device=dev)
+    # the C side makes x's device current for the launch if it is not
+    err = _build.moe_dispatch_kernel()(
+        x.data_ptr(), slot_tok.data_ptr(), out.data_ptr(), t, s, d, x.element_size(),
+        group if hinted else 0, experts if hinted else 0, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
     moe_dispatch_gather.launches += 1

@@ -273,10 +273,19 @@ def semiring_spgemm_ref(a: PaddedBSR, b: Tensor, sr: Semiring,
     return ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn)[:, :n]
 
 
-def moe_dispatch_gather(x: Tensor, slot_tok: Tensor) -> Tensor:
+def moe_dispatch_gather(x: Tensor, slot_tok: Tensor, *, group: int | None = None,
+                        experts: int | None = None) -> Tensor:
     """Expert-buffer row gather: out[s] = x[slot_tok[s]], zero rows for the
-    pad slots (slot_tok == T)."""
-    return _moe_dispatch_gather(x.contiguous(), slot_tok.to(torch.int32).contiguous())
+    pad slots (slot_tok == T). ``group``/``experts``: the layout hint of a
+    ``dispatch_plan`` buffer (see ``kernels/moe_dispatch.py``). Operands
+    already contiguous and int32 pass through without a copy."""
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if slot_tok.dtype != torch.int32:
+        slot_tok = slot_tok.to(torch.int32)
+    if not slot_tok.is_contiguous():
+        slot_tok = slot_tok.contiguous()
+    return _moe_dispatch_gather(x, slot_tok, group=group, experts=experts)
 
 
 def moe_dispatch_gather_ref(x: Tensor, slot_tok: Tensor) -> Tensor:

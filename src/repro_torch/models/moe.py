@@ -62,7 +62,8 @@ class DispatchPlan(NamedTuple):
     s_tok: Tensor      # [B, T·k] int64: token within the row
     pos_in_grp: Tensor  # [B, T·k] int64: place within the expert's group
     keep: Tensor       # [B, T·k] bool: pos_in_grp < C (capacity drop)
-    slot_tok: Tensor   # [B·E·C] int32: b·T + tok for each buffer slot, the pad B·T
+    slot_tok: Tensor   # [B·E·C] int32: b·T + tok for each buffer slot, the pad B·T;
+    #                    ascending within each group of C slots, pads at its tail
 
 
 def dispatch_plan(top_ids: Tensor, n_experts: int, c: int) -> DispatchPlan:
@@ -103,8 +104,10 @@ def moe_sparse(x: Tensor, w_router: Tensor, w1: Tensor, w3: Tensor, w2: Tensor,
     top_p, top_ids = router_topk(x, w_router, cfg)                    # [B, T, k]
     plan = dispatch_plan(top_ids, e, c)
 
-    # kernel 7: buf[b, e, p] = x[b, tok] for each kept assignment, else 0
-    buf = ops.moe_dispatch_gather(x.reshape(b * t, d), plan.slot_tok).view(b, e, c, d)
+    # kernel 7: buf[b, e, p] = x[b, tok] for each kept assignment, else 0;
+    # the hint tells it the plan's layout, so it reads each token row once
+    buf = ops.moe_dispatch_gather(x.reshape(b * t, d), plan.slot_tok, group=c,
+                                  experts=e).view(b, e, c, d)
 
     # expert FFN on the compact buffer (SwiGLU)
     h = F.silu(torch.einsum("becd,edf->becf", buf, w1))

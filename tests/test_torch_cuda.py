@@ -541,6 +541,90 @@ def test_moe_dispatch_gather_rejects_bad_operands(cuda):
         moe_dispatch_gather(x.T, tok)
 
 
+def _hinted_plan(device, b, t, e, k, cf, gen, skew=False):
+    """slot_tok of ``dispatch_plan`` for [b, t] tokens routed to distinct
+    random top-k of e experts at capacity factor cf (``skew``: every token
+    to experts 0..k-1, so groups overflow and drop), with its hint."""
+    from repro_torch.models.config import MoEConfig
+    from repro_torch.models.moe import capacity, dispatch_plan
+
+    cfg = MoEConfig(n_experts=e, top_k=k, d_ff_expert=8, capacity_factor=cf)
+    ids = torch.argsort(torch.rand((b, t, e), generator=gen, device=device), dim=-1)[..., :k]
+    if skew:
+        ids = torch.arange(k, device=device).expand(b, t, k)
+    c = capacity(t, cfg)
+    return dispatch_plan(ids.to(torch.int32).contiguous(), e, c).slot_tok, c
+
+
+# (batch rows, tokens a row, experts, top-k, capacity factor, D, x offset,
+# plan change). The window path runs where x holds at least half of L2
+# (2,400 tokens of D = 6144: 29.5 MB in bf16, 59 MB in f32, on an H100's
+# 50 MB); smaller x, unaligned rows and decode take the other paths.
+HINTED = {
+    # window path
+    "window": (2, 1200, 8, 2, 1.25, 6144, 0, None),
+    "straddle": (3, 803, 5, 3, 1.0, 6144, 0, None),          # partial last run and window
+    "drops": (4, 600, 16, 6, 0.5, 6144, 0, "skew"),          # groups overflow
+    "unsorted": (2, 1200, 8, 2, 1.25, 6144, 0, "shuffle"),   # the hint's order broken
+    "out-of-range": (3, 800, 16, 6, 1.0, 6144, 0, "out-of-range"),
+    "small-s": (1, 2400, 1, 1, 0.01, 6144, 0, None),         # 24 slots, less than a CTA's run
+    "long-tail": (1, 2400, 2, 1, 4.0, 6144, 0, None),        # 3,600 pads a group
+    # flat path
+    "flat": (2, 300, 8, 2, 1.25, 2048, 0, None),             # x fits L2
+    "tiny": (1, 16, 1, 1, 0.5, 128, 0, None),                # S·D less than one CTA's run
+    "decode": (4, 1, 64, 6, 1.0, 2048, 0, None),
+    # element-wise path
+    "d-unaligned": (2, 100, 8, 2, 1.0, 100, 0, None),
+    "d-3": (1, 40, 4, 2, 2.0, 3, 0, None),
+    "pointer-misaligned": (2, 64, 8, 2, 1.0, 2048, 1, None),
+}
+
+
+@pytest.mark.parametrize("case", list(HINTED))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_moe_dispatch_gather_hinted_and_unhinted(cuda, dtype, case):
+    """The kernel with and without ``dispatch_plan``'s layout hint on plans
+    built by it: every slot ``torch.equal`` to the plain version on the
+    window, flat and element-wise paths; a run and a window cut short at
+    the end of a batch row (803 tokens), groups that overflow and drop, a
+    plan whose order the hint does not describe (shuffled), tokens
+    outside [0, T), fewer slots than a CTA's run and a tail of pads longer
+    than a round still gathered exactly."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+
+    b, t, e, k, cf, d, offset, change = HINTED[case]
+    gen = torch.Generator(device=cuda).manual_seed(b * 1000 + t + d)
+    tok, c = _hinted_plan(cuda, b, t, e, k, cf, gen, skew=change == "skew")
+    if change == "shuffle":
+        tok = tok[torch.randperm(tok.shape[0], generator=gen, device=cuda)].contiguous()
+    if change == "out-of-range":
+        tok[::7] = -3
+        tok[3::11] = b * t + 5
+    base = torch.randn(b * t * d + offset, generator=gen, device=cuda).to(dtype)
+    x = base[offset:].view(b * t, d)
+    want = ref.moe_dispatch_gather_ref(x, tok)
+    before = moe_dispatch_gather.launches
+    hinted = moe_dispatch_gather(x, tok, group=c, experts=e)
+    plain = moe_dispatch_gather(x, tok)
+    assert moe_dispatch_gather.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(hinted, want) and torch.equal(plain, want)
+    assert want.any()
+
+
+def test_moe_dispatch_gather_rejects_bad_hints_on_the_card(cuda):
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+
+    x = torch.zeros((6, 128), device=cuda)
+    tok = torch.zeros(48, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="slots"):
+        moe_dispatch_gather(x, tok, group=5, experts=2)
+    with pytest.raises(ValueError, match="batch rows"):
+        moe_dispatch_gather(x, tok, group=2, experts=6)
+    with pytest.raises(ValueError, match="neither"):
+        moe_dispatch_gather(x, tok, group=8)
+
+
 def test_moe_layer_on_the_card_matches_the_host(cuda):
     """One sparse MoE layer in f32 (TF32 off) through kernel 7 on the card
     against the same layer's plain path on the host."""

@@ -43,6 +43,23 @@ def assert_same(port, jax_container, fields):
     assert tuple(got["shape"]) == tuple(jax_container.shape)
 
 
+@pytest.mark.parametrize("name", sorted(jsemiring.SEMIRINGS))
+def test_semiring_get_matches_jax(name):
+    """``semiring.get`` finds each of the reference's five names, with the
+    reference's identities, type and collective."""
+    jsr, tsr = jsemiring.get(name), tsemiring.get(name)
+    assert tsr is tsemiring.SEMIRINGS[name] and tsr.name == jsr.name == name
+    assert (tsr.zero, tsr.one, tsr.collective) == (jsr.zero, jsr.one, jsr.collective)
+    assert str(tsr.dtype).removeprefix("torch.") == np.dtype(jsr.dtype).name
+
+
+def test_semiring_get_rejects_an_unknown_name():
+    with pytest.raises(KeyError):
+        tsemiring.get("max_plus")
+    with pytest.raises(KeyError):
+        jsemiring.get("max_plus")
+
+
 @pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("fmt", ["coo", "csr", "csc"])
 def test_element_builders_match_jax(name, fmt):

@@ -140,3 +140,131 @@ def test_routing_plan_buffer_equals_scatter_and_pallas(cf):
     pallas = jops.moe_dispatch_gather(jnp.asarray(xn.reshape(b * t, d)),
                                       jnp.asarray(plan.slot_tok.numpy()))
     np.testing.assert_array_equal(buf.reshape(-1, d).numpy(), np.asarray(pallas))
+
+
+def test_wrapper_validates_the_hint():
+    """The layout hint must split S into B·E·C and T into B rows; a
+    consistent hint leaves the result as it is."""
+    x = torch.arange(6 * 4, dtype=torch.float32).view(6, 4)
+    tok = torch.tensor([0, 2, 6, 6, 1, 6, 6, 6, 3, 4, 6, 6, 5, 6, 6, 6] * 3, dtype=torch.int32)
+    want = ref.moe_dispatch_gather_ref(x, tok)
+    for group, experts in ((4, 2), (2, 4), (8, 1), (1, 8), (4, 4), (2, 12)):
+        assert torch.equal(moe_dispatch_gather(x, tok, group=group, experts=experts), want)
+    with pytest.raises(ValueError, match="slots"):
+        moe_dispatch_gather(x, tok, group=5, experts=2)              # 48 % 10
+    with pytest.raises(ValueError, match="batch rows"):
+        moe_dispatch_gather(x, tok, group=2, experts=6)              # B = 4, 6 % 4
+    with pytest.raises(ValueError, match="batch rows"):
+        moe_dispatch_gather(x, tok, group=3, experts=4)              # B = 4, 6 % 4
+    with pytest.raises(ValueError, match="neither"):
+        moe_dispatch_gather(x, tok, group=4)
+    with pytest.raises(ValueError, match="neither"):
+        moe_dispatch_gather(x, tok, experts=2)
+    with pytest.raises(ValueError, match="positive"):
+        moe_dispatch_gather(x, tok, group=0, experts=2)
+    with pytest.raises(ValueError, match="positive"):
+        moe_dispatch_gather(x, tok, group=-4, experts=-2)
+    empty = torch.zeros(0, dtype=torch.int32)
+    assert moe_dispatch_gather(torch.zeros((0, 4)), empty, group=8, experts=2).shape == (0, 4)
+    with pytest.raises(ValueError, match="batch rows"):
+        moe_dispatch_gather(x, empty, group=8, experts=2)            # no rows for 6 tokens
+
+
+def test_front_door_passes_ready_operands_without_a_copy(monkeypatch):
+    seen = []
+
+    def spy(x, slot_tok, **hint):
+        seen.append((x, slot_tok, hint))
+        return ref.moe_dispatch_gather_ref(x, slot_tok)
+
+    monkeypatch.setattr(ops, "_moe_dispatch_gather", spy)
+    x = torch.randn(5, 8)
+    tok = torch.tensor([4, 0, 5, 5], dtype=torch.int32)
+    ops.moe_dispatch_gather(x, tok, group=2, experts=2)
+    assert seen[-1][0] is x and seen[-1][1] is tok and seen[-1][2] == {"group": 2, "experts": 2}
+    got = ops.moe_dispatch_gather(x.T.contiguous().T, tok.long())
+    assert seen[-1][0].is_contiguous() and seen[-1][1].dtype == torch.int32
+    assert seen[-1][2] == {"group": None, "experts": None}
+    assert torch.equal(got, ref.moe_dispatch_gather_ref(x, tok))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_moe_sparse_passes_the_hint(monkeypatch, batched):
+    """``moe_sparse`` hands kernel 7 its buffer's layout (C, E); the layer's
+    output is identical with the hint dropped."""
+    from repro_torch.models.moe import moe_sparse
+
+    cfg = MoEConfig(n_experts=8, top_k=2, d_ff_expert=16, capacity_factor=1.0)
+    rng = np.random.default_rng(7)
+    d = 32
+    w = {k: torch.from_numpy((rng.standard_normal(s) * 0.2).astype(np.float32)) for k, s in
+         (("router", (d, 8)), ("w1", (8, d, 16)), ("w3", (8, d, 16)), ("w2", (8, 16, d)))}
+    x = torch.from_numpy(rng.standard_normal((3, 40, d) if batched else (40, d)).astype(np.float32))
+    real = ops.moe_dispatch_gather
+    calls = []
+
+    def spy(xf, slot_tok, **hint):
+        calls.append((xf.shape, slot_tok.shape, hint))
+        return real(xf, slot_tok, **hint)
+
+    monkeypatch.setattr(ops, "moe_dispatch_gather", spy)
+    y = moe_sparse(x, w["router"], w["w1"], w["w3"], w["w2"], cfg)
+    b = 3 if batched else 1
+    c = capacity(40, cfg)
+    assert calls == [((b * 40, d), (b * 8 * c,), {"group": c, "experts": 8})]
+    monkeypatch.setattr(ops, "moe_dispatch_gather", lambda xf, slot_tok, **hint: real(xf, slot_tok))
+    assert torch.equal(moe_sparse(x, w["router"], w["w1"], w["w3"], w["w2"], cfg), y)
+
+
+# (batch rows, tokens a row, experts, top-k, capacity factor): T = 1 and
+# T > C, with drops where the factor is below 1
+PLAN_CASES = [(1, 1, 4, 2, 1.0), (4, 1, 8, 2, 1.25), (3, 1, 16, 6, 1.0), (1, 40, 4, 2, 0.5),
+              (2, 32, 4, 3, 0.25), (4, 24, 8, 2, 1.0), (3, 50, 8, 4, 0.5), (2, 64, 16, 6, 0.75),
+              (1, 100, 2, 1, 0.25), (4, 17, 4, 4, 0.5)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_plan_is_ascending_in_each_group_with_pads_at_the_tail(case):
+    """What the hint promises, over random routings with drops: within
+    every group of C slots the kept tokens ascend and the pads (B·T) fill
+    the tail. The plan stays the reference's sort stage, and the buffer
+    the hinted gather fills equals the scatter the reference builds and
+    the Pallas kernel's."""
+    b, t, e, k, cf = case
+    rng = np.random.default_rng(hash(case) % 2**31)
+    cfg = MoEConfig(n_experts=e, top_k=k, d_ff_expert=8, capacity_factor=cf)
+    c = capacity(t, cfg)
+    assert c == jcapacity(t, JMoEConfig(n_experts=e, top_k=k, d_ff_expert=8,
+                                        capacity_factor=cf))
+    ids = np.argsort(rng.random((b, t, e)), axis=-1)[..., :k].astype(np.int32)
+    plan = dispatch_plan(torch.from_numpy(ids), e, c)
+    groups = plan.slot_tok.view(b, e, c).numpy()
+    for r in range(b):
+        for g in range(e):
+            grp = groups[r, g]
+            kept = grp[grp != b * t]
+            assert np.all(np.diff(kept) > 0)                               # ascending
+            assert np.all(grp[len(kept):] == b * t)                        # pads at the tail
+            assert np.all((kept >= r * t) & (kept < (r + 1) * t))          # its own row's tokens
+    # the reference's sort stage, per row, in numpy, gives the same slots
+    want = np.full(b * e * c, b * t, np.int32)
+    for r in range(b):
+        flat = ids[r].reshape(-1)
+        order = np.argsort(flat, kind="stable")
+        s_ids = flat[order]
+        pos = np.arange(t * k) - np.searchsorted(s_ids, np.arange(e), side="left")[s_ids]
+        keep = pos < c
+        want[(r * e + s_ids[keep]) * c + pos[keep]] = r * t + order[keep] // k
+    np.testing.assert_array_equal(plan.slot_tok.numpy(), want)
+    if cf < 1.0 and t > c:
+        assert not plan.keep.all()
+    d = 128
+    xn = rng.standard_normal((b * t, d)).astype(np.float32)
+    x = torch.from_numpy(xn)
+    buf = moe_dispatch_gather(x, plan.slot_tok, group=c, experts=e)
+    scatter = np.zeros((b * e * c, d), np.float32)
+    hit = want < b * t
+    scatter[hit] = xn[want[hit]]
+    np.testing.assert_array_equal(buf.numpy(), scatter)
+    pallas = jops.moe_dispatch_gather(jnp.asarray(xn), jnp.asarray(want))
+    np.testing.assert_array_equal(buf.numpy(), np.asarray(pallas))
