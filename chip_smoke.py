@@ -47,7 +47,9 @@ Phases:
      on the 64×64 ⟨+,×⟩ masked case (f32, operands the front door sends
      it) beside ``torch.sparse.sampled_addmm`` with the mask as CSR and A
      densified, the one library call for that function (⟨min,+⟩ and the
-     others have none): kernel 6's row of the kernels line.
+     others have none), held to kernel 6 within the same tolerance:
+     kernel 6's row of the kernels line. Both kernels' bounds count the
+     work the function needs: the real slots of each active tile.
  10. Whole-graph analytics on full-size cit-HP: ``triangle_count(impl=
      "bsr", block=(64, 64))``, which must launch kernel 6b and not kernel
      6 (total equal to ``triangle_reference``, per-edge counts equal to
@@ -69,7 +71,8 @@ Phases:
      the plans its first MoE layer built (with the layout hint
      ``moe_sparse`` passed, which phase 12 checks). Each plan through
      ``ops.moe_dispatch_gather`` with the hint, as ``moe_sparse`` calls
-     it, and without it: device times of both, plain, bound and library
+     it, and without it: the path each took (the wrapper's per-path
+     counts), device times of both, plain, bound and library
      (``index_select`` on x with a zero row appended), and single-call
      times (``call_ms``, the host's share) of the kernel and the library.
  12. Serving: the full deepseek-v2-lite-16b (27 layers, 15.7 B
@@ -206,7 +209,8 @@ Phases:
      through the ring (it wraps at position 4,096); kernel 7 launches
      once per MoE layer in prefill and in every decode step, and its
      first prefill and decode plans (D = 6144) are held to the plain
-     version and timed against their bound and ``index_select``. Per arch:
+     version and timed against their bound and ``index_select``; the
+     prefill plan must take the window path. Per arch:
      parameters, layers run, weight and cache bytes, peak memory, init s,
      prefill ms, decode ms a step, tokens/s, kernel 7 launches; a profiler
      window of 3 decode steps on nemo and mixtral (device busy time,
@@ -353,11 +357,18 @@ def gather_row(torch, dev, x, tok, hint: dict, label: str, time_ms) -> dict:
     index_select on a zero-row-extended x: device times of each; the
     single-call times (``call_ms``, CUDA events around one call, the
     host's share included) and host times a call (``host_us``) of the
-    kernel and index_select."""
+    kernel and index_select; the path each call took, as the wrapper
+    counts it."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
 
-    y = ops.moe_dispatch_gather(x, tok, **hint)
-    y_flat = ops.moe_dispatch_gather(x, tok)
+    def taken(fn):
+        before = dict(moe_dispatch_gather.paths)
+        out = fn()
+        return out, next(p for p, n in moe_dispatch_gather.paths.items() if n > before[p])
+
+    y, path = taken(lambda: ops.moe_dispatch_gather(x, tok, **hint))
+    y_flat, unhinted_path = taken(lambda: ops.moe_dispatch_gather(x, tok))
     y_plain = ref.moe_dispatch_gather_ref(x, tok)
     torch.cuda.synchronize()
     check(torch.equal(y, y_plain), f"kernel 7 {label}: differs from the plain version")
@@ -369,6 +380,7 @@ def gather_row(torch, dev, x, tok, hint: dict, label: str, time_ms) -> dict:
     bound_ms, bound_by, n_valid, n_rows = gather_bound(x, tok)
     return {"kernel": "moe_dispatch_gather", "plan": label, "dtype": str(x.dtype),
             "T": x.shape[0], "S": tok.shape[0], "D": x.shape[1], "hint": hint,
+            "path": path, "unhinted_path": unhinted_path,
             "n_valid": n_valid, "rows_read": n_rows,
             "max_abs_err": max(float((z.float() - y_plain.float()).abs().max())
                                for z in (y, y_flat)),
@@ -863,6 +875,8 @@ def gqa_phases(torch, dev, time_ms, prompt_lens, max_new: int, max_seq: int) -> 
     print(json.dumps(summary))
     pre = gather_row(torch, dev, *captured["prefill"], "phase-18 mixtral prefill", time_ms)
     print(json.dumps(pre))
+    check(pre["path"] == "window", f"kernel 7 took the {pre['path']} path on mixtral's prefill "
+          "plan, not the window path")
     summary["launches"] = run["kernel7_launches"]
     summary["max_abs_err"] = max(summary["max_abs_err"], pre["max_abs_err"])
     del captured
@@ -2921,13 +2935,14 @@ def main() -> int:
 
     def spgemm_bounds(a, bp, mk, meta, sr) -> dict:
         """Bounds of one masked tile SpGEMM from ``ops.spgemm_stream_stats``:
-        kernel 6 folds every slot (pads included) of each active output
-        tile at the int32 or fp32 rate of the CUDA cores; the variant only
-        the real slots, at the int8 tensor-core rate; the bytes each needs
-        read or written once."""
+        the work the function needs, the real slots of each active output
+        tile (pads fold to nothing) and the bytes of those slots, B's met
+        blocks, the mask and the output, each moved once; kernel 6's at
+        the int32 or fp32 rate of the CUDA cores, the variant's at the int8
+        tensor-core rate."""
         st = ops.spgemm_stream_stats(a, meta, bp, mk)
         rate = INT32_OPS_PER_S if sr.dtype == torch.int32 else FP32_OPS_PER_S
-        return {"semiring_spgemm_padded": bound(st["bytes"], st["ops"], rate),
+        return {"semiring_spgemm_padded": bound(st["real_bytes"], 2 * st["real_macs"], rate),
                 "semiring_spgemm_binary": bound(st["real_bytes"], 2 * st["real_macs"],
                                                 INT8_OPS_PER_S),
                 "stats": st}
@@ -2967,7 +2982,8 @@ def main() -> int:
         def lib():
             return torch.sparse.sampled_addmm(mask_csr, a_dense, b, beta=0.0)
 
-        lib_diff = float((lib().to_dense() - y[:n, :n]).abs().max())
+        lib_diff = compare(lib().to_dense(), y[:n, :n].contiguous(), sr,
+                           "kernel 6 ca-Q plus_times: torch.sparse.sampled_addmm")
         bound_ms, bound_by = spgemm_bounds(a, bp, mk, meta, sr)["semiring_spgemm_padded"]
         row = {"kernel": "semiring_spgemm_padded", "semiring": sr.name, "graph": "ca-Q",
                "tiles": list(a.tiles.shape), "mask_nnz": mask_csr.values().numel(),

@@ -148,8 +148,8 @@ def spgemm_binary_pack():
 @functools.lru_cache(maxsize=None)
 def moe_dispatch_kernel():
     """The MoE dispatch gather: (x, slot_tok, out, n_tokens, n_slots, d,
-    element size in bytes, group, experts, device index, stream); group =
-    experts = 0 when the plan comes with no layout hint."""
+    element size in bytes, group, experts, device index, stream, int* path
+    taken); group = experts = 0 when the plan comes with no layout hint."""
     return _entry("moe_dispatch.cu", "moe_dispatch_gather",
                   [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
-                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])

@@ -41,8 +41,9 @@
 // its key), and each slot is written by the same rule: a token of the
 // CTA's window from shared memory, another token from x, a pad as zeros.
 // So the result does not depend on the plan being sorted; only the bytes
-// read do. Where x fits in half of L2, the flat path's repeated reads hit
-// L2 and it is faster, so it runs there.
+// read do. Where x holds less than 40% of L2, the flat path's repeated
+// reads hit L2 and it is as fast or faster (with 64 experts, at 32% of
+// L2, by 15%), so it runs there.
 //
 // Rows or pointers that are not 16-byte aligned take an element-wise
 // path, one warp a slot row. An index outside [0, T) is a pad, so no
@@ -53,28 +54,19 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// Compile-time choices, each the best of tools/moe_dispatch_sweep.py's
-// variants on an H100 (PERF.md).
+// Compile-time choices swept by tools/moe_dispatch_sweep.py on an H100,
+// each set to the best of its variants (PERF.md).
 #ifndef MOE_THREADS
 #define MOE_THREADS 128  // threads a CTA on the flat path
 #endif
 #ifndef MOE_VECS
 #define MOE_VECS 2  // 16-byte loads in flight a thread on the flat path (1, 2, 4 or 8)
 #endif
-#ifndef MOE_WINDOW_THREADS
-#define MOE_WINDOW_THREADS 128  // threads a CTA on the window path
-#endif
 #ifndef MOE_WINDOW
 #define MOE_WINDOW 4  // tokens a window CTA stages
 #endif
-#ifndef MOE_CHUNK
-#define MOE_CHUNK 384  // 16-byte vectors of each staged row (a chunk of D)
-#endif
-#ifndef MOE_SEARCH_LANES
-#define MOE_SEARCH_LANES 16  // at most this many lanes search a group (a power of two ≤ 32)
-#endif
 #ifndef MOE_X_L2_PCT
-#define MOE_X_L2_PCT 50  // the window path needs x to hold this share of L2 (%)
+#define MOE_X_L2_PCT 40  // the window path needs x to hold this share of L2 (%)
 #endif
 
 namespace moe_dispatch {
@@ -82,19 +74,21 @@ namespace moe_dispatch {
 constexpr int kThreads = MOE_THREADS;
 constexpr int kWarps = kThreads / 32;
 constexpr int kVecs = MOE_VECS;
-constexpr int kWinThreads = MOE_WINDOW_THREADS;
+constexpr int kWinThreads = 128;  // threads a CTA on the window path
 constexpr int kWinWarps = kWinThreads / 32;
 constexpr int kWindow = MOE_WINDOW;
-constexpr int kChunk = MOE_CHUNK;
+constexpr int kChunk = 384;       // 16-byte vectors of each staged row (a chunk of D)
+constexpr int kSearchLanes = 16;  // at most this many lanes search a group
 // a batch row shorter than four windows (decode) takes the flat path
 constexpr int kMinRowTokens = 4 * kWindow;
 constexpr size_t kStageBytes = sizeof(uint4) * kWindow * kChunk;
+// the window kernel's static shared memory: 6 int arrays, the warp totals, one int
+constexpr size_t kWinStaticBytes = sizeof(int) * (6 * kWinThreads + kWinWarps + 1);
 static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps, at most 1024 threads");
-static_assert(kWinThreads % 32 == 0 && kWinThreads <= 1024, "whole warps, at most 1024");
-static_assert(MOE_SEARCH_LANES >= 1 && MOE_SEARCH_LANES <= 32 &&
-                  (MOE_SEARCH_LANES & (MOE_SEARCH_LANES - 1)) == 0,
-              "search lanes: a power of two up to 32");
 static_assert(kVecs == 1 || kVecs == 2 || kVecs == 4 || kVecs == 8, "V is 1, 2, 4 or 8");
+
+// path codes the C entry reports
+enum Path : int { kNone = 0, kElementwise = 1, kFlat = 2, kWindowPath = 3 };
 
 __device__ __forceinline__ bool is_token(int tok, int n_tokens) {
   return tok >= 0 && tok < n_tokens;
@@ -277,7 +271,7 @@ __global__ void __launch_bounds__(kWinThreads) gather_windows(const WindowPlan p
   // each group's ranges for this CTA, found while the rows arrive: a
   // subgroup of `lanes` threads a group, as many as E groups leave
   const int* row_slots = p.slot_tok + static_cast<long long>(b) * p.experts * p.group;
-  int lanes = MOE_SEARCH_LANES;
+  int lanes = kSearchLanes;
   while (lanes > 1 && lanes * p.experts > kWinThreads) lanes >>= 1;
   const int g_own = threadIdx.x / lanes;
   const bool active = g_own < p.experts;
@@ -385,46 +379,38 @@ void launch_flat_as(const uint4* x, const int* tok, uint4* out, int n_tokens, I 
                                                  kThreads / row_vecs, kThreads % row_vecs);
 }
 
+// V = the largest of kVecs, kVecs/2, ..., 1 whose grid still covers the
+// SMs (1 where none does): small decode plans keep every SM busy
 template <int V>
-void launch_flat_v(const uint4* x, const int* tok, uint4* out, int n_tokens,
-                   long long n_slots, long long row_vecs, unsigned blocks, cudaStream_t s) {
-  // 32-bit offsets where every vector of the output (and of x) has one
-  const long long reach = static_cast<long long>(blocks) * kThreads * V + kThreads * V;
-  if (reach <= INT_MAX && static_cast<long long>(n_tokens) * row_vecs <= INT_MAX) {
-    launch_flat_as<V, int>(x, tok, out, n_tokens, static_cast<int>(n_slots),
-                           static_cast<int>(row_vecs), blocks, s);
-  } else {
-    launch_flat_as<V, long long>(x, tok, out, n_tokens, n_slots, row_vecs, blocks, s);
-  }
-}
-
 int launch_flat(const uint4* x, const int* tok, uint4* out, int n_tokens, long long n_slots,
-                long long row_vecs, cudaStream_t s) {
-  static const int sms = device_attribute(cudaDevAttrMultiProcessorCount, 132);
+                long long row_vecs, int sms, cudaStream_t s) {
   const long long total = n_slots * row_vecs;
-  int v = kVecs;
-  while (v > 1 && (total + kThreads * v - 1) / (kThreads * v) < sms) v /= 2;
-  const long long blocks = (total + kThreads * v - 1) / (kThreads * v);
+  const long long blocks = (total + kThreads * V - 1) / (kThreads * V);
+  if constexpr (V > 1) {
+    if (blocks < sms) return launch_flat<V / 2>(x, tok, out, n_tokens, n_slots, row_vecs, sms, s);
+  }
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const auto grid = static_cast<unsigned>(blocks);
-  switch (v) {
-    case 8:
-      launch_flat_v<8>(x, tok, out, n_tokens, n_slots, row_vecs, grid, s);
-      break;
-    case 4:
-      launch_flat_v<4>(x, tok, out, n_tokens, n_slots, row_vecs, grid, s);
-      break;
-    case 2:
-      launch_flat_v<2>(x, tok, out, n_tokens, n_slots, row_vecs, grid, s);
-      break;
-    default:
-      launch_flat_v<1>(x, tok, out, n_tokens, n_slots, row_vecs, grid, s);
+  // 32-bit offsets where every vector of the output (and of x) has one
+  const long long reach = blocks * kThreads * V + kThreads * V;
+  if (reach <= INT_MAX && static_cast<long long>(n_tokens) * row_vecs <= INT_MAX) {
+    launch_flat_as<V, int>(x, tok, out, n_tokens, static_cast<int>(n_slots),
+                           static_cast<int>(row_vecs), grid, s);
+  } else {
+    launch_flat_as<V, long long>(x, tok, out, n_tokens, n_slots, row_vecs, grid, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_windows(const WindowPlan& p, int batch, cudaStream_t s) {
-  // the stage exceeds 48 KB only by opting in, once for each device
+// A window CTA's shared memory past 48 KB needs an opt-in, once for each
+// device; a stage that fits (the default build) needs none.
+template <bool kLarge>
+int opt_in_stage() {
+  return 0;
+}
+
+template <>
+int opt_in_stage<true>() {
   static bool opted_in[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -436,6 +422,12 @@ int launch_windows(const WindowPlan& p, int batch, cudaStream_t s) {
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in[dev] = true;
   }
+  return 0;
+}
+
+int launch_windows(const WindowPlan& p, int batch, cudaStream_t s) {
+  const int err = opt_in_stage<(kStageBytes + kWinStaticBytes > 48 * 1024)>();
+  if (err) return err;
   const long long blocks = static_cast<long long>(batch) * p.windows * p.chunks;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   gather_windows<<<static_cast<unsigned>(blocks), kWinThreads, kStageBytes, s>>>(p);
@@ -443,7 +435,8 @@ int launch_windows(const WindowPlan& p, int batch, cudaStream_t s) {
 }
 
 int dispatch(const void* x, const void* slot_tok, void* out, int n_tokens, long long n_slots,
-             long long d, int esize, int group, int experts, cudaStream_t s) {
+             long long d, int esize, int group, int experts, cudaStream_t s, int* path) {
+  *path = kNone;
   if (n_slots < 0 || d < 0 || n_tokens < 0 || !(esize == 2 || esize == 4) || group < 0 ||
       experts < 0 || (group == 0) != (experts == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -464,6 +457,7 @@ int dispatch(const void* x, const void* slot_tok, void* out, int n_tokens, long 
   if (!aligned) {
     const long long blocks = (n_slots + kWarps - 1) / kWarps;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    *path = kElementwise;
     if (esize == 2) {
       gather_rows_scalar<uint16_t><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
           static_cast<const uint16_t*>(x), tok, static_cast<uint16_t*>(out), n_tokens, n_slots,
@@ -482,10 +476,12 @@ int dispatch(const void* x, const void* slot_tok, void* out, int n_tokens, long 
   // x that L2 holds already serves the flat path's repeated reads of a
   // token; the window path pays for its searches only where it does not
   static const long long l2_bytes = device_attribute(cudaDevAttrL2CacheSize, 50 << 20);
+  static const int sms = device_attribute(cudaDevAttrMultiProcessorCount, 132);
   if (group == 0 || experts > kWinThreads || row_tokens < kMinRowTokens ||
       static_cast<long long>(group) * experts > INT_MAX ||
       n_tokens * row_bytes * 100 < l2_bytes * MOE_X_L2_PCT) {
-    return launch_flat(xv, tok, ov, n_tokens, n_slots, row_vecs, s);
+    *path = kFlat;
+    return launch_flat<kVecs>(xv, tok, ov, n_tokens, n_slots, row_vecs, sms, s);
   }
   WindowPlan p;
   p.x = xv;
@@ -498,29 +494,33 @@ int dispatch(const void* x, const void* slot_tok, void* out, int n_tokens, long 
   p.row_tokens = row_tokens;
   p.windows = (row_tokens + kWindow - 1) / kWindow;
   p.chunks = static_cast<int>((row_vecs + kChunk - 1) / kChunk);
+  *path = kWindowPath;
   return launch_windows(p, static_cast<int>(batch), s);
 }
 
 }  // namespace moe_dispatch
 
-// Returns the cudaError_t of the launch (0 = success). An element size
-// other than 2 or 4 bytes (bf16, f32), or a hint (group C, experts E;
-// both 0 for none) that does not split S into B·E·C and T into B rows,
-// returns cudaErrorInvalidValue without launching; n_slots = 0 or d = 0
-// launches nothing. The window path runs where the hint holds, the rows
-// are 16-byte aligned, E ≤ MOE_WINDOW_THREADS, a batch row has at least
+// Returns the cudaError_t of the launch (0 = success) and sets *path to
+// the kernel launched: 0 none, 1 element-wise, 2 flat, 3 window. An
+// element size other than 2 or 4 bytes (bf16, f32), or a hint (group C,
+// experts E; both 0 for none) that does not split S into B·E·C and T
+// into B rows, returns cudaErrorInvalidValue without launching; n_slots
+// = 0 or d = 0 launches nothing. The window path runs where the hint
+// holds, the rows are 16-byte aligned, E ≤ 128, a batch row has at least
 // four windows' tokens and x holds at least MOE_X_L2_PCT% of L2; the
 // flat path otherwise. Launches on `stream` of `device`, which is made
 // current for the launch if it is not.
 extern "C" int moe_dispatch_gather(const void* x, const void* slot_tok, void* out,
                                    int n_tokens, long long n_slots, long long d, int esize,
-                                   int group, int experts, int device, void* stream) {
+                                   int group, int experts, int device, void* stream,
+                                   int* path) {
+  *path = moe_dispatch::kNone;
   int current = 0;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rc = moe_dispatch::dispatch(x, slot_tok, out, n_tokens, n_slots, d, esize, group,
-                                        experts, static_cast<cudaStream_t>(stream));
+                                        experts, static_cast<cudaStream_t>(stream), path);
   if (current != device) cudaSetDevice(current);
   return rc;
 }

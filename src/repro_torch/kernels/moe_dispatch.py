@@ -18,9 +18,12 @@ raises.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream or
 raises; on a CPU tensor it runs the plain version from ``kernels/ref.py``.
-``.launches`` counts its kernel launches.
+``.launches`` counts its kernel launches, and ``.paths`` counts them by
+the path the kernel took (``elementwise``, ``flat``, ``window``).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,6 +32,8 @@ from repro_torch.kernels import _build, ref
 Tensor = torch.Tensor
 
 DTYPES = (torch.float32, torch.bfloat16)
+# the path codes the C entry reports (0: nothing launched)
+PATHS = (None, "elementwise", "flat", "window")
 
 
 def _check_operands(name: str, x: Tensor, slot_tok: Tensor) -> torch.device:
@@ -84,14 +89,18 @@ def moe_dispatch_gather(x: Tensor, slot_tok: Tensor, *, group: int | None = None
     s = slot_tok.shape[0]
     out = torch.empty((s, d), dtype=x.dtype, device=dev)
     # the C side makes x's device current for the launch if it is not
+    path = ctypes.c_int(0)
     err = _build.moe_dispatch_kernel()(
         x.data_ptr(), slot_tok.data_ptr(), out.data_ptr(), t, s, d, x.element_size(),
         group if hinted else 0, experts if hinted else 0, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(path))
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
-    moe_dispatch_gather.launches += 1
+    if path.value:
+        moe_dispatch_gather.launches += 1
+        moe_dispatch_gather.paths[PATHS[path.value]] += 1
     return out
 
 
 moe_dispatch_gather.launches = 0
+moe_dispatch_gather.paths = dict.fromkeys(PATHS[1:], 0)

@@ -557,26 +557,26 @@ def _hinted_plan(device, b, t, e, k, cf, gen, skew=False):
 
 
 # (batch rows, tokens a row, experts, top-k, capacity factor, D, x offset,
-# plan change). The window path runs where x holds at least half of L2
-# (2,400 tokens of D = 6144: 29.5 MB in bf16, 59 MB in f32, on an H100's
-# 50 MB); smaller x, unaligned rows and decode take the other paths.
+# plan change, the path the hinted call takes, by dtype where they
+# differ). The window path runs where x holds at least 40% of L2 (2,400
+# tokens of D = 6144: 29.5 MB in bf16, 59 MB in f32, on an H100's 50 MB);
+# smaller x, unaligned rows and decode take the other paths. A row of
+# D = 100 is 16-byte aligned in f32 (400 bytes), not in bf16.
 HINTED = {
-    # window path
-    "window": (2, 1200, 8, 2, 1.25, 6144, 0, None),
-    "straddle": (3, 803, 5, 3, 1.0, 6144, 0, None),          # partial last run and window
-    "drops": (4, 600, 16, 6, 0.5, 6144, 0, "skew"),          # groups overflow
-    "unsorted": (2, 1200, 8, 2, 1.25, 6144, 0, "shuffle"),   # the hint's order broken
-    "out-of-range": (3, 800, 16, 6, 1.0, 6144, 0, "out-of-range"),
-    "small-s": (1, 2400, 1, 1, 0.01, 6144, 0, None),         # 24 slots, less than a CTA's run
-    "long-tail": (1, 2400, 2, 1, 4.0, 6144, 0, None),        # 3,600 pads a group
-    # flat path
-    "flat": (2, 300, 8, 2, 1.25, 2048, 0, None),             # x fits L2
-    "tiny": (1, 16, 1, 1, 0.5, 128, 0, None),                # S·D less than one CTA's run
-    "decode": (4, 1, 64, 6, 1.0, 2048, 0, None),
-    # element-wise path
-    "d-unaligned": (2, 100, 8, 2, 1.0, 100, 0, None),
-    "d-3": (1, 40, 4, 2, 2.0, 3, 0, None),
-    "pointer-misaligned": (2, 64, 8, 2, 1.0, 2048, 1, None),
+    "window": (2, 1200, 8, 2, 1.25, 6144, 0, None, "window"),
+    "straddle": (3, 803, 5, 3, 1.0, 6144, 0, None, "window"),   # partial last run and window
+    "drops": (4, 600, 16, 6, 0.5, 6144, 0, "skew", "window"),   # groups overflow
+    "unsorted": (2, 1200, 8, 2, 1.25, 6144, 0, "shuffle", "window"),  # the order broken
+    "out-of-range": (3, 800, 16, 6, 1.0, 6144, 0, "out-of-range", "window"),
+    "small-s": (1, 2400, 1, 1, 0.01, 6144, 0, None, "window"),  # 24 slots, < a CTA's run
+    "long-tail": (1, 2400, 2, 1, 4.0, 6144, 0, None, "window"),  # 3,600 pads a group
+    "flat": (2, 300, 8, 2, 1.25, 2048, 0, None, "flat"),         # x fits L2
+    "tiny": (1, 16, 1, 1, 0.5, 128, 0, None, "flat"),            # S·D < one CTA's run
+    "decode": (4, 1, 64, 6, 1.0, 2048, 0, None, "flat"),
+    "d-unaligned": (2, 100, 8, 2, 1.0, 100, 0, None,
+                    {torch.bfloat16: "elementwise", torch.float32: "flat"}),
+    "d-3": (1, 40, 4, 2, 2.0, 3, 0, None, "elementwise"),
+    "pointer-misaligned": (2, 64, 8, 2, 1.0, 2048, 1, None, "elementwise"),
 }
 
 
@@ -585,14 +585,16 @@ HINTED = {
 def test_moe_dispatch_gather_hinted_and_unhinted(cuda, dtype, case):
     """The kernel with and without ``dispatch_plan``'s layout hint on plans
     built by it: every slot ``torch.equal`` to the plain version on the
-    window, flat and element-wise paths; a run and a window cut short at
+    window, flat and element-wise paths, each call on the path the case
+    names (the wrapper's per-path counts); a run and a window cut short at
     the end of a batch row (803 tokens), groups that overflow and drop, a
     plan whose order the hint does not describe (shuffled), tokens
     outside [0, T), fewer slots than a CTA's run and a tail of pads longer
     than a round still gathered exactly."""
     from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
 
-    b, t, e, k, cf, d, offset, change = HINTED[case]
+    b, t, e, k, cf, d, offset, change, path = HINTED[case]
+    path = path[dtype] if isinstance(path, dict) else path
     gen = torch.Generator(device=cuda).manual_seed(b * 1000 + t + d)
     tok, c = _hinted_plan(cuda, b, t, e, k, cf, gen, skew=change == "skew")
     if change == "shuffle":
@@ -604,8 +606,13 @@ def test_moe_dispatch_gather_hinted_and_unhinted(cuda, dtype, case):
     x = base[offset:].view(b * t, d)
     want = ref.moe_dispatch_gather_ref(x, tok)
     before = moe_dispatch_gather.launches
+    paths = dict(moe_dispatch_gather.paths)
     hinted = moe_dispatch_gather(x, tok, group=c, experts=e)
+    assert moe_dispatch_gather.paths[path] == paths[path] + 1
+    unhinted = "elementwise" if path == "elementwise" else "flat"
+    paths = dict(moe_dispatch_gather.paths)
     plain = moe_dispatch_gather(x, tok)
+    assert moe_dispatch_gather.paths[unhinted] == paths[unhinted] + 1
     assert moe_dispatch_gather.launches == before + 2
     torch.cuda.synchronize()
     assert torch.equal(hinted, want) and torch.equal(plain, want)

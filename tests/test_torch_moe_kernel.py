@@ -42,9 +42,11 @@ def test_plain_version_equals_pallas_kernel(t, d, s, block_d, dtype):
     tok = rng.integers(0, t + 1, s).astype(np.int32)
     tok[::5] = t                                              # pads included
     want = jops.moe_dispatch_gather(jx, jnp.asarray(tok), block_d=block_d)
-    before = moe_dispatch_gather.launches
+    before, paths = moe_dispatch_gather.launches, dict(moe_dispatch_gather.paths)
     got = ops.moe_dispatch_gather(tx, torch.from_numpy(tok))
     assert moe_dispatch_gather.launches == before            # CPU: plain version, no launch
+    assert moe_dispatch_gather.paths == paths
+    assert set(paths) == {"elementwise", "flat", "window"}
     assert got.dtype == DTYPES[dtype][1] and got.shape == (s, d)
     np.testing.assert_array_equal(_f32(got), _f32(want))
     np.testing.assert_array_equal(_f32(ref.moe_dispatch_gather_ref(tx, torch.from_numpy(tok))),

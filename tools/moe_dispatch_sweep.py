@@ -2,18 +2,14 @@
 """Kernel 7, the MoE dispatch gather (``src/repro_torch/kernels/csrc/
 moe_dispatch.cu``), at values of its compile-time constants: the threads
 of a CTA (``MOE_THREADS``) and the 16-byte loads a thread keeps in flight
-(``MOE_VECS``) on the flat path, the threads of a CTA on the window path
-(``MOE_WINDOW_THREADS``), the tokens it stages (``MOE_WINDOW``), the
-16-byte vectors of each staged row (``MOE_CHUNK``), the lanes that search
-an expert group at most (``MOE_SEARCH_LANES``) and the share of L2 that x
-must hold for the window path (``MOE_X_L2_PCT``; 0 takes it on every
-hinted plan), timed on one NVIDIA GPU on the plans ``chip_smoke.py``
-times:
+(``MOE_VECS``) on the flat path, the tokens a window CTA stages
+(``MOE_WINDOW``) and the share of L2 that x must hold for the window path
+(``MOE_X_L2_PCT``; 0 takes it on every hinted plan), timed on one NVIDIA
+GPU on the plans ``chip_smoke.py`` times and more mixtral prefills:
 
-    python3 tools/moe_dispatch_sweep.py [--variants 128/2/128/4/384/16/50,...]
+    python3 tools/moe_dispatch_sweep.py [--variants 128/2/4/40,...]
 
-each variant written
-threads/vecs/window_threads/window/chunk/search_lanes/x_l2_pct.
+each variant written threads/vecs/window/x_l2_pct.
 The plans are built by
 ``models/moe.py::dispatch_plan`` from seeded random routing at the
 widths of deepseek-v2-lite-16b (D = 2048, 64 experts, top-6; batch 4,
@@ -21,19 +17,21 @@ decode and a 511-token prefill, bf16 and f32, and a prefill whose
 left-padded prompts of 17, 64, 200 and 511 tokens route their pad
 tokens alike, so groups overflow) and mixtral-8x22b (D = 6144, 8
 experts, top-2; batch 2, decode and a 4,000-token prefill, bf16, and
-prefills of 1,000 and 2,000 tokens, whose x holds 24.6 and 49.2 MB:
-where the window path starts to pay).
+prefills of 250, 500, 750, 1,000 and 2,000 tokens, whose x holds 6.1 to
+49.2 MB: where the window path starts to pay).
 
 Each variant is built with nvcc into ``kernels/build/sweep/`` (all
 started together) and called through the same C entry point as the
 wrapper, with the plan's layout hint (the path ``moe_sparse`` takes) and
 without it (the flat path); each result is held with ``torch.equal`` to
-the plain version. Device time of one call: 50 calls queued behind a
-sleep kernel, CUDA events around them. ``index_select`` on x with a
-zero row appended and ``zero_`` of the output (the least a kernel that
-writes it takes) are timed the same way. Prints the nvcc register and
-spill lines of each variant, the card's name and power limit, one JSON
-row a plan, then one JSON object. Exits non-zero without a card.
+the plain version, and the path the entry reports is recorded. Device
+time of one call: 50 calls queued behind a sleep kernel, CUDA events
+around them. ``index_select`` on x with a zero row appended and
+``zero_`` of the output (the least a kernel that writes it takes) are
+timed the same way. Prints the nvcc register and spill lines of each
+variant, the card's name and power limit, one JSON row a plan (with x's
+share of the card's L2), then one JSON object. Exits non-zero without a
+card.
 """
 from __future__ import annotations
 
@@ -46,8 +44,8 @@ from pathlib import Path
 
 SEED = 0
 SOURCE = "moe_dispatch.cu"
-KNOBS = ("MOE_THREADS", "MOE_VECS", "MOE_WINDOW_THREADS", "MOE_WINDOW", "MOE_CHUNK",
-         "MOE_SEARCH_LANES", "MOE_X_L2_PCT")
+KNOBS = ("MOE_THREADS", "MOE_VECS", "MOE_WINDOW", "MOE_X_L2_PCT")
+PATHS = (None, "elementwise", "flat", "window")
 PROMPT_LENS = (17, 64, 200, 511)
 
 
@@ -76,7 +74,7 @@ def build_variants(_build, variants):
         fn = getattr(ctypes.CDLL(str(lib)), "moe_dispatch_gather")
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
                                                 ctypes.c_longlong] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         fns[variant] = fn
     return fns, log
@@ -115,7 +113,8 @@ def plans(torch, dev, gen):
     x = torch.randn((b * t_pre, ds.d_model), generator=gen, device=dev).to(torch.bfloat16)
     out.append(("deepseek left-padded prefill bf16", x, tok, c, e))
     mx = get_config("mixtral-8x22b")
-    for label, t in (("decode", 1), ("prefill", 4000), ("prefill", 1000), ("prefill", 2000)):
+    for label, t in (("decode", 1), ("prefill", 4000), ("prefill", 250), ("prefill", 500),
+                     ("prefill", 750), ("prefill", 1000), ("prefill", 2000)):
         x = torch.randn((2 * t, mx.d_model), generator=gen, device=dev).to(torch.bfloat16)
         tok, c = plan(mx, 2, t)
         size = f" {t}" if t not in (1, 4000) else ""
@@ -127,10 +126,9 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--variants", default="128/2/128/4/384/16/50,256/2/128/4/384/16/50,"
-                        "128/4/128/4/384/16/50,128/1/128/4/384/16/50,128/2/256/4/384/32/50,"
-                        "128/2/128/2/768/16/50,128/2/128/8/384/16/50,128/2/128/4/384/4/50,"
-                        "128/2/128/4/384/16/0")
+    parser.add_argument("--variants", default="128/2/4/40,256/2/4/40,128/4/4/40,128/1/4/40,"
+                        "128/2/2/40,128/2/8/40,128/2/4/0,128/2/4/20,128/2/4/30,128/2/4/45,"
+                        "128/2/4/50")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("moe_dispatch_sweep: no CUDA device", file=sys.stderr)
@@ -162,14 +160,18 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    path = ctypes.c_int(0)
+
     def call(fn, x, tok, group, experts, tag):
         out = torch.empty((tok.shape[0], x.shape[1]), dtype=x.dtype, device=dev)
         err = fn(x.data_ptr(), tok.data_ptr(), out.data_ptr(), x.shape[0], tok.shape[0],
                  x.shape[1], x.element_size(), group, experts, dev.index or 0,
-                 torch.cuda.current_stream().cuda_stream)
+                 torch.cuda.current_stream().cuda_stream, ctypes.byref(path))
         if err:
             raise RuntimeError(f"{tag}: launch failed with cudaError_t {err}")
         return out
+
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", None)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     names = ["/".join(map(str, v)) for v in variants]
@@ -182,6 +184,7 @@ def main() -> int:
         row = {"plan": label, "T": x.shape[0], "S": tok.shape[0], "D": x.shape[1],
                "group": c, "experts": e, "n_valid": int(valid.numel()),
                "rows_read": int(valid.unique().numel()),
+               "x_l2_share": x.numel() * x.element_size() / l2 if l2 else None,
                "index_select_ms": device_ms(lambda: x_ext.index_select(0, tok_lib)),
                "zero_ms": device_ms(lambda: want.zero_())}
         want = ref.moe_dispatch_gather_ref(x, tok)
@@ -191,12 +194,14 @@ def main() -> int:
                 torch.cuda.synchronize()
                 if not torch.equal(y, want):
                     raise RuntimeError(f"{label} {name} {hint}: differs from the plain version")
+                row[f"{name} {hint}_path"] = PATHS[path.value]
                 row[f"{name} {hint}_ms"] = device_ms(lambda: call(fn, x, tok, g, ex, ""))
         out["rows"].append(row)
         print(json.dumps(row))
         del x, tok, want, x_ext, tok_lib
         torch.cuda.empty_cache()
     out["device"] = torch.cuda.get_device_name(0)
+    out["l2_bytes"] = l2
     out["nvidia_smi"] = smi.splitlines()[0]
     # per variant: the worst ratio to index_select over the plans, hinted
     out["worst_hinted_over_index_select"] = {
