@@ -281,6 +281,7 @@ SERVE_QUERIES = 256            # traversals per tenant
 SERVE_THREAD_QUERIES = 128     # per tenant in the threaded run
 SERVE_SAMPLE = 32              # cit-HP sources per algorithm held to bsr and scipy
 SERVE_LOADS = (0.5, 1.0, 2.0)  # offered load, × capacity
+SERVE_OPEN_REPEATS = 4         # the open loop's stream: the workload this many times
 HUBERT_FRAMES = 1500           # phase 18: frames per request, 512 wide
 MIXTRAL_LAYERS = 14            # of 56, 5.01 GB each in bf16: what one card holds
 MIXTRAL_FREE_BYTES = 6e9       # left free when fewer fit
@@ -2021,11 +2022,12 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
     One AsyncGraphServer on a FakeClock hosts cit-HP and r-TX (batch 32,
     the JAX defaults otherwise: csr/csc engines, max_iters 64, pipeline
     depth 2, strategy "auto"). Open loop as ``benchmarks/slo_openloop.py``
-    runs it: the deep-backlog capacity, then Poisson arrivals at each of
-    ``loads`` × capacity, each flush consuming simulated time equal to its
-    wall. Then the whole-graph kinds with the cache on, a mutate of cit-HP,
-    one traced window against the same window untraced, and a threaded run
-    on the system clock. ``oracles`` holds phase 10's cit-HP answers (cc,
+    runs it: the deep-backlog capacity, then Poisson arrivals of the
+    workload, repeated ``SERVE_OPEN_REPEATS`` times, at each of ``loads`` ×
+    capacity, each flush consuming simulated time equal to its wall, every
+    query due two mixed windows after its arrival. Then the whole-graph
+    kinds with the cache on, a mutate of cit-HP, one traced window against
+    the same window untraced, and a threaded run on the system clock. ``oracles`` holds phase 10's cit-HP answers (cc,
     kcore, triangles, pagerank). Every served traversal is held to the
     port's single-source run on the same engine; on cit-HP a sample is also
     held to the bsr engines' batched runs and the scipy oracles. Returns
@@ -2244,10 +2246,14 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
           f"({time.perf_counter() - t0:.1f} s; block launches {json.dumps(block_tally)})")
 
     # ---------------------------------------------------------------- open loop
-    budget = {name: 4 * bucket_wall[name] for name in graphs}   # 4 median bucket walls
+    # A query at light load waits for at most the window in flight and
+    # then its own: the budget is two mixed windows. Each load's stream is
+    # the workload repeated (every answer stays held to the single-source
+    # runs), long enough that at 2x the backlog outgrows the budget.
+    budget = {name: 2 * window_wall[name] for name in graphs}
     curves = {}
     for name in graphs:
-        queries = work[name]
+        queries = work[name] * SERVE_OPEN_REPEATS
         gaps = np.random.default_rng(SEED).exponential(1.0, len(queries))
         curves[name] = {}
         for mult in loads:
@@ -2287,7 +2293,8 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
             mean_b = (h1["mean"] * h1["count"] - h0.get("mean", 0.0) * h0.get("count", 0)) / n_b
             csum = {a: serve_checksum(tk.result[field[a]] for tk in tickets if tk.algorithm == a)
                     for a in ("bfs", "sssp")}
-            row = {"phase": 17, "tenant": name, "load_x": mult, "offered_qps": rate,
+            row = {"phase": 17, "tenant": name, "load_x": mult, "queries": len(tickets),
+                   "offered_qps": rate,
                    "achieved_qps": len(tickets) / (max(tk.resolved_at for tk in tickets)
                                                    - arrivals[0]),
                    "p50_ms": percentile_exact(lat, 0.5) * 1e3,
@@ -2298,13 +2305,11 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
                    "buckets": n_b, "bucket_s_mean": mean_b, "checksums": csum}
             curves[name][mult] = row
             print(json.dumps(row))
-        # 256 queries make 3-8 windows, so the rate moves a window at a
-        # time: the highest load misses no fewer than the lowest, and each
-        # step up in load loses at most 0.1 (benchmarks/slo_openloop.py's
-        # slack)
+        # the highest load misses more than the lowest, and each step up in
+        # load loses at most 0.1 (benchmarks/slo_openloop.py's slack)
         rates = [curves[name][m]["miss_rate"] for m in loads]
-        check(rates[-1] >= rates[0] and all(a <= b + 0.1 for a, b in zip(rates, rates[1:])),
-              f"{name}: the miss rate falls as the load rises: {rates}")
+        check(rates[-1] > rates[0] and all(a <= b + 0.1 for a, b in zip(rates, rates[1:])),
+              f"{name}: the miss rate does not rise with the load: {rates}")
         sums = {json.dumps(curves[name][m]["checksums"]) for m in loads}
         check(len(sums) == 1, f"{name}: bfs/sssp checksums differ across loads: {sums}")
 
