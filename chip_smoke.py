@@ -2027,11 +2027,12 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
     capacity, each flush consuming simulated time equal to its wall, every
     query due two mixed windows after its arrival. Then the whole-graph
     kinds with the cache on, a mutate of cit-HP, one traced window against
-    the same window untraced, and a threaded run on the system clock. ``oracles`` holds phase 10's cit-HP answers (cc,
-    kcore, triangles, pagerank). Every served traversal is held to the
-    port's single-source run on the same engine; on cit-HP a sample is also
-    held to the bsr engines' batched runs and the scipy oracles. Returns
-    the block kernels' launches in those batched runs."""
+    the same window untraced, and a threaded run on the system clock.
+    ``oracles`` holds phase 10's cit-HP answers (cc, kcore, triangles,
+    pagerank). Every served traversal is held to the port's single-source
+    run on the same engine; on cit-HP a sample is also held to the bsr
+    engines' batched runs and the scipy oracles. Returns the block
+    kernels' launches in those batched runs."""
     import threading
 
     import numpy as np
