@@ -262,10 +262,13 @@ from pathlib import Path
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
-# H100 SXM int32 on the CUDA cores: 64 INT32 lanes per SM per clock
-# (Hopper architecture white paper) × 132 SMs × 1.98 GHz
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# H100 SXM int32 on the CUDA cores: an SM issues at most 128 integer
+# operations per clock, its 64 INT32 lanes beside FP32 lanes that run
+# integer adds as IMAD (Hopper architecture white paper), × 132 SMs × 1.98
+# GHz; kernel 6's ⟨+,∧⟩ fold, a min and an add a pair, runs above 64
+INT32_OPS_PER_S = 128 * 132 * 1.98e9
 INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 DENSITIES = (0.001, 0.05, 0.6)
 RTX_MAX_ITERS = 256
 PROMPT_LENS = (17, 64, 200, 511)
@@ -2509,7 +2512,7 @@ def main() -> int:
     )
     from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
     from repro_torch.core.spgemm import spgemm_masked
-    from repro_torch.kernels import spgemm_binary
+    from repro_torch.kernels import spgemm_binary, spgemm_tiles
     from repro_torch.kernels.spgemm_binary import semiring_spgemm_binary
     from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
     from repro_torch.models.zoo import get_config
@@ -2942,16 +2945,39 @@ def main() -> int:
     def spgemm_bounds(a, bp, mk, meta, sr) -> dict:
         """Bounds of one masked tile SpGEMM from ``ops.spgemm_stream_stats``:
         the work the function needs, the real slots of each active output
-        tile (pads fold to nothing) and the bytes of those slots, B's met
-        blocks, the mask and the output, each moved once; kernel 6's at
-        the int32 or fp32 rate of the CUDA cores, the variant's at the int8
-        tensor-core rate."""
+        tile (a pad slot adds one precomputed row) and the bytes of those
+        slots, B's met blocks, the mask and the output, each moved once;
+        kernel 6's at the int32 or fp32 rate of the CUDA cores (``fp32``),
+        and for ⟨+,×⟩, which it runs on the tensor cores, also as three
+        TF32 products per MAC at the TF32 rate (``tf32``): its bound is the
+        lesser; the variant's at the int8 tensor-core rate."""
         st = ops.spgemm_stream_stats(a, meta, bp, mk)
         rate = INT32_OPS_PER_S if sr.dtype == torch.int32 else FP32_OPS_PER_S
-        return {"semiring_spgemm_padded": bound(st["real_bytes"], 2 * st["real_macs"], rate),
-                "semiring_spgemm_binary": bound(st["real_bytes"], 2 * st["real_macs"],
-                                                INT8_OPS_PER_S),
-                "stats": st}
+        cuda_cores = bound(st["real_bytes"], 2 * st["real_macs"], rate)
+        out = {"semiring_spgemm_padded": cuda_cores, "fp32": cuda_cores,
+               "semiring_spgemm_binary": bound(st["real_bytes"], 2 * st["real_macs"],
+                                               INT8_OPS_PER_S),
+               "stats": st}
+        if sr.name == "plus_times":
+            out["tf32"] = bound(st["real_bytes"], 6 * st["real_macs"], TF32_OPS_PER_S)
+            out["semiring_spgemm_padded"] = min(cuda_cores, out["tf32"])
+        return out
+
+    def kernel6_paths(a, meta, bp, mk, sr, bn, what: str):
+        """Kernel 6 with its path counts set to 0 first: the output and
+        {path: (tile, slot) pairs} it reported. Fails unless it folded each
+        active tile's real slots once (on the tensor cores or the CUDA
+        cores) and one pad row per pad slot."""
+        semiring_spgemm_padded.paths = dict.fromkeys(spgemm_tiles.PATHS, 0)
+        y = semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr, bn=bn)
+        paths = {k: int(v) for k, v in semiring_spgemm_padded.paths.items()}
+        t = a.tiles.shape[1]
+        act = (meta[:, t:] > 0).sum(dim=1)
+        real = int((ref.ell_n_real(meta[:, :t]).long() * act).sum())
+        check(paths["tensor"] + paths["cuda"] == real and paths["pad"] == int(act.sum()) * t - real,
+              f"{what}: kernel 6 reported {paths}, not {real} real and "
+              f"{int(act.sum()) * t - real} pad pairs")
+        return y, paths
 
     def spgemm_domain(sr, n: int, gen):
         """A's values, a dense B [n, n] and a mask [n, n] of density 0.4 in
@@ -2990,18 +3016,52 @@ def main() -> int:
 
         lib_diff = compare(lib().to_dense(), y[:n, :n].contiguous(), sr,
                            "kernel 6 ca-Q plus_times: torch.sparse.sampled_addmm")
-        bound_ms, bound_by = spgemm_bounds(a, bp, mk, meta, sr)["semiring_spgemm_padded"]
+        bounds = spgemm_bounds(a, bp, mk, meta, sr)
+        bound_ms, bound_by = bounds["semiring_spgemm_padded"]
+        # the launch alone on the groups made once, on the tensor cores and
+        # forced onto the CUDA cores, each held to the plain version
+        t = a.tiles.shape[1]
+        active, groups = spgemm_tiles.group_tiles(meta, t, spgemm_tiles.group_size(bn))
+        out = torch.full_like(mk, sr.zero)
+
+        def launch_only(on_tensor_cores):
+            return lambda: spgemm_tiles._launch(a.tiles, meta, bp, mk, out, active, groups, sr,
+                                                on_tensor_cores)
+
+        for tc in (True, False):
+            launch_only(tc)()
+            compare(out, y, sr, f"kernel 6 ca-Q plus_times launch, tensor cores {tc}")
         row = {"kernel": "semiring_spgemm_padded", "semiring": sr.name, "graph": "ca-Q",
                "tiles": list(a.tiles.shape), "mask_nnz": mask_csr.values().numel(),
                "ms": time_ms(lambda: semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr,
                                                             bn=bn)),
+               "launch_tensor_core_ms": time_ms(launch_only(True)),
+               "launch_cuda_core_ms": time_ms(launch_only(False)),
+               "group_ms": time_ms(lambda: spgemm_tiles.group_tiles(
+                   meta, t, spgemm_tiles.group_size(bn))),
                "plain_ms": time_ms(lambda: ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn),
                                    reps=3),
                "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_fp32_ms": bounds["fp32"][0], "bound_tf32_ms": bounds["tf32"][0],
                "library_ms": time_ms(lib), "library": "torch.sparse.sampled_addmm",
                "library_max_abs_diff": lib_diff}
         print(json.dumps(row))
-        del a_dense, mask_csr
+        del a_dense, mask_csr, out
+        return row
+
+    def kernel6_row(a, bp, mk, meta, bn, sr, label: str) -> dict:
+        """Kernel 6 on ca-Q 64×64 operands of a semiring no library call
+        computes: its time, its plain version's, its bound."""
+        bound_ms, bound_by = spgemm_bounds(a, bp, mk, meta, sr)["semiring_spgemm_padded"]
+        row = {"kernel": "semiring_spgemm_padded", "semiring": sr.name, "graph": "ca-Q",
+               "case": label, "tiles": list(a.tiles.shape),
+               "ms": time_ms(lambda: semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr,
+                                                            bn=bn)),
+               "plain_ms": time_ms(lambda: ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn),
+                                   reps=3),
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        row["share_of_bound"] = bound_ms / row["ms"]
+        print(json.dumps(row))
         return row
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3009,6 +3069,7 @@ def main() -> int:
         worst[k.__name__] = 0.0
     tally = {k.__name__: 0 for k in all_kernels}
     spgemm_rows = {}
+    paths6 = {}
     for name, sr in SEMIRINGS.items():
         vals, b, mask = spgemm_domain(sr, caq.n, gen)
         for block in ((16, 16), (64, 64), (128, 128)):
@@ -3046,12 +3107,19 @@ def main() -> int:
                 moved = {k.__name__: k.launches for k in spgemm_kernels}
                 check(moved == want, f"{what}: the front door launched {moved}, not {want}")
                 bp, mk, meta, bn, n = ops._spgemm_operands(a, bb, sr, mm)
-                y = semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr, bn=bn)
+                y, paths = kernel6_paths(a, meta, bp, mk, sr, bn, what)
                 y_plain = ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn)
                 err = compare(y, y_plain, sr, what, nan=label == "pad-nan")
                 worst["semiring_spgemm_padded"] = max(worst["semiring_spgemm_padded"], err)
                 if label == "pad-nan":
                     check(bool(torch.isnan(y).any()), f"{what}: no NaN")
+                if name == "plus_times":
+                    # finite operands fold on the tensor cores; the pairs that
+                    # meet the inf row of pad-nan fold on the CUDA cores
+                    check(paths["tensor"] > 0, f"{what}: no pair on the tensor cores {paths}")
+                    check((paths["cuda"] > 0) == (label == "pad-nan"),
+                          f"{what}: pairs on the CUDA cores {paths}")
+                    paths6[f"{block[0]}-{label}"] = paths
                 if binary:
                     yb = semiring_spgemm_binary(a.tiles, meta, bp, mk, sr=sr, bn=bn)
                     yb_plain = ref.spgemm_binary_ref(a.tiles, meta, bp, mk, sr, bn)
@@ -3065,6 +3133,10 @@ def main() -> int:
                 if name == "plus_times" and block == (64, 64) and label == "masked":
                     spgemm_rows["plus_times"] = kernel6_library_row(a, bp, mk, meta, bn, sr,
                                                                     vals, b, mask, y)
+                if block == (64, 64) and (name, label) in (("min_plus", "masked"),
+                                                           ("min_times", "masked"),
+                                                           ("plus_and", "b-0..8")):
+                    spgemm_rows[name] = kernel6_row(a, bp, mk, meta, bn, sr, label)
                 if name == "plus_and" and block == (64, 64) and label == "masked":
                     bounds = spgemm_bounds(a, bp, mk, meta, sr)
                     for k, plain in ((semiring_spgemm_padded, ref.spgemm_padded_ref),
@@ -3087,6 +3159,7 @@ def main() -> int:
               "every output matches the plain versions")
         del b, mask
         torch.cuda.empty_cache()
+    print(f"phase 9: kernel 6's ⟨+,×⟩ pairs by path {json.dumps(paths6)}")
     print(f"phase 9: launches through the front door {json.dumps(tally)}")
     for k in spgemm_kernels:
         check(tally[k.__name__] > 0, f"{k.__name__} was not launched in phase 9")

@@ -2,48 +2,109 @@
 //
 // Replaces the TPU kernel repro/kernels/spgemm_tiles.py:
 // semiring_spgemm_padded (body _kernel). Like it, every output tile (i, j)
-// whose mask tile is non-empty ⊕-folds ALL T slots of block row i in slot
-// order, pads included (a pad is a ⊕-identity tile aliasing tile-column 0,
-// but 0 · inf = NaN under ⟨+,×⟩ and inf · 0 under ⟨min,×⟩, so skipping
-// pads is a different function), then keeps the result where
-// mask != ⊕-identity. Output tiles with an empty mask tile are the
-// ⊕-identity and are not computed.
+// whose mask tile is non-empty ⊕-folds all T slots of block row i in slot
+// order, pads included, then keeps the result where mask != ⊕-identity;
+// output tiles with an empty mask tile are the ⊕-identity and are not
+// computed.
 //
-// Layout (as the TPU kernel's):
-//   tiles   T_val [mb, T, bm, bk]   A's ELL-of-tiles
-//   meta    int32 [mb, T + nb]      meta[i, :T] = tile-columns,
-//                                   meta[i, T + j] = 1 iff mask tile (i, j) is non-empty
+// Layout:
+//   tiles   T_val [mb, T, bm, bk]   A's ELL-of-tiles: real tiles first in
+//                                   increasing tile-column order, then pads
+//                                   (⊕-identity tiles at tile-column 0)
+//   meta    int32 [mb, T + nb]      meta[i, :T] = tile-columns (the
+//                                   mask-tile flags are read by the wrapper)
+//   n_real  int32 [mb]              real slots of each block row (a row
+//                                   with no real tile has 1, a pad)
 //   b       T_val [kb·bk, nb·bn]    dense right operand
 //   mask    T_val [mb·bm, nb·bn]    structural mask
+//   pad_row T_val [nb·bn]           P[c] = ⊕_{k<bk} (zero ⊗ b[k, c]): what
+//                                   one pad slot adds to output column c
+//   a_fin   int32 [mb, T]           1 iff A tile (i, t) is all finite
+//   b_fin   int32 [kb, nb]          1 iff B block (k, j) is all finite (the
+//                                   two flags are read on the tensor-core
+//                                   path only)
 //   active  int32 [n_active, 2]     (i, j) of every output tile whose mask
-//                                   flag is set, compacted by the wrapper
+//                                   tile is non-empty, block-row-major
+//   groups  int32 [n_groups, 2]     (first, count): active[first : first +
+//                                   count] are up to G tiles of one block
+//                                   row, ordered by their first tile-column
 //   out     T_val [mb·bm, nb·bn]    filled with the ⊕-identity by the
 //                                   wrapper; the kernel writes the active tiles
+//   counts  uint64 [3]              (tile, slot) pairs folded on the tensor
+//                                   cores, on the CUDA cores, and as the pad
+//                                   row; the kernel adds to them
 // Square output tiles, bn = bm ≤ 128, and bk ≤ 128.
 //
-// Design: the TPU grid (mb, nb, T) carries each output tile in VMEM across
-// its T steps. Here one block of 256 threads owns one active output tile
-// and keeps it in registers: a 16 × 16 thread grid, each thread RPT × RPT
-// outputs strided by 16 (RPT = 1, 2, 4, 8 for tiles up to 16, 32, 64, 128),
-// so a warp's B reads are 16 consecutive words and its A reads two
-// broadcasts. Per slot, the A tile and the B block are staged through
-// shared memory 32 k-columns at a time (33 KB at 128 × 128), and every
-// thread ⊕-folds a ⊗ b into its accumulators in slot order, k order. No
-// atomics, nothing shared between blocks. ⟨+,×⟩ is fp32 FMA on the CUDA
-// cores (nvcc contracts the ⊗ and the ⊕), no TF32. The grid covers only
-// the active tiles (72,388 of 291,600 for cit-HP's triangle count at
-// 64 × 64).
+// Design. Every pad slot is the same ⊕-identity tile under tile-column 0,
+// so what it adds to output column c is one value, P[c], whatever the row.
+// A block of 8 warps owns a group of G output tiles of one block row
+// (G = 16, 8, 4, 1 for bm up to 16, 32, 64, 128: kCols = 256 output
+// columns, 128 at 128) and folds only the row's n_real real slots,
+// densely; then it folds P[c] once per pad slot (for min and max, where ⊕
+// is idempotent, once) and applies the mask. That is the TPU kernel's function exactly:
+// pads come after the real slots in slot order, and their contribution is
+// P. Each A tile staged serves G output tiles. Groups are ordered by
+// tile-column, so blocks running together read the same column strips of
+// B from L2.
 //
-// Bound on the card: operations. cit-HP's triangle count folds
-// 72,388 × 386 slots × 64³ ⊗/⊕ pairs (1.46e13 int32 operations) against
-// 17.8 GB of operands and output; bytes take ~5 ms at 3.35 TB/s, the int32
-// operations ~0.9 s at 64 lanes per SM per clock.
+// The real slots stream through a ring of stages in shared memory, each
+// kKC k-columns of one slot: the A tile's rows (k contiguous, row stride
+// kKC + 4) and the group's B rows (G blocks side by side, row stride N +
+// 8), copied by 16-byte cp.async (4-byte where bm or bk is not a multiple
+// of 4 or an operand is not 16-byte aligned) one or two steps ahead, with
+// one barrier per step. Pads inside a stage (k past bk, rows past bm,
+// columns past bn, tiles past the group) hold the ⊕-identity, written
+// once; zero ⊗ zero ⊕ x = x in every semiring, and they are not stored.
 //
-// Left for later: pads are folded although pad ⊗ b is the ⊕-identity for
-// the 0/1 operands of a triangle count; ⟨+,×⟩ and 0/1 operands could run
-// on the tensor cores; the staging is not double-buffered.
+// Two folds over a stage:
+// * CUDA cores, every semiring (3 stages, one block an SM): each thread
+//   owns TM rows (4 apart) × 8 columns (two 4-wide runs 32 apart) of the
+//   group's output in registers; a warp is 4 row lanes × 8 column lanes.
+//   Per 4 k it loads TM 16-byte words of A (one per row, k contiguous) and
+//   8 of B, for 32·TM ⊕/⊗ pairs. The min semirings fold with min.NaN (one
+//   instruction; NaN wins, as min_nan). Integer and min semirings are
+//   exact in any order.
+// * Tensor cores, ⟨+,×⟩ f32 with bm and bk multiples of 16 (2 stages, two
+//   blocks an SM, so that one block's copies and barrier overlap the
+//   other's products): mma.sync m16n8k8 in TF32, three products a step
+//   (3×TF32). Each operand is split into its TF32 rounding and the TF32
+//   rounding of the rest, and lo·hi + hi·lo + hi·hi is accumulated in
+//   fp32, which keeps about fp32's precision (one TF32 product keeps 3
+//   digits). Integers below 2¹¹ have no rest, so integer-valued products
+//   and sums below 2²⁴ stay exact. The split of inf or NaN is NaN, so a
+//   (slot, B block) pair with a non-finite A tile or B block folds its
+//   8-column fragments in fp32 on the CUDA cores instead, into the same
+//   accumulators; the wrapper's all-finite flags decide per pair.
+//
+// Bound on the card: operations. ca-Q ⟨+,×⟩ at 64 × 64 needs 1.04e11 MACs
+// over the real slots: 3.1 ms in fp32 on the CUDA cores, 1.26 ms as three
+// TF32 products on the tensor cores. Besides, the B block of every
+// (output tile, real slot) pair and each group's row of A tiles cross L2
+// into shared memory, 8.2 GB there. On an H100 SXM (700 W) the launch
+// takes ~6.1 ms on the tensor cores and ~6.7 ms on the CUDA cores
+// (tools/spgemm_tiles_sweep.py): the copies overlap the products only in
+// part. The compile-time constants below are that tool's best.
+
+#include <cstdint>
+#include <type_traits>
 
 #include "tile_fold.cuh"
+
+#ifndef SPGEMM_KC
+#define SPGEMM_KC 32
+#endif
+#ifndef SPGEMM_STAGES
+#define SPGEMM_STAGES 3
+#endif
+#ifndef SPGEMM_TC_STAGES
+#define SPGEMM_TC_STAGES 2
+#endif
+#ifndef SPGEMM_COLS
+#define SPGEMM_COLS 256
+#endif
+#ifndef SPGEMM_TC_BLOCKS
+#define SPGEMM_TC_BLOCKS 2
+#endif
 
 namespace spgemm {
 
@@ -54,137 +115,593 @@ using tilefold::kPlusAnd;
 using tilefold::kPlusTimes;
 using tilefold::Ops;
 
-constexpr int kThreads = 256;  // a kSide × kSide thread grid over the output tile
-constexpr int kSide = 16;
-constexpr int kChunk = 32;     // k-columns of A (rows of B) staged per step
+constexpr int kThreads = 256;           // 8 warps
+constexpr int kTcBlocks = SPGEMM_TC_BLOCKS;  // blocks an SM holds on the tensor-core path
+constexpr int kKC = SPGEMM_KC;         // k-columns of one ring stage
+constexpr int kCcStages = SPGEMM_STAGES;     // ring depth on the CUDA-core path
+constexpr int kTcStages = SPGEMM_TC_STAGES;  // ... and on the tensor-core path
+constexpr int kCols = SPGEMM_COLS;      // output columns of a group (at most)
 constexpr int kMaxBlock = 128;
+constexpr int kColCache = 512;         // tile-columns of a row kept in shared memory
+constexpr int kPadA = 4;               // words after each shared A row
+constexpr int kPadB = 8;               // words after each shared B row
+constexpr int kShortK = 16;            // k folded of a stage where bk ≤ 16
+static_assert(kKC % 8 == 0 && kKC >= kShortK && kKC <= kMaxBlock, "stage depth");
+static_assert(kCcStages >= 2 && kTcStages >= 2, "ring depth");
+static_assert(kCols == 128 || kCols == 256, "group width");
 
-template <int SR, int RPT>
-__global__ void __launch_bounds__(kThreads)
-spgemm_tile_kernel(const typename Ops<SR>::T* __restrict__ tiles,
-                   const int* __restrict__ meta,
-                   const typename Ops<SR>::T* __restrict__ b,
-                   const typename Ops<SR>::T* __restrict__ mask,
-                   const int* __restrict__ active,
-                   typename Ops<SR>::T* __restrict__ out,
-                   int t_slots, int nb, int bm, int bk) {
+__host__ __device__ constexpr int round_block(int bm) {
+  return bm <= 16 ? 16 : (bm <= 32 ? 32 : (bm <= 64 ? 64 : 128));
+}
+
+// Output tiles per group for a block of bm rows; the wrapper passes its own
+// count, which must agree.
+__host__ __device__ constexpr int group_size(int bm) {
+  return round_block(bm) == 128 ? 1 : kCols / round_block(bm);
+}
+
+// BM is bm rounded up to 16, 32, 64 or 128.
+template <int BM>
+struct Shape {
+  static constexpr int G = group_size(BM);
+  static constexpr int N = G * BM;           // output columns of a group
+  static constexpr int LDA = kKC + kPadA;    // 4 banks apart row to row
+  static constexpr int LDB = N + kPadB;      // 8 banks apart row to row
+  static constexpr int kStageElems = BM * LDA + kKC * LDB;
+  // CUDA-core fold: 8 columns and TM rows a thread; warps WM × WN, each
+  // 4·TM rows × 64 columns
+  static constexpr int TM = BM * N / (kThreads * 8);
+  static constexpr int WM = BM / (4 * TM);
+  static constexpr int WN = N / 64;
+  static_assert(TM >= 1 && WM * WN == kThreads / 32, "CUDA-core warp tiling");
+  // tensor cores: warps WMT × WNT, each MF m16 × NF n8 fragments
+  static constexpr int WMT = BM == 16 ? 1 : (BM == 128 ? 4 : 2);
+  static constexpr int WNT = (kThreads / 32) / WMT;
+  static constexpr int MF = BM / (16 * WMT);
+  static constexpr int NF = N / (8 * WNT);
+  static_assert(MF >= 1 && NF >= 1, "tensor-core warp tiling");
+};
+
+template <typename T> struct V4;
+template <> struct V4<float> { using type = float4; };
+template <> struct V4<int> { using type = int4; };
+
+template <typename V>
+__device__ __forceinline__ auto lane(const V& v, int q) -> decltype(v.x) {
+  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// min that is NaN when either side is NaN, in one instruction (min_nan
+// of tile_fold.cuh compares and selects; the two differ only in which
+// zero of two signs they keep and in the NaN's payload).
+__device__ __forceinline__ float min_nan_hw(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// p ⊕ (a ⊗ x) of the CUDA-core fold.
+template <int SR>
+__device__ __forceinline__ typename Ops<SR>::T fold(typename Ops<SR>::T p, typename Ops<SR>::T a,
+                                                    typename Ops<SR>::T x) {
+  if constexpr (SR == kMinPlus) {
+    return min_nan_hw(p, a + x);
+  } else if constexpr (SR == kMinTimes) {
+    return min_nan_hw(p, a * x);
+  } else {
+    return Ops<SR>::fma(p, a, x);
+  }
+}
+
+// acc ⊕ P folded npad times: once where ⊕ is idempotent (min, max), as a
+// wrapping product for the int32 sum, one by one for the f32 sum.
+template <int SR>
+__device__ __forceinline__ typename Ops<SR>::T pad_fold(typename Ops<SR>::T acc,
+                                                        typename Ops<SR>::T p, int npad) {
+  if (npad <= 0) return acc;
+  if constexpr (SR == kPlusAnd) {
+    return static_cast<int>(static_cast<unsigned>(acc) +
+                            static_cast<unsigned>(npad) * static_cast<unsigned>(p));
+  } else if constexpr (SR == kPlusTimes) {
+    for (int q = 0; q < npad; ++q) acc += p;
+    return acc;
+  } else {
+    return Ops<SR>::add(acc, p);
+  }
+}
+
+// x rounded to TF32, 10 mantissa bits, to nearest with ties away from zero
+// (cvt.rna.tf32.f32 on the bits of a finite x, in two integer operations).
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, each a TF32 value.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a · b over one 16 × 8 × 8 step: a 16 rows × 8 k (row-major), b 8 k
+// × 8 columns (column-major), TF32 in, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <typename T>
+struct Args {
+  const T* tiles;
+  const int* meta;
+  const int* n_real;
+  const T* b;
+  const T* mask;
+  const T* pad_row;
+  const int* a_fin;
+  const int* b_fin;
+  const int* active;
+  const int* groups;
+  T* out;
+  unsigned long long* counts;
+  int t_slots, nb, bm, bk;
+  int vec;  // 16-byte copies and vector epilogue
+};
+
+template <int SR, int BM, bool TC>
+__global__ void __launch_bounds__(kThreads, TC ? kTcBlocks : 1)
+spgemm_group_kernel(const Args<typename Ops<SR>::T> p) {
   using O = Ops<SR>;
   using T = typename O::T;
-  constexpr int kTile = kSide * RPT;
-  __shared__ T as[kTile][kChunk + 1];  // A rows × k chunk (+1: no bank conflicts)
-  __shared__ T bs[kChunk][kTile];      // k chunk × output columns
+  using V = typename V4<T>::type;
+  using S = Shape<BM>;
+  constexpr int kStages = TC ? kTcStages : kCcStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  __shared__ int tile_j[S::G];
+  __shared__ int cols_s[kColCache];
+  __shared__ int ok_s[kStages][1 + S::G];  // per stage: A tile finite, B block g finite
 
-  const int i = active[2 * static_cast<size_t>(blockIdx.x)];
-  const int j = active[2 * static_cast<size_t>(blockIdx.x) + 1];
-  const int bn = bm;
-  const int tx = threadIdx.x % kSide;
-  const int ty = threadIdx.x / kSide;
-  // b, mask and out are n_pad² elements, past 2^31 above n ≈ 46k: every
-  // offset is size_t.
-  const size_t ld = static_cast<size_t>(nb) * bn;
+  const int tid = threadIdx.x;
+  const int first = p.groups[2 * static_cast<size_t>(blockIdx.x)];
+  const int count = p.groups[2 * static_cast<size_t>(blockIdx.x) + 1];
+  const int i = p.active[2 * static_cast<size_t>(first)];
+  const int bm = p.bm, bk = p.bk, bn = bm;
+  const int n_real = p.n_real[i];
+  const int npad = p.t_slots - n_real;
+  const int cps = (bk + kKC - 1) / kKC;  // ring steps per slot
+  const int steps = n_real * cps;
+  const bool short_k = bk <= kShortK;  // one stage a slot, its k past kShortK never written
+  // b, mask and out are n_pad² elements, past 2³¹ above n ≈ 46k: every
+  // offset into them is size_t.
+  const size_t ld = static_cast<size_t>(p.nb) * bn;
   const size_t tile_elems = static_cast<size_t>(bm) * bk;
-  const int* cols = meta + static_cast<size_t>(i) * (t_slots + nb);
-  const T* row_tiles = tiles + static_cast<size_t>(i) * t_slots * tile_elems;
-  const T* b_cols = b + static_cast<size_t>(j) * bn;
+  const int* cols = p.meta + static_cast<size_t>(i) * (p.t_slots + p.nb);
+  const T* a_row = p.tiles + static_cast<size_t>(i) * p.t_slots * tile_elems;
 
-  T acc[RPT][RPT];
-#pragma unroll
-  for (int u = 0; u < RPT; ++u) {
-#pragma unroll
-    for (int v = 0; v < RPT; ++v) acc[u][v] = O::zero();
-  }
+  for (int e = tid; e < kStages * S::kStageElems; e += kThreads) smem[e] = O::zero();
+  if (tid < count) tile_j[tid] = p.active[2 * (static_cast<size_t>(first) + tid) + 1];
+  for (int t = tid; t < min(n_real, kColCache); t += kThreads) cols_s[t] = cols[t];
+  __syncthreads();
 
-  for (int t = 0; t < t_slots; ++t) {
-    const T* a = row_tiles + static_cast<size_t>(t) * tile_elems;
-    const T* bb = b_cols + static_cast<size_t>(cols[t]) * bk * ld;
-    for (int k0 = 0; k0 < bk; k0 += kChunk) {
-      const int kc = min(kChunk, bk - k0);
-      __syncthreads();  // every thread is done with the previous chunk
-      for (int e = threadIdx.x; e < bm * kChunk; e += kThreads) {
-        const int r = e / kChunk, kk = e % kChunk;
-        if (kk < kc) as[r][kk] = a[static_cast<size_t>(r) * bk + k0 + kk];
+  auto load = [&](int s, int stage) {
+    const int t = s / cps;
+    const int k0 = (s - t * cps) * kKC;
+    const int kc = min(kKC, bk - k0);
+    const int col = t < kColCache ? cols_s[t] : cols[t];
+    T* as = smem + stage * S::kStageElems;
+    T* bs = as + BM * S::LDA;
+    const T* a = a_row + static_cast<size_t>(t) * tile_elems + k0;
+    const T* brow = p.b + (static_cast<size_t>(col) * bk + k0) * ld;
+    if (p.vec) {
+      constexpr int QA = kKC / 4, QB = S::N / 4;
+      for (int e = tid; e < BM * QA; e += kThreads) {
+        const int r = e / QA, q = 4 * (e % QA);
+        if (r < bm && q < kc) cp_async16(as + r * S::LDA + q, a + static_cast<size_t>(r) * bk + q);
       }
-      for (int e = threadIdx.x; e < kChunk * bn; e += kThreads) {
-        const int kk = e / bn, c = e % bn;
-        if (kk < kc) bs[kk][c] = bb[static_cast<size_t>(k0 + kk) * ld + c];
+      for (int e = tid; e < kKC * QB; e += kThreads) {
+        const int kk = e / QB, n = 4 * (e % QB);
+        const int g = n / BM, c = n % BM;
+        if (kk < kc && g < count && c < bn) {
+          cp_async16(bs + kk * S::LDB + n, brow + kk * ld + static_cast<size_t>(tile_j[g]) * bn + c);
+        }
       }
+    } else {
+      for (int e = tid; e < BM * kKC; e += kThreads) {
+        const int r = e / kKC, q = e % kKC;
+        if (r < bm && q < kc) cp_async4(as + r * S::LDA + q, a + static_cast<size_t>(r) * bk + q);
+      }
+      for (int e = tid; e < kKC * S::N; e += kThreads) {
+        const int kk = e / S::N, n = e % S::N;
+        const int g = n / BM, c = n % BM;
+        if (kk < kc && g < count && c < bn) {
+          cp_async4(bs + kk * S::LDB + n, brow + kk * ld + static_cast<size_t>(tile_j[g]) * bn + c);
+        }
+      }
+    }
+    if (cps > 1 && kc < kKC) {
+      // the stage held a whole chunk before: its k past kc must read as
+      // the ⊕-identity again (no copy into this stage is in flight)
+      for (int e = tid; e < BM * kKC; e += kThreads) {
+        if (e % kKC >= kc) as[(e / kKC) * S::LDA + e % kKC] = O::zero();
+      }
+      for (int e = kc * S::N + tid; e < kKC * S::N; e += kThreads) {
+        bs[(e / S::N) * S::LDB + e % S::N] = O::zero();
+      }
+    }
+    if constexpr (TC) {
+      if (tid <= count) {
+        const int* src = tid == 0 ? p.a_fin + static_cast<size_t>(i) * p.t_slots + t
+                                  : p.b_fin + static_cast<size_t>(col) * p.nb + tile_j[tid - 1];
+        cp_async4(&ok_s[stage][tid], src);
+      }
+    }
+  };
+
+  const int warp = tid / 32, lane_id = tid % 32;
+  unsigned long long n_tc = 0;  // thread 0: pairs folded on the tensor cores
+
+  if constexpr (TC) {
+    // ------------------------------------------------ tensor cores, 3×TF32
+    const int gid = lane_id >> 2, tig = lane_id & 3;
+    const int rt0 = (warp / S::WNT) * S::MF * 16;
+    const int ct0 = (warp % S::WNT) * S::NF * 8;
+    float acc[S::MF][S::NF][4];
+#pragma unroll
+    for (int mf = 0; mf < S::MF; ++mf) {
+#pragma unroll
+      for (int nf = 0; nf < S::NF; ++nf) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[mf][nf][v] = 0.0f;
+      }
+    }
+    // one stage: the first KEND k of it (KEND = kShortK where bk ≤ kShortK
+    // and each slot is one stage: the rest of that stage is never written).
+    // Bit nf of tc: fragment column nf is in the group and its pair is
+    // finite; of live: it is in the group. The three products of a step
+    // go out as three passes over the fragments, so that consecutive
+    // mma.sync write different accumulators.
+    auto mma_stage = [&](const float* as, const float* bs, unsigned tc, unsigned live, auto kend) {
+      constexpr int KEND = decltype(kend)::value;
+#pragma unroll
+      for (int kk = 0; kk < KEND; kk += 8) {
+        unsigned ah[S::MF][4], al[S::MF][4];
+#pragma unroll
+        for (int mf = 0; mf < S::MF; ++mf) {
+          const float* pa = as + (rt0 + mf * 16 + gid) * S::LDA + kk + tig;
+          split_tf32(pa[0], ah[mf][0], al[mf][0]);
+          split_tf32(pa[8 * S::LDA], ah[mf][1], al[mf][1]);
+          split_tf32(pa[4], ah[mf][2], al[mf][2]);
+          split_tf32(pa[8 * S::LDA + 4], ah[mf][3], al[mf][3]);
+        }
+        unsigned bh[S::NF][2], bl[S::NF][2];
+#pragma unroll
+        for (int nf = 0; nf < S::NF; ++nf) {
+          const float* pb = bs + (kk + tig) * S::LDB + ct0 + nf * 8 + gid;
+          split_tf32(pb[0], bh[nf][0], bl[nf][0]);
+          split_tf32(pb[4 * S::LDB], bh[nf][1], bl[nf][1]);
+        }
+#pragma unroll
+        for (int nf = 0; nf < S::NF; ++nf) {
+#pragma unroll
+          for (int mf = 0; mf < S::MF; ++mf) {
+            if (tc >> nf & 1) mma_tf32(acc[mf][nf], al[mf], bh[nf]);
+          }
+        }
+#pragma unroll
+        for (int nf = 0; nf < S::NF; ++nf) {
+#pragma unroll
+          for (int mf = 0; mf < S::MF; ++mf) {
+            if (tc >> nf & 1) mma_tf32(acc[mf][nf], ah[mf], bl[nf]);
+          }
+        }
+#pragma unroll
+        for (int nf = 0; nf < S::NF; ++nf) {
+#pragma unroll
+          for (int mf = 0; mf < S::MF; ++mf) {
+            if (tc >> nf & 1) mma_tf32(acc[mf][nf], ah[mf], bh[nf]);
+          }
+        }
+        if (live & ~tc) {
+          // a non-finite operand: fp32 on the CUDA cores, same layout
+#pragma unroll
+          for (int nf = 0; nf < S::NF; ++nf) {
+            if (!((live & ~tc) >> nf & 1)) continue;
+            for (int q = 0; q < 8; ++q) {
+              const float* pb = bs + (kk + q) * S::LDB + ct0 + nf * 8 + 2 * tig;
+              const float b0 = pb[0], b1 = pb[1];
+#pragma unroll
+              for (int mf = 0; mf < S::MF; ++mf) {
+                const float* pa = as + (rt0 + mf * 16 + gid) * S::LDA + kk + q;
+                const float a0 = pa[0], a1 = pa[8 * S::LDA];
+                acc[mf][nf][0] = __fmaf_rn(a0, b0, acc[mf][nf][0]);
+                acc[mf][nf][1] = __fmaf_rn(a0, b1, acc[mf][nf][1]);
+                acc[mf][nf][2] = __fmaf_rn(a1, b0, acc[mf][nf][2]);
+                acc[mf][nf][3] = __fmaf_rn(a1, b1, acc[mf][nf][3]);
+              }
+            }
+          }
+        }
+      }
+    };
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < steps) load(s, s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<kStages - 2>();  // step s's copies by this thread have landed
+      __syncthreads();               // ... and everyone's; step s − 1 is done with
+      const int nxt = s + kStages - 1;
+      if (nxt < steps) load(nxt, nxt % kStages);
+      cp_async_commit();
+      const int stage = s % kStages;
+      const float* as = reinterpret_cast<const float*>(smem) + stage * S::kStageElems;
+      const float* bs = as + BM * S::LDA;
+      const int* ok = ok_s[stage];
+      if (tid == 0 && s % cps == 0) {
+        for (int g = 0; g < count; ++g) n_tc += (ok[0] & ok[1 + g]) != 0;
+      }
+      unsigned tc = 0, live = 0;
+#pragma unroll
+      for (int nf = 0; nf < S::NF; ++nf) {
+        const int g = (ct0 + nf * 8) / BM;
+        if (g < count) {
+          live |= 1u << nf;
+          if (ok[0] & ok[1 + g]) tc |= 1u << nf;
+        }
+      }
+      if (short_k) {
+        mma_stage(as, bs, tc, live, std::integral_constant<int, kShortK>{});
+      } else {
+        mma_stage(as, bs, tc, live, std::integral_constant<int, kKC>{});
+      }
+    }
+    cp_async_wait<0>();
+
+#pragma unroll
+    for (int mf = 0; mf < S::MF; ++mf) {
+#pragma unroll
+      for (int nf = 0; nf < S::NF; ++nf) {
+        const int n = ct0 + nf * 8 + 2 * tig;
+        const int g = n / BM, c = n % BM;
+        if (g >= count) continue;
+        const size_t col = static_cast<size_t>(tile_j[g]) * bn + c;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rt0 + mf * 16 + gid + 8 * h;
+          if (r >= bm) continue;
+          const size_t off = (static_cast<size_t>(i) * bm + r) * ld + col;
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            if (c + w >= bn) continue;
+            const float v = pad_fold<SR>(acc[mf][nf][2 * h + w], p.pad_row[col + w], npad);
+            p.out[off + w] = p.mask[off + w] != O::zero() ? v : O::zero();
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------ CUDA cores
+    const int lr = lane_id / 8, lc = lane_id % 8;
+    const int row0 = (warp / S::WN) * 4 * S::TM + lr;  // rows row0 + 4u
+    const int col0 = (warp % S::WN) * 64 + 4 * lc;      // columns col0 + v, col0 + 32 + v
+    T acc[S::TM][8];
+#pragma unroll
+    for (int u = 0; u < S::TM; ++u) {
+#pragma unroll
+      for (int v = 0; v < 8; ++v) acc[u][v] = O::zero();
+    }
+    auto fold_stage = [&](const T* as, const T* bs, auto kend) {
+      constexpr int KEND = decltype(kend)::value;
+#pragma unroll
+      for (int k = 0; k < KEND; k += 4) {
+        V av[S::TM];
+#pragma unroll
+        for (int u = 0; u < S::TM; ++u) {
+          av[u] = *reinterpret_cast<const V*>(as + (row0 + 4 * u) * S::LDA + k);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const V b0 = *reinterpret_cast<const V*>(bs + (k + q) * S::LDB + col0);
+          const V b1 = *reinterpret_cast<const V*>(bs + (k + q) * S::LDB + col0 + 32);
+#pragma unroll
+          for (int u = 0; u < S::TM; ++u) {
+            const T a = lane(av[u], q);
+            acc[u][0] = fold<SR>(acc[u][0], a, b0.x);
+            acc[u][1] = fold<SR>(acc[u][1], a, b0.y);
+            acc[u][2] = fold<SR>(acc[u][2], a, b0.z);
+            acc[u][3] = fold<SR>(acc[u][3], a, b0.w);
+            acc[u][4] = fold<SR>(acc[u][4], a, b1.x);
+            acc[u][5] = fold<SR>(acc[u][5], a, b1.y);
+            acc[u][6] = fold<SR>(acc[u][6], a, b1.z);
+            acc[u][7] = fold<SR>(acc[u][7], a, b1.w);
+          }
+        }
+      }
+    };
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < steps) load(s, s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<kStages - 2>();
       __syncthreads();
-      // Rows and columns past bm are never stored; their threads fold
-      // whatever the staging left there.
-      for (int kk = 0; kk < kc; ++kk) {
-        T av[RPT], bv[RPT];
+      const int nxt = s + kStages - 1;
+      if (nxt < steps) load(nxt, nxt % kStages);
+      cp_async_commit();
+      const T* as = smem + (s % kStages) * S::kStageElems;
+      const T* bs = as + BM * S::LDA;
+      if (short_k) {
+        fold_stage(as, bs, std::integral_constant<int, kShortK>{});
+      } else {
+        fold_stage(as, bs, std::integral_constant<int, kKC>{});
+      }
+    }
+    cp_async_wait<0>();
+
 #pragma unroll
-        for (int u = 0; u < RPT; ++u) av[u] = as[ty + kSide * u][kk];
+    for (int u = 0; u < S::TM; ++u) {
+      const int r = row0 + 4 * u;
+      if (r >= bm) continue;
 #pragma unroll
-        for (int v = 0; v < RPT; ++v) bv[v] = bs[kk][tx + kSide * v];
+      for (int h = 0; h < 2; ++h) {
+        const int n = col0 + 32 * h;
+        const int g = n / BM, c = n % BM;
+        if (g >= count || c >= bn) continue;
+        const size_t col = static_cast<size_t>(tile_j[g]) * bn + c;
+        const size_t off = (static_cast<size_t>(i) * bm + r) * ld + col;
+        T v[4];
 #pragma unroll
-        for (int u = 0; u < RPT; ++u) {
+        for (int w = 0; w < 4; ++w) v[w] = acc[u][4 * h + w];
+        if (p.vec) {  // c + 3 < bn: bn is a multiple of 4
+          const V pr = *reinterpret_cast<const V*>(p.pad_row + col);
+          const V m = *reinterpret_cast<const V*>(p.mask + off);
 #pragma unroll
-          for (int v = 0; v < RPT; ++v) acc[u][v] = O::add(acc[u][v], O::mul(av[u], bv[v]));
+          for (int w = 0; w < 4; ++w) {
+            v[w] = pad_fold<SR>(v[w], lane(pr, w), npad);
+            v[w] = lane(m, w) != O::zero() ? v[w] : O::zero();
+          }
+          V o;
+          o.x = v[0];
+          o.y = v[1];
+          o.z = v[2];
+          o.w = v[3];
+          *reinterpret_cast<V*>(p.out + off) = o;
+        } else {
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            if (c + w >= bn) continue;
+            const T x = pad_fold<SR>(v[w], p.pad_row[col + w], npad);
+            p.out[off + w] = p.mask[off + w] != O::zero() ? x : O::zero();
+          }
         }
       }
     }
   }
 
-#pragma unroll
-  for (int u = 0; u < RPT; ++u) {
-    const int r = ty + kSide * u;
-#pragma unroll
-    for (int v = 0; v < RPT; ++v) {
-      const int c = tx + kSide * v;
-      if (r < bm && c < bn) {
-        const size_t off = (static_cast<size_t>(i) * bm + r) * ld + static_cast<size_t>(j) * bn + c;
-        out[off] = mask[off] != O::zero() ? acc[u][v] : O::zero();
-      }
-    }
+  if (tid == 0) {
+    const unsigned long long pairs = static_cast<unsigned long long>(count) * n_real;
+    atomicAdd(p.counts, n_tc);
+    atomicAdd(p.counts + 1, pairs - n_tc);
+    atomicAdd(p.counts + 2, static_cast<unsigned long long>(count) * npad);
   }
 }
 
-template <int SR>
-int launch_semiring(const void* tiles, const void* meta, const void* b, const void* mask,
-                    const void* active, void* out, int n_active, int t_slots, int nb,
-                    int bm, int bk, cudaStream_t stream) {
-  using T = typename Ops<SR>::T;
-  const T* a = static_cast<const T*>(tiles);
-  const int* m = static_cast<const int*>(meta);
-  const T* bv = static_cast<const T*>(b);
-  const T* mk = static_cast<const T*>(mask);
-  const int* act = static_cast<const int*>(active);
-  T* o = static_cast<T*>(out);
-  const dim3 grid(n_active), block(kThreads);
-  if (bm <= kSide) {
-    spgemm_tile_kernel<SR, 1><<<grid, block, 0, stream>>>(a, m, bv, mk, act, o, t_slots, nb, bm, bk);
-  } else if (bm <= 2 * kSide) {
-    spgemm_tile_kernel<SR, 2><<<grid, block, 0, stream>>>(a, m, bv, mk, act, o, t_slots, nb, bm, bk);
-  } else if (bm <= 4 * kSide) {
-    spgemm_tile_kernel<SR, 4><<<grid, block, 0, stream>>>(a, m, bv, mk, act, o, t_slots, nb, bm, bk);
-  } else {
-    spgemm_tile_kernel<SR, 8><<<grid, block, 0, stream>>>(a, m, bv, mk, act, o, t_slots, nb, bm, bk);
-  }
+template <int SR, int BM, bool TC>
+int launch(const Args<typename Ops<SR>::T>& args, int n_groups, cudaStream_t stream) {
+  const int smem = (TC ? kTcStages : kCcStages) * Shape<BM>::kStageElems *
+                   static_cast<int>(sizeof(typename Ops<SR>::T));
+  auto kernel = spgemm_group_kernel<SR, BM, TC>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<n_groups, kThreads, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int SR, bool TC>
+int launch_block(const Args<typename Ops<SR>::T>& args, int n_groups, cudaStream_t stream) {
+  if (args.bm <= 16) return launch<SR, 16, TC>(args, n_groups, stream);
+  if (args.bm <= 32) return launch<SR, 32, TC>(args, n_groups, stream);
+  if (args.bm <= 64) return launch<SR, 64, TC>(args, n_groups, stream);
+  return launch<SR, 128, TC>(args, n_groups, stream);
+}
+
+inline bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+template <int SR>
+int launch_semiring(const void* tiles, const void* meta, const void* n_real, const void* b,
+                    const void* mask, const void* pad_row, const void* a_fin, const void* b_fin,
+                    const void* active, const void* groups, void* out, void* counts,
+                    int n_groups, int t_slots, int nb, int bm, int bk, bool tensor_cores,
+                    cudaStream_t stream) {
+  using T = typename Ops<SR>::T;
+  Args<T> args;
+  args.tiles = static_cast<const T*>(tiles);
+  args.meta = static_cast<const int*>(meta);
+  args.n_real = static_cast<const int*>(n_real);
+  args.b = static_cast<const T*>(b);
+  args.mask = static_cast<const T*>(mask);
+  args.pad_row = static_cast<const T*>(pad_row);
+  args.a_fin = static_cast<const int*>(a_fin);
+  args.b_fin = static_cast<const int*>(b_fin);
+  args.active = static_cast<const int*>(active);
+  args.groups = static_cast<const int*>(groups);
+  args.out = static_cast<T*>(out);
+  args.counts = static_cast<unsigned long long*>(counts);
+  args.t_slots = t_slots;
+  args.nb = nb;
+  args.bm = bm;
+  args.bk = bk;
+  args.vec = bm % 4 == 0 && bk % 4 == 0 && aligned16(tiles) && aligned16(b) && aligned16(mask) &&
+             aligned16(out) && aligned16(pad_row);
+  if constexpr (SR == kPlusTimes) {
+    if (tensor_cores) return launch_block<SR, true>(args, n_groups, stream);
+  }
+  return launch_block<SR, false>(args, n_groups, stream);
 }
 
 }  // namespace spgemm
 
+extern "C" int spgemm_tiles_group_size(int bm) { return spgemm::group_size(bm); }
+
 // Returns the cudaError_t of the launch (0 = success). A block shape the
-// kernel does not take or an unknown semiring code returns
-// cudaErrorInvalidValue without launching; n_active = 0 launches nothing.
-extern "C" int semiring_spgemm_padded(const void* tiles, const void* meta, const void* b,
-                                      const void* mask, const void* active, void* out,
-                                      int n_active, int t_slots, int nb, int bm, int bk,
-                                      int sr_code, void* stream) {
+// kernel does not take, a group size other than spgemm_tiles_group_size(bm),
+// an unknown semiring code, or tensor_cores set for another semiring than
+// ⟨+,×⟩ or for bm or bk not a multiple of 16 (or on an operand not 16-byte
+// aligned) returns cudaErrorInvalidValue without launching; n_groups = 0
+// launches nothing.
+extern "C" int semiring_spgemm_padded(const void* tiles, const void* meta, const void* n_real,
+                                      const void* b, const void* mask, const void* pad_row,
+                                      const void* a_fin, const void* b_fin, const void* active,
+                                      const void* groups, void* out, void* counts, int n_groups,
+                                      int t_slots, int nb, int bm, int bk, int group_size,
+                                      int sr_code, int tensor_cores, void* stream) {
   using namespace spgemm;
-  if (bm < 1 || bm > kMaxBlock || bk < 1 || bk > kMaxBlock || t_slots < 1 || nb < 1) {
+  if (bm < 1 || bm > kMaxBlock || bk < 1 || bk > kMaxBlock || t_slots < 1 || nb < 1 ||
+      n_groups < 0 || group_size != spgemm::group_size(bm)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n_active == 0) return 0;
+  if (tensor_cores && (sr_code != kPlusTimes || bm % 16 || bk % 16 || !aligned16(tiles) ||
+                       !aligned16(b) || !aligned16(mask) || !aligned16(out))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_groups == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tc = tensor_cores != 0;
+#define SPGEMM_ARGS tiles, meta, n_real, b, mask, pad_row, a_fin, b_fin, active, groups, out, \
+                    counts, n_groups, t_slots, nb, bm, bk, tc, s
   switch (sr_code) {
-    case kBoolOrAnd: return launch_semiring<kBoolOrAnd>(tiles, meta, b, mask, active, out, n_active, t_slots, nb, bm, bk, s);
-    case kMinPlus: return launch_semiring<kMinPlus>(tiles, meta, b, mask, active, out, n_active, t_slots, nb, bm, bk, s);
-    case kPlusTimes: return launch_semiring<kPlusTimes>(tiles, meta, b, mask, active, out, n_active, t_slots, nb, bm, bk, s);
-    case kMinTimes: return launch_semiring<kMinTimes>(tiles, meta, b, mask, active, out, n_active, t_slots, nb, bm, bk, s);
-    case kPlusAnd: return launch_semiring<kPlusAnd>(tiles, meta, b, mask, active, out, n_active, t_slots, nb, bm, bk, s);
+    case kBoolOrAnd: return launch_semiring<kBoolOrAnd>(SPGEMM_ARGS);
+    case kMinPlus: return launch_semiring<kMinPlus>(SPGEMM_ARGS);
+    case kPlusTimes: return launch_semiring<kPlusTimes>(SPGEMM_ARGS);
+    case kMinTimes: return launch_semiring<kMinTimes>(SPGEMM_ARGS);
+    case kPlusAnd: return launch_semiring<kPlusAnd>(SPGEMM_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef SPGEMM_ARGS
 }

@@ -150,6 +150,54 @@ def spgemm_padded_ref(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, sr: 
     return out
 
 
+def pad_row(b: Tensor, sr: Semiring, bk: int) -> Tensor:
+    """P [nb·bn]: P[c] = ⊕_{k<bk} (zero ⊗ b[k, c]), what one pad slot (the
+    ⊕-identity tile under tile-column 0) adds to output column c, reduced
+    as ``spgemm_padded_ref`` reduces a slot. Under ⟨+,×⟩ it is ±0 or NaN
+    (0·inf), under the min semirings +inf or NaN, under ⟨+,∧⟩ Σ min(0, b)."""
+    zero = torch.full((), sr.zero, dtype=sr.dtype, device=b.device)
+    return sr.add_reduce(sr.mul(zero, b[:bk]), dim=0).contiguous()
+
+
+def spgemm_pad_row_ref(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, sr: Semiring,
+                       bn: int) -> Tensor:
+    """The masked tile SpGEMM as the CUDA kernel decomposes it, in plain
+    PyTorch: each flagged output tile folds its block row's ``ell_n_real``
+    real slots as ``spgemm_padded_ref`` folds a slot, then ⊕ ``pad_row``
+    once for each remaining (pad) slot, in slot order; then the mask. Pads
+    come after the real slots and each adds P, so this is
+    ``spgemm_padded_ref``'s function, bit for bit where both reduce alike.
+    Same operands."""
+    mb, t, bm, bk = tiles.shape
+    n = b.shape[1]
+    nb = n // bn
+    cols = meta[:, :t].long()
+    n_real = ell_n_real(meta[:, :t]).long()
+    p = pad_row(b, sr, bk).view(nb, bn)
+    active = torch.nonzero(meta[:, t:] > 0)                           # [n_act, 2]
+    out = torch.full((mb * bm, n), sr.zero, dtype=sr.dtype, device=tiles.device)
+    out_tiles = out.view(mb, bm, nb, bn)
+    b_blocks = b.view(-1, bk, nb, bn)
+    mask_tiles = mask.view(mb, bm, nb, bn)
+    chunk = max(1, SPGEMM_BROADCAST_BYTES // (bm * bk * bn * tiles.element_size()))
+    for s in range(0, active.shape[0], chunk):
+        ii, jj = active[s:s + chunk].unbind(1)
+        real = n_real[ii]
+        acc = torch.full((ii.shape[0], bm, bn), sr.zero, dtype=sr.dtype, device=tiles.device)
+        for slot in range(int(real.max())):
+            live = (slot < real)[:, None, None]
+            a = tiles[ii, slot]                                       # [c, bm, bk]
+            bb = b_blocks[cols[ii, slot], :, jj]                      # [c, bk, bn]
+            contrib = sr.add_reduce(sr.mul(a[:, :, :, None], bb[:, None]), dim=2)
+            acc = torch.where(live, sr.add(acc, contrib), acc)
+        pads = (t - real)[:, None, None]
+        for slot in range(int(pads.max())):
+            acc = torch.where(slot < pads, sr.add(acc, p[jj][:, None, :]), acc)
+        keep = mask_tiles[ii, :, jj] != sr.zero                       # [c, bm, bn]
+        out_tiles[ii, :, jj] = torch.where(keep, acc, sr.zero)
+    return out
+
+
 def ell_n_real(tile_cols: Tensor) -> Tensor:
     """Real (non-pad) slots per block row, from the metadata alone: the
     builder stores real tiles first in strictly increasing tile-column order

@@ -12,7 +12,8 @@ It takes kernel 6's operands (tiles [mb, T, bm, bk], meta [mb, T + nb]
 and gives kernel 6's result on them, folding only each block row's real
 slots. The wrapper packs A and B to int8 once per call (B transposed to
 [N, K]), groups the active output tiles of each block row by
-``group_size(bm)`` and orders the groups by tile-column. It does not look
+``group_size(bm)`` and orders the groups by tile-column (kernel 6's
+``group_tiles``). It does not look
 at the values: that they are 0 or 1 is the caller's promise, which the
 front door checks.
 
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.spgemm_tiles import MAX_BLOCK, _check_operands
+from repro_torch.kernels.spgemm_tiles import MAX_BLOCK, _check_operands, group_tiles
 
 Tensor = torch.Tensor
 
@@ -66,28 +67,6 @@ def pack(tiles: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
     if err:
         raise RuntimeError(f"semiring_spgemm_binary: pack launch failed with cudaError_t {err}")
     return tiles.to(torch.int8), bt8
-
-
-def group_tiles(meta: Tensor, t: int, g: int) -> tuple[Tensor, Tensor]:
-    """The active output tiles and their groups: ``active`` int32
-    [n_active, 2] = (i, j) block-row-major, and ``groups`` int32
-    [n_groups, 2] = (first, count), each a run of up to ``g`` consecutive
-    active tiles of one block row, ordered by the tile-column of their first
-    tile (then block row), so that groups running together read the same
-    column strips of B."""
-    active = torch.nonzero(meta[:, t:] > 0)                        # [n_act, 2] int64
-    if active.shape[0] == 0:
-        empty = torch.zeros((0, 2), dtype=torch.int32, device=meta.device)
-        return empty, empty
-    rows = active[:, 0]
-    counts = torch.bincount(rows, minlength=meta.shape[0])
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(rows.shape[0], device=meta.device) - starts[rows]
-    first = torch.nonzero(rank % g == 0)[:, 0]
-    size = torch.clamp(counts[rows[first]] - rank[first], max=g)
-    order = torch.argsort(active[first, 1] * meta.shape[0] + rows[first])
-    groups = torch.stack([first[order], size[order]], dim=1)
-    return active.to(torch.int32).contiguous(), groups.to(torch.int32).contiguous()
 
 
 def semiring_spgemm_binary(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, *,

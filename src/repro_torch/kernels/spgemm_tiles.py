@@ -7,15 +7,31 @@ with A in the ELL-of-tiles layout, B and the mask dense. Layout, as the
 TPU kernel's:
 
     tiles [mb, T, bm, bk]   A's tiles; pad slots hold the ⊕-identity tile
+                            and point at tile-column 0
     meta  [mb, T + nb] i32  meta[i, :T] = tile-columns,
                             meta[i, T+j] = 1 iff mask tile (i, j) is non-empty
     b     [kb·bk, nb·bn]    dense right operand
     mask  [mb·bm, nb·bn]    structural mask (≠ ⊕-identity ⇒ keep)
     out   [mb·bm, nb·bn]
 
+The kernel folds each block row's real slots (``ref.ell_n_real``) and then,
+once per pad slot, the pad row P[c] = ⊕_{k<bk} (zero ⊗ b[k, c]) that every
+pad slot adds to output column c (``ref.pad_row``): the TPU kernel's function
+exactly, pads included. Per call the wrapper computes P, groups the active
+output tiles of each block row by ``group_size(bm)`` (``group_tiles``,
+shared with kernel 6b) and, where ⟨+,×⟩ runs on the tensor cores
+(``tensor_cores``), one all-finite flag per A tile and per B block
+(``finite_flags``): pairs with a non-finite operand fold in fp32 on the
+CUDA cores. ``ref.spgemm_pad_row_ref`` is this decomposition in plain
+PyTorch.
+
 On a CUDA tensor the wrapper launches the kernel on the current stream or
 raises; on a CPU tensor it runs the plain version from ``kernels/ref.py``.
-``.launches`` counts its kernel launches.
+``.launches`` counts its kernel launches; ``.paths`` counts the (output
+tile, slot) pairs the kernel reported folding on the tensor cores
+(``tensor``), on the CUDA cores (``cuda``) and as the pad row (``pad``).
+Its values are 0-d int64 tensors on the card once a launch has added to
+them (no host sync per call): read them with ``int()``.
 """
 from __future__ import annotations
 
@@ -27,8 +43,10 @@ from repro_torch.kernels.semiring_spmv import _check_index
 
 Tensor = torch.Tensor
 
-# The CUDA kernel keeps one output tile per block in registers.
+# The CUDA kernel keeps a group's output tiles in registers.
 MAX_BLOCK = 128
+# what the kernel reports, in the order of its counts
+PATHS = ("tensor", "cuda", "pad")
 
 
 def _check_operands(name: str, tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor,
@@ -60,6 +78,52 @@ def _check_operands(name: str, tiles: Tensor, meta: Tensor, b: Tensor, mask: Ten
         raise ValueError(f"{name}: shapes exceed the kernel's int32 arguments")
 
 
+def group_size(bm: int) -> int:
+    """Output tiles of one block row that one CUDA block computes together,
+    sharing each A tile it stages (``spgemm_tiles_group_size`` in the
+    source): 256 output columns up to 64 rows (16, 8, 4 tiles up to 16, 32,
+    64 rows), 1 tile above."""
+    return 16 if bm <= 16 else 8 if bm <= 32 else 4 if bm <= 64 else 1
+
+
+def tensor_cores(sr: Semiring, bm: int, bk: int) -> bool:
+    """Whether the kernel folds on the tensor cores (3×TF32): ⟨+,×⟩ with
+    bm and bk multiples of 16 (the mma's m16 and two of its k8)."""
+    return sr.name == "plus_times" and bm % 16 == 0 and bk % 16 == 0
+
+
+def group_tiles(meta: Tensor, t: int, g: int) -> tuple[Tensor, Tensor]:
+    """The active output tiles and their groups: ``active`` int32
+    [n_active, 2] = (i, j) block-row-major, and ``groups`` int32
+    [n_groups, 2] = (first, count), each a run of up to ``g`` consecutive
+    active tiles of one block row, ordered by the tile-column of their first
+    tile (then block row), so that groups running together read the same
+    column strips of B."""
+    active = torch.nonzero(meta[:, t:] > 0)                        # [n_act, 2] int64
+    if active.shape[0] == 0:
+        empty = torch.zeros((0, 2), dtype=torch.int32, device=meta.device)
+        return empty, empty
+    rows = active[:, 0]
+    counts = torch.bincount(rows, minlength=meta.shape[0])
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(rows.shape[0], device=meta.device) - starts[rows]
+    first = torch.nonzero(rank % g == 0)[:, 0]
+    size = torch.clamp(counts[rows[first]] - rank[first], max=g)
+    order = torch.argsort(active[first, 1] * meta.shape[0] + rows[first])
+    groups = torch.stack([first[order], size[order]], dim=1)
+    return active.to(torch.int32).contiguous(), groups.to(torch.int32).contiguous()
+
+
+def finite_flags(tiles: Tensor, b: Tensor, bn: int) -> tuple[Tensor, Tensor]:
+    """int32 [mb, T], 1 where A tile (i, t) is all finite, and int32 [kb, nb],
+    1 where B block (k, j) is: a pair with a flag 0 leaves the tensor
+    cores, whose split of inf or NaN is NaN."""
+    bk = tiles.shape[3]
+    a_fin = torch.isfinite(tiles).flatten(2).all(dim=2)
+    b_fin = torch.isfinite(b).view(b.shape[0] // bk, bk, b.shape[1] // bn, bn).all(3).all(1)
+    return a_fin.to(torch.int32).contiguous(), b_fin.to(torch.int32).contiguous()
+
+
 def semiring_spgemm_padded(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, *,
                            sr: Semiring, bn: int) -> Tensor:
     """C [mb·bm, nb·bn] = (A ⊕.⊗ B) ⊙ mask over the padded ELL-of-tiles
@@ -73,19 +137,44 @@ def semiring_spgemm_padded(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor,
         raise ValueError(f"{name}: no kernel for device {tiles.device}")
     mb, t, bm, bk = tiles.shape
     out = torch.full((mb * bm, b.shape[1]), sr.zero, dtype=sr.dtype, device=tiles.device)
-    active = torch.nonzero(meta[:, t:] > 0).to(torch.int32).contiguous()   # [n_active, 2]
-    if active.shape[0] == 0:
+    active, groups = group_tiles(meta, t, group_size(bm))
+    if groups.shape[0] == 0:
         return out
-    fn = _build.spgemm_kernel()
-    with torch.cuda.device(tiles.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(tiles.data_ptr(), meta.data_ptr(), b.data_ptr(), mask.data_ptr(),
-                 active.data_ptr(), out.data_ptr(), active.shape[0], t, b.shape[1] // bn,
-                 bm, bk, sr.code, stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
+    _launch(tiles, meta, b, mask, out, active, groups, sr, tensor_cores(sr, bm, bk))
     semiring_spgemm_padded.launches += 1
     return out
 
 
+def _launch(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, out: Tensor, active: Tensor,
+            groups: Tensor, sr: Semiring, on_tensor_cores: bool, kernel=None,
+            g: int | None = None) -> None:
+    """One launch of the kernel on the current stream into ``out`` (filled
+    with the ⊕-identity), on the tensor cores where ``on_tensor_cores``
+    (it must hold ``tensor_cores``); adds the kernel's counts to
+    ``semiring_spgemm_padded.paths``; raises if the launch is refused.
+    ``kernel`` and ``g``: another build's C entry and its group size (the
+    sweep tool's variants); ``groups`` must come from ``group_tiles`` with
+    that group size."""
+    mb, t, bm, bk = tiles.shape
+    n_real = ref.ell_n_real(meta[:, :t])
+    p = ref.pad_row(b, sr, bk)
+    # the flags are read on the tensor-core path only
+    a_fin, b_fin = finite_flags(tiles, b, bm) if on_tensor_cores else (n_real, n_real)
+    counts = torch.zeros(len(PATHS), dtype=torch.int64, device=tiles.device)
+    fn = kernel or _build.spgemm_kernel()
+    with torch.cuda.device(tiles.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(tiles.data_ptr(), meta.data_ptr(), n_real.data_ptr(), b.data_ptr(),
+                 mask.data_ptr(), p.data_ptr(), a_fin.data_ptr(), b_fin.data_ptr(),
+                 active.data_ptr(), groups.data_ptr(), out.data_ptr(), counts.data_ptr(),
+                 groups.shape[0], t, b.shape[1] // bm, bm, bk, g or group_size(bm), sr.code,
+                 int(on_tensor_cores), stream)
+    if err:
+        raise RuntimeError(f"semiring_spgemm_padded: kernel launch failed with cudaError_t {err}")
+    paths = semiring_spgemm_padded.paths
+    for k, v in zip(PATHS, counts):
+        paths[k] = paths[k] + v
+
+
 semiring_spgemm_padded.launches = 0
+semiring_spgemm_padded.paths = dict.fromkeys(PATHS, 0)

@@ -4,7 +4,11 @@ the single-vector kernels (``torch.equal`` where pad ⊗ x is
 the ⊕-identity, as the inputs here make it); the masked tile SpGEMM, its
 tensor-core variant for 0/1 operands (``torch.equal`` to its plain
 version and to kernel 6, the front door's choice between them) and the
-triangle count on the card against the host; the MoE dispatch gather
+triangle count on the card against the host; kernel 6 itself for every
+semiring at bm 16, 24, 64 and 128, with NaN pads, a negative row, a
+non-finite B block (its pairs leave the tensor cores, as the path counts
+show), integer-valued ⟨+,×⟩ exact, groups cut at a block row's end and
+past 2³¹ elements; the MoE dispatch gather
 (``torch.equal`` to its plain version, bf16 and f32, aligned and
 misaligned rows) and one MoE layer on the card against the host. Needs
 an NVIDIA GPU with nvcc; elsewhere every test here skips. On the card:
@@ -18,7 +22,7 @@ import pytest
 import torch
 
 from repro_torch.core import SEMIRINGS, build_bsr_padded, build_sell, frontier_from_dense
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, spgemm_tiles
 from repro_torch.kernels.semiring_spmv import (
     semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
 )
@@ -434,6 +438,166 @@ def test_spgemm_binary_past_2_31_elements(cuda):
     torch.cuda.synchronize()
     assert int(want[n - 200:].sum()) > 0
     assert torch.equal(y, want)
+
+
+def kernel6_counts(meta, t):
+    """(real, pad) pairs kernel 6 folds: over the active output tiles, the
+    block row's ``ell_n_real`` real slots and its T − n_real pad slots."""
+    n_real = ref.ell_n_real(meta[:, :t]).long()
+    act = (meta[:, t:] > 0).sum(dim=1)
+    real = int((n_real * act).sum())
+    return real, int(act.sum()) * t - real
+
+
+def kernel6(a, b, sr, mask):
+    """Kernel 6 itself on the front door's operands, its path counts reset
+    first: (output, operands, {path: pairs})."""
+    bp, mk, meta, bn, n = ops._spgemm_operands(a, b, sr, mask)
+    semiring_spgemm_padded.paths = dict.fromkeys(spgemm_tiles.PATHS, 0)
+    before = semiring_spgemm_padded.launches
+    y = semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr, bn=bn)
+    assert semiring_spgemm_padded.launches == before + 1
+    torch.cuda.synchronize()
+    paths = {k: int(v) for k, v in semiring_spgemm_padded.paths.items()}
+    return y, (bp, mk, meta, bn), paths
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("bm", [16, 24, 64, 128])
+@pytest.mark.parametrize("name", list(SEMIRINGS))
+def test_spgemm_kernel6_every_semiring_and_block(cuda, name, bm, masked):
+    """Kernel 6 on spgemm_problem's ragged A (pad slots) against its plain
+    version; it folds each active tile's real slots (on the tensor cores
+    for ⟨+,×⟩ at multiples of 16, here all finite) and one pad row per
+    pad slot, as its path counts report."""
+    sr = SEMIRINGS[name]
+    a, b, mask = spgemm_problem(sr, (bm, bm), cuda, masked)
+    y, (bp, mk, meta, bn), paths = kernel6(a, b, sr, mask)
+    assert_match(y, ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn), sr)
+    real, pad = kernel6_counts(meta, a.tiles.shape[1])
+    tc = spgemm_tiles.tensor_cores(sr, bm, bm)
+    assert paths == {"tensor": real if tc else 0, "cuda": 0 if tc else real, "pad": pad}
+
+
+@pytest.mark.parametrize("bm", [16, 64])
+@pytest.mark.parametrize("name,fill", [("plus_times", float("inf")), ("min_times", 0.0),
+                                       ("plus_and", -1)], ids=["pad-nan-plus_times",
+                                                               "pad-nan-min_times", "neg-row"])
+def test_spgemm_kernel6_pad_nan_and_neg_row(cuda, name, fill, bm):
+    """B's row 3, under tile-column 0, holds inf (⟨+,×⟩: a pad's 0·inf is
+    NaN), 0 (⟨min,×⟩: inf·0) or -1 (⟨+,∧⟩: a pad adds min(0, -1)) in
+    every 7th column: kernel 6 equals its plain version, NaN where NaN.
+    ⟨+,×⟩ folds the pairs that meet those B blocks on the CUDA cores."""
+    sr = SEMIRINGS[name]
+    a, b, mask = spgemm_problem(sr, (bm, bm), cuda, True)
+    if name == "plus_and":
+        b = torch.randint(0, 9, b.shape, dtype=torch.int32, device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(1))
+    b[3, ::7] = fill
+    y, (bp, mk, meta, bn), paths = kernel6(a, b, sr, mask)
+    want = ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn)
+    assert_match(y, want, sr)
+    if name != "plus_and":
+        assert bool(torch.isnan(want).any())
+    if name == "plus_times":
+        assert paths["cuda"] > 0 and paths["tensor"] > 0
+
+
+def test_spgemm_kernel6_one_non_finite_b_block(cuda):
+    """⟨+,×⟩ at 64×64 with one inf in B block (k-block 1, tile-column 2):
+    exactly the (output tile, slot) pairs that meet it fold on the CUDA
+    cores, the others on the tensor cores, and the output equals the plain
+    version."""
+    sr = SEMIRINGS["plus_times"]
+    a, b, mask = spgemm_problem(sr, (64, 64), cuda, True)
+    b[64 + 5, 2 * 64 + 9] = float("inf")
+    y, (bp, mk, meta, bn), paths = kernel6(a, b, sr, mask)
+    assert_match(y, ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn), sr)
+    t = a.tiles.shape[1]
+    n_real = ref.ell_n_real(meta[:, :t]).long()
+    cols = meta[:, :t].long()
+    meets = torch.stack([(cols[i, :n_real[i]] == 1).any() for i in range(cols.shape[0])])
+    fallback = int((meets & (meta[:, t + 2] > 0)).sum())
+    real, pad = kernel6_counts(meta, t)
+    assert fallback > 0
+    assert paths == {"tensor": real - fallback, "cuda": fallback, "pad": pad}
+
+
+@pytest.mark.parametrize("bm", [16, 64])
+def test_spgemm_kernel6_integer_valued_plus_times_is_exact(cuda, bm):
+    """Integer values (A 1..9, B 0..9, sums below 2²⁴) come out of the
+    3×TF32 products exact: torch.equal to the plain version and to the
+    integer product."""
+    sr = SEMIRINGS["plus_times"]
+    rng = np.random.default_rng(6)
+    n, k, m = 300, 260, 250
+    rows = (n * rng.random(3000) ** 3).astype(np.int32)
+    cols = rng.integers(0, k, 3000).astype(np.int32)
+    rc, first = np.unique(np.stack([rows, cols], 1), axis=0, return_index=True)
+    vals = rng.integers(1, 10, rc.shape[0]).astype(np.float32)
+    a = build_bsr_padded(rc[:, 0].copy(), rc[:, 1].copy(), vals, (n, k), sr, block=(bm, bm),
+                         device=cuda)
+    b = torch.zeros((a.shape[1], m), device=cuda)
+    b[:k] = torch.from_numpy(rng.integers(0, 10, (k, m)).astype(np.float32)).to(cuda)
+    y, (bp, mk, meta, bn), paths = kernel6(a, b, sr, None)
+    assert paths["tensor"] > 0 and paths["cuda"] == 0
+    assert torch.equal(y, ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn))
+    dense = torch.zeros((n, k), dtype=torch.float64)
+    dense[torch.from_numpy(rc[:, 0]).long(), torch.from_numpy(rc[:, 1]).long()] = (
+        torch.from_numpy(vals).double())
+    want = dense @ b[:k].cpu().double()
+    assert torch.equal(y[:n, :m].cpu().double(), want)
+
+
+@pytest.mark.parametrize("bm", [16, 32, 64])
+def test_spgemm_kernel6_groups_cut_at_block_row_end(cuda, bm):
+    """Mask tiles set so that every block row's active tiles run past a
+    whole number of groups (G + 1, 2G − 1, 1, ...): each group stops at its
+    block row's end, and kernel 6 equals its plain version."""
+    sr = SEMIRINGS["min_plus"]
+    g = spgemm_tiles.group_size(bm)
+    a, b, _ = spgemm_problem(sr, (bm, bm), cuda, False)
+    mb, nb = a.shape[0] // bm, -(-b.shape[1] // bm)
+    mask = torch.full((a.shape[0], b.shape[1]), float("inf"), device=cuda)
+    for i in range(mb):
+        count = [g + 1, 2 * g - 1, 1, g - 1][i % 4] % nb or 1
+        for j in range(count):
+            mask[i * bm, j * bm] = 1.0
+    y, (bp, mk, meta, bn), paths = kernel6(a, b, sr, mask)
+    assert_match(y, ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn), sr)
+    active, groups = spgemm_tiles.group_tiles(meta, a.tiles.shape[1], g)
+    assert int(groups[:, 1].min()) < g
+
+
+@pytest.mark.parametrize("name", ["plus_times", "min_plus"])
+def test_spgemm_kernel6_past_2_31_elements(cuda, name):
+    """Output, mask and B of 48,000² elements (past 2³¹): tiles near the
+    far corner land at offsets that overflow 32 bits, and kernel 6 (on the
+    tensor cores for ⟨+,×⟩) equals its plain version there."""
+    sr = SEMIRINGS[name]
+    n = 48_000
+    rng = np.random.default_rng(9)
+    rows = np.concatenate([rng.integers(n - 200, n, 400), rng.integers(0, 64, 50)])
+    cols = np.concatenate([rng.integers(n - 300, n, 400), rng.integers(0, 64, 50)])
+    rc = np.unique(np.stack([rows, cols], 1).astype(np.int32), axis=0)
+    vals = rng.integers(1, 9, rc.shape[0]).astype(np.float32)
+    a = build_bsr_padded(rc[:, 0].copy(), rc[:, 1].copy(), vals, (n, n), sr, block=(64, 64),
+                         device=cuda)
+    b = torch.full((a.shape[1], n), sr.one, device=cuda)
+    b[-300:, -300:] = torch.randint(1, 9, (300, 300), device=cuda).float()
+    mask = torch.full((a.shape[0], n), sr.zero, device=cuda)
+    mask[n - 200:n, n - 300:] = 1.0
+    mask[:64, :64] = 1.0
+    bp, mk, meta, bn, _ = ops._spgemm_operands(a, b, sr, mask)
+    assert mk.numel() > 2**31
+    del b, mask
+    before = semiring_spgemm_padded.launches
+    y = semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr, bn=bn)
+    assert semiring_spgemm_padded.launches == before + 1
+    want = ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn)
+    torch.cuda.synchronize()
+    assert bool((want[n - 200:] != sr.zero).any())
+    assert_match(y, want, sr)
 
 
 @pytest.mark.parametrize("block", [(16, 16), (64, 64)])

@@ -5,8 +5,18 @@ the same seeded inputs, at ``tests/test_spgemm.py``'s sizes (37×52×29,
 with ``repro_torch.convert``. The JAX side, including the Pallas kernel in
 interpret mode, runs once per module.
 
+Also kernel 6's decomposition as its CUDA kernel folds it
+(``ref.spgemm_pad_row_ref``: each block row's real slots, then the pad row
+P once per pad slot) against the plain version and the JAX package's
+``semiring_spgemm_ref`` at 16×16 and 64×64, with NaN pads and a negative
+row under tile-column 0; the wrapper's operand helpers (P, the finite
+flags, the groups) on hand-built cases; and a plain emulation of the
+kernel's 3×TF32 products on the tensor cores.
+
 Exact for the integer and min semirings; ⟨+,×⟩ within rtol 1e-5, atol
-1e-6, because the JAX dot and the port sum in other orders."""
+1e-6, because the JAX dot and the port sum in other orders (the
+decomposition against the plain version: exact, NaN where NaN, as both
+reduce a slot alike)."""
 import importlib
 
 import jax.numpy as jnp
@@ -22,6 +32,7 @@ from repro_torch import convert
 from repro_torch.core import semiring as tsemiring
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import spgemm_tiles
 from repro_torch.kernels.spgemm_binary import semiring_spgemm_binary
 from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
 
@@ -91,11 +102,68 @@ def assert_match(got, want, name):
         np.testing.assert_array_equal(got, want)
 
 
+# Kernel 6's decomposition: a skewed 150 × 140 A (ragged block rows, so
+# pad slots, and block rows with none real at 16×16), B [K, 120] and a
+# mask of density 0.4 or none; "pad-nan" puts inf (⟨+,×⟩) or 0 (⟨min,×⟩)
+# in every 7th column of B's row 3, under tile-column 0, where a pad's
+# products are NaN; "neg-row" puts -1 there for ⟨+,∧⟩ (B in 0..8), where
+# a pad adds min(0, -1) per pad slot.
+PN, PK, PM = 150, 140, 120
+PAD_ROW_CASES = ([(name, bm, variant) for name in NAMES for bm in (16, 64)
+                  for variant in ("masked", "unmasked")]
+                 + [(name, bm, "pad-nan") for name in ("plus_times", "min_times")
+                    for bm in (16, 64)]
+                 + [("plus_and", bm, "neg-row") for bm in (16, 64)])
+PAD_ROW_IDS = ["-".join(map(str, case)) for case in PAD_ROW_CASES]
+
+
+def pad_row_problem(name, bm, variant, seed=5):
+    """(rows, cols, vals, b, mask or None) for a PAD_ROW_CASES case, in the
+    semiring's safe domain but for the NaN and negative rows."""
+    sr = jsemiring.SEMIRINGS[name]
+    rng = np.random.default_rng(seed)
+    nnz = 700
+    rows = (PN * rng.random(nnz) ** 3).astype(np.int32)
+    cols = rng.integers(0, PK, nnz).astype(np.int32)
+    cols[rows >= 100] %= 50        # the last rows in k-block 0 only, so pads at 64×64
+    mask_m = rng.random((PN, PM)) < 0.4
+    if sr.collective == "pmin":
+        vals = rng.integers(1, 9, nnz).astype(np.float32)
+        b = rng.integers(1, 9, (PK, PM)).astype(np.float32)
+        mask = np.where(mask_m, 1.0, np.inf).astype(np.float32)
+    elif sr.dtype == jnp.int32:
+        vals = np.ones(nnz, np.int32)
+        b = rng.integers(0, 9, (PK, PM)).astype(np.int32)
+        mask = mask_m.astype(np.int32)
+    else:
+        vals = rng.random(nnz).astype(np.float32)
+        b = rng.random((PK, PM)).astype(np.float32)
+        mask = mask_m.astype(np.float32)
+    if variant == "pad-nan":
+        b[3, ::7] = np.inf if name == "plus_times" else 0.0
+    if variant == "neg-row":
+        b[3, ::7] = -1
+    return rows, cols, vals, b, None if variant == "unmasked" else mask
+
+
+def pad_row_operands(sr, bsr, b, mask):
+    """B padded with ⊗-identity rows to the tile matrix's K, the mask with
+    ⊕-identity rows to its M."""
+    bp = np.full((bsr.shape[1], PM), sr.one, dtype=np.dtype(sr.dtype))
+    bp[:PK] = b
+    if mask is None:
+        return bp, None
+    mp = np.full((bsr.shape[0], PM), sr.zero, dtype=np.dtype(sr.dtype))
+    mp[:PN] = mask
+    return bp, mp
+
+
 @pytest.fixture(scope="module")
 def jax_side():
     """Per case: the problem, the JAX oracle, the JAX tile matrix with its
     padded operands, the JAX `_spgemm_operands` and the Pallas kernel's
-    output in interpret mode."""
+    output in interpret mode; per PAD_ROW_CASES case the tile matrix, its
+    padded operands and the JAX package's ``semiring_spgemm_ref``."""
     out = {}
     for name, masked in CASES:
         sr = jsemiring.SEMIRINGS[name]
@@ -113,6 +181,15 @@ def jax_side():
             "coo": jformats.build_coo(rows, cols, vals, (N, K), sr),
             "csr": jformats.build_csr(rows, cols, vals, (N, K), sr),
         }
+    for case in PAD_ROW_CASES:
+        name, bm, variant = case
+        sr = jsemiring.SEMIRINGS[name]
+        rows, cols, vals, b, mask = pad_row_problem(*case)
+        bsr = jformats.build_bsr_padded(rows, cols, vals, (PN, PK), sr, block=(bm, bm))
+        bp, mp = pad_row_operands(sr, bsr, b, mask)
+        out["pad_row", *case] = {
+            "bsr": bsr, "padded": (bp, mp),
+            "oracle": np.asarray(jops.semiring_spgemm_ref(bsr, jarr(bp, sr), sr, jarr(mp, sr)))}
     return out
 
 
@@ -271,3 +348,147 @@ def test_wrapper_rejects_bad_operands():
         tops.semiring_spgemm(convert.padded_bsr_from_numpy(
             np.zeros((2, 3, 16, 16), np.float32), np.zeros((2, 3), np.int32), (32, 64),
             (16, 16), device="cpu"), torch.zeros((48, 5)), sr)
+
+
+@pytest.mark.parametrize("name,bm,variant", PAD_ROW_CASES, ids=PAD_ROW_IDS)
+def test_pad_row_decomposition_matches_plain_and_jax(jax_side, name, bm, variant):
+    """Real slots densely, then P once per pad slot (``spgemm_pad_row_ref``)
+    equals the plain version, which folds every slot, exactly (NaN where
+    NaN), and the JAX package's ``semiring_spgemm_ref`` (⟨+,×⟩ within rtol
+    1e-5, atol 1e-6). The problem has pad slots, at 16×16 block rows with
+    none real; NaN and the negative row reach the output only through the
+    pads."""
+    case = jax_side["pad_row", name, bm, variant]
+    sr = tsemiring.SEMIRINGS[name]
+    bsr = port_bsr(case["bsr"])
+    bp, mp = case["padded"]
+    b, mk, meta, bn, n = tops._spgemm_operands(bsr, tten(bp), sr, tten(mp))
+    t = bsr.tiles.shape[1]
+    n_real = tref.ell_n_real(meta[:, :t])
+    assert int(n_real.min()) < t                                  # pad slots exist
+    got = tref.spgemm_pad_row_ref(bsr.tiles, meta, b, mk, sr, bn)
+    plain = tref.spgemm_padded_ref(bsr.tiles, meta, b, mk, sr, bn)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0, equal_nan=True)
+    if variant in ("masked", "unmasked"):
+        assert torch.equal(got, plain)
+    if variant == "pad-nan":
+        assert bool(torch.isnan(got).any())
+    assert_match(got[:, :n], case["oracle"], name)
+
+
+def test_pad_row_by_hand():
+    """P[c] = ⊕_{k<bk} (zero ⊗ b[k, c]) over B's first bk rows, per
+    semiring: ±0 or NaN under ⟨+,×⟩, +inf or NaN under ⟨min,+⟩ and ⟨min,×⟩
+    (-inf where b < 0), Σ min(0, b) under ⟨+,∧⟩, max over k of min(0, b)
+    under ⟨∨,∧⟩. Row 2 lies past bk = 2 and is not read."""
+    inf, nan = float("inf"), float("nan")
+    b = torch.tensor([[1.0, inf, -2.0, 0.0], [3.0, 4.0, nan, -inf], [nan, nan, nan, nan]])
+    got = {name: tref.pad_row(b.to(sr.dtype) if sr.dtype == torch.float32 else
+                              torch.tensor([[1, 5, -2, 0], [3, 4, -7, -1], [-9, -9, -9, -9]],
+                                           dtype=torch.int32), sr, 2)
+           for name, sr in tsemiring.SEMIRINGS.items()}
+    np.testing.assert_array_equal(got["plus_times"].numpy(), [0.0, nan, nan, nan])
+    np.testing.assert_array_equal(got["min_plus"].numpy(), [inf, inf, nan, nan])
+    np.testing.assert_array_equal(got["min_times"].numpy(), [inf, inf, nan, nan])
+    assert got["plus_and"].tolist() == [0, 0, -9, -1]
+    assert got["bool_or_and"].tolist() == [0, 0, -2, 0]
+    assert all(p.dtype == tsemiring.SEMIRINGS[k].dtype and p.is_contiguous()
+               for k, p in got.items())
+
+
+def test_finite_flags_by_hand():
+    """One flag per A tile and per B block, 1 iff every value is finite:
+    A tile (1, 0) holds an inf, B block (2, 1) a NaN."""
+    tiles = torch.ones((2, 3, 4, 2))
+    tiles[1, 0, 3, 1] = float("inf")
+    b = torch.ones((3 * 2, 2 * 4))
+    b[5, 6] = float("nan")
+    a_fin, b_fin = spgemm_tiles.finite_flags(tiles, b, 4)
+    assert a_fin.dtype == b_fin.dtype == torch.int32
+    assert a_fin.tolist() == [[1, 1, 1], [0, 1, 1]]
+    assert b_fin.tolist() == [[1, 1], [1, 1], [1, 0]]
+
+
+def test_kernel6_groups_and_group_size():
+    """Kernel 6's groups: 256 output columns up to 64 rows, one tile above;
+    on a random flag pattern every active tile lies in exactly one group,
+    each group holds up to G consecutive active tiles of one block row, and
+    the groups go by their first tile-column, then block row."""
+    assert [spgemm_tiles.group_size(bm) for bm in (1, 16, 24, 32, 48, 64, 65, 128)] == \
+        [16, 16, 8, 8, 4, 4, 1, 1]
+    rng = np.random.default_rng(2)
+    t, mb, nb = 3, 9, 23
+    flags = torch.from_numpy((rng.random((mb, nb)) < 0.6).astype(np.int32))
+    flags[4] = 0
+    meta = torch.cat([torch.zeros((mb, t), dtype=torch.int32), flags], dim=1)
+    for g in (1, 4, 16):
+        active, groups = spgemm_tiles.group_tiles(meta, t, g)
+        assert torch.equal(active.long(), torch.nonzero(flags))
+        covered = torch.zeros(active.shape[0], dtype=torch.int64)
+        keys = []
+        for first, count in groups.tolist():
+            assert 1 <= count <= g
+            assert len(set(active[first:first + count, 0].tolist())) == 1
+            covered[first:first + count] += 1
+            keys.append((int(active[first, 1]), int(active[first, 0])))
+        assert (covered == 1).all() and keys == sorted(keys)
+
+
+def test_tensor_cores_take_plus_times_at_multiples_of_16():
+    sr = tsemiring.SEMIRINGS
+    assert spgemm_tiles.tensor_cores(sr["plus_times"], 64, 64)
+    assert spgemm_tiles.tensor_cores(sr["plus_times"], 16, 128)
+    assert not spgemm_tiles.tensor_cores(sr["plus_times"], 24, 64)
+    assert not spgemm_tiles.tensor_cores(sr["plus_times"], 64, 40)
+    assert not any(spgemm_tiles.tensor_cores(sr[name], 64, 64)
+                   for name in ("min_plus", "min_times", "plus_and", "bool_or_and"))
+
+
+def tf32(x: np.ndarray) -> np.ndarray:
+    """float32 rounded to TF32 on its bit pattern: 10 mantissa bits, to
+    nearest with ties away from zero (as cvt.rna.tf32.f32)."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def matmul_3xtf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The kernel's product on the tensor cores, in plain numpy: each
+    operand split into hi = tf32(x) and lo = tf32(x - hi), and lo·hi +
+    hi·lo + hi·hi accumulated in fp32, k by k (each TF32 product is exact
+    in fp32)."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(a.shape[1]):
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc = acc + np.outer(x[:, k], y[k]).astype(np.float32)
+    return acc
+
+
+def test_tf32_rounding_by_hand():
+    """Half a TF32 ulp rounds away from zero; below half, down; integers
+    up to 2¹¹ are TF32 values, so their rest is 0."""
+    one, ulp = np.float32(1.0), np.float32(2.0 ** -10)
+    x = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12, 2047.0, 2048.0, 3.0],
+                 np.float32)
+    np.testing.assert_array_equal(tf32(x), [one + ulp, -(one + ulp), one, 2047.0, 2048.0, 3.0])
+    ints = np.arange(-2048, 2049, dtype=np.float32)
+    np.testing.assert_array_equal(tf32(ints), ints)
+
+
+@pytest.mark.parametrize("k", [64, 4096])
+def test_3xtf32_matches_fp32(k):
+    """On random [0, 1) operands the 3×TF32 product is within rtol 1e-5,
+    atol 1e-6 of the fp32 product (float64 reference, rounded to fp32);
+    on integer-valued operands (0..9, sums below 2²⁴) it is exact. A
+    single TF32 product is not: it misses rtol 1e-5."""
+    rng = np.random.default_rng(k)
+    a = rng.random((24, k)).astype(np.float32)
+    b = rng.random((k, 16)).astype(np.float32)
+    want = (a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
+    np.testing.assert_allclose(matmul_3xtf32(a, b), want, rtol=1e-5, atol=1e-6)
+    one_pass = (tf32(a).astype(np.float64) @ tf32(b).astype(np.float64)).astype(np.float32)
+    assert not np.allclose(one_pass, want, rtol=1e-5, atol=1e-6)
+    ai = rng.integers(0, 10, (24, k)).astype(np.float32)
+    bi = rng.integers(0, 10, (k, 16)).astype(np.float32)
+    np.testing.assert_array_equal(matmul_3xtf32(ai, bi), ai.astype(np.int64) @ bi.astype(np.int64))
