@@ -127,6 +127,7 @@ spgemm_binary_kernel(const int8_t* __restrict__ a8, const int* __restrict__ meta
   const int stage_bytes = (BM + C::kN) * ld_s;
   const int first = groups[2 * static_cast<size_t>(blockIdx.x)];
   const int count = groups[2 * static_cast<size_t>(blockIdx.x) + 1];
+  if (count == 0) return;
   const int i = active[2 * static_cast<size_t>(first)];
   const int bn = bm;
   const int slots = n_real[i];

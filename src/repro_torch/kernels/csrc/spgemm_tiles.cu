@@ -287,6 +287,7 @@ spgemm_group_kernel(const Args<typename Ops<SR>::T> p) {
   const int tid = threadIdx.x;
   const int first = p.groups[2 * static_cast<size_t>(blockIdx.x)];
   const int count = p.groups[2 * static_cast<size_t>(blockIdx.x) + 1];
+  if (count == 0) return;
   const int i = p.active[2 * static_cast<size_t>(first)];
   const int bm = p.bm, bk = p.bk, bn = bm;
   const int n_real = p.n_real[i];

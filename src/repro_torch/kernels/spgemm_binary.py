@@ -88,18 +88,16 @@ def semiring_spgemm_binary(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor,
         raise ValueError(f"{name}: the mask must be 8-byte aligned")
     out = torch.zeros((mb * bm, b.shape[1]), dtype=sr.dtype, device=tiles.device)
     active, groups = group_tiles(meta, t, group_size(bm))
-    if groups.shape[0] == 0:
-        return out
     a8, bt8 = pack(tiles, b)
     _launch(a8, bt8, ref.ell_n_real(meta[:, :t]), active, groups, meta, mask, out, sr)
-    semiring_spgemm_binary.launches += 1
     return out
 
 
 def _launch(a8: Tensor, bt8: Tensor, n_real: Tensor, active: Tensor, groups: Tensor,
             meta: Tensor, mask: Tensor, out: Tensor, sr: Semiring) -> None:
     """One launch of the kernel on packed operands (``pack``,
-    ``group_tiles``) on the current stream; raises if it is refused."""
+    ``group_tiles``) on the current stream; adds one to
+    ``semiring_spgemm_binary.launches``; raises if it is refused."""
     mb, t, bm, bk = a8.shape
     fn = _build.spgemm_binary_kernel()
     with torch.cuda.device(a8.device):
@@ -110,6 +108,7 @@ def _launch(a8: Tensor, bt8: Tensor, n_real: Tensor, active: Tensor, groups: Ten
                  group_size(bm), int(sr.name == "bool_or_and"), stream)
     if err:
         raise RuntimeError(f"semiring_spgemm_binary: kernel launch failed with cudaError_t {err}")
+    semiring_spgemm_binary.launches += 1
 
 
 semiring_spgemm_binary.launches = 0

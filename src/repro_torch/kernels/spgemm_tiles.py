@@ -93,25 +93,34 @@ def tensor_cores(sr: Semiring, bm: int, bk: int) -> bool:
 
 
 def group_tiles(meta: Tensor, t: int, g: int) -> tuple[Tensor, Tensor]:
-    """The active output tiles and their groups: ``active`` int32
-    [n_active, 2] = (i, j) block-row-major, and ``groups`` int32
-    [n_groups, 2] = (first, count), each a run of up to ``g`` consecutive
-    active tiles of one block row, ordered by the tile-column of their first
-    tile (then block row), so that groups running together read the same
-    column strips of B."""
-    active = torch.nonzero(meta[:, t:] > 0)                        # [n_act, 2] int64
-    if active.shape[0] == 0:
-        empty = torch.zeros((0, 2), dtype=torch.int32, device=meta.device)
-        return empty, empty
-    rows = active[:, 0]
-    counts = torch.bincount(rows, minlength=meta.shape[0])
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(rows.shape[0], device=meta.device) - starts[rows]
-    first = torch.nonzero(rank % g == 0)[:, 0]
-    size = torch.clamp(counts[rows[first]] - rank[first], max=g)
-    order = torch.argsort(active[first, 1] * meta.shape[0] + rows[first])
-    groups = torch.stack([first[order], size[order]], dim=1)
-    return active.to(torch.int32).contiguous(), groups.to(torch.int32).contiguous()
+    """The active output tiles and their groups, built on the device with
+    no host sync. Block row i has Q = ceil(nb / g) groups; group (i, q)
+    holds its row's active tiles of ranks q·g to q·g + g − 1.
+    ``active`` int32 [mb·Q·g, 2]: entry (i·Q + q)·g + r is (i, j) of the
+    r-th tile of group (i, q), j = −1 past the row's active tiles.
+    ``groups`` int32 [mb·Q, 2] = (first, count): active[first : first +
+    count] are the group's tiles. Groups with a tile go first, ordered by
+    the tile-column of their first tile (then block row), so that groups
+    running together read the same column strips of B; the empty ones
+    (count 0, whose CUDA block returns at once) go last."""
+    mb = meta.shape[0]
+    flags = meta[:, t:] > 0                                        # [mb, nb]
+    nb = flags.shape[1]
+    q = -(-nb // g)
+    dev = meta.device
+    rank = torch.cumsum(flags, dim=1) - 1
+    slot = torch.where(flags, rank, q * g)                         # q·g: a spare column
+    cols = torch.full((mb, q * g + 1), -1, dtype=torch.int32, device=dev)
+    cols.scatter_(1, slot, torch.arange(nb, dtype=torch.int32, device=dev).expand(mb, nb)
+                  .contiguous())
+    cols = cols[:, :q * g]
+    count = (flags.sum(dim=1, keepdim=True) - g * torch.arange(q, device=dev)).clamp(0, g)
+    rows = torch.arange(mb, device=dev)[:, None]
+    key = torch.where(count > 0, cols[:, ::g].long() * mb + rows, mb * nb)
+    order = torch.argsort(key.flatten(), stable=True)
+    active = torch.stack([rows.expand(mb, q * g).to(torch.int32), cols], dim=2).view(-1, 2)
+    groups = torch.stack([order * g, count.flatten()[order]], dim=1)
+    return active.contiguous(), groups.to(torch.int32).contiguous()
 
 
 def finite_flags(tiles: Tensor, b: Tensor, bn: int) -> tuple[Tensor, Tensor]:
@@ -138,10 +147,7 @@ def semiring_spgemm_padded(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor,
     mb, t, bm, bk = tiles.shape
     out = torch.full((mb * bm, b.shape[1]), sr.zero, dtype=sr.dtype, device=tiles.device)
     active, groups = group_tiles(meta, t, group_size(bm))
-    if groups.shape[0] == 0:
-        return out
     _launch(tiles, meta, b, mask, out, active, groups, sr, tensor_cores(sr, bm, bk))
-    semiring_spgemm_padded.launches += 1
     return out
 
 
@@ -150,8 +156,9 @@ def _launch(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, out: Tensor, a
             g: int | None = None) -> None:
     """One launch of the kernel on the current stream into ``out`` (filled
     with the ⊕-identity), on the tensor cores where ``on_tensor_cores``
-    (it must hold ``tensor_cores``); adds the kernel's counts to
-    ``semiring_spgemm_padded.paths``; raises if the launch is refused.
+    (it must hold ``tensor_cores``); adds one to
+    ``semiring_spgemm_padded.launches`` and the kernel's counts to its
+    ``.paths``; raises if the launch is refused.
     ``kernel`` and ``g``: another build's C entry and its group size (the
     sweep tool's variants); ``groups`` must come from ``group_tiles`` with
     that group size."""
@@ -171,6 +178,7 @@ def _launch(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, out: Tensor, a
                  int(on_tensor_cores), stream)
     if err:
         raise RuntimeError(f"semiring_spgemm_padded: kernel launch failed with cudaError_t {err}")
+    semiring_spgemm_padded.launches += 1
     paths = semiring_spgemm_padded.paths
     for k, v in zip(PATHS, counts):
         paths[k] = paths[k] + v

@@ -410,10 +410,13 @@ def test_finite_flags_by_hand():
 
 
 def test_kernel6_groups_and_group_size():
-    """Kernel 6's groups: 256 output columns up to 64 rows, one tile above;
-    on a random flag pattern every active tile lies in exactly one group,
-    each group holds up to G consecutive active tiles of one block row, and
-    the groups go by their first tile-column, then block row."""
+    """Kernel 6's group sizes: 256 output columns up to 64 rows, one tile
+    above. Its CUDA blocks group a block row's active tiles as
+    ``spgemm_tiles.group_tiles`` does: on a random flag pattern every
+    active tile lies in exactly one group,
+    each group holds up to G consecutive active tiles of one block row, the
+    groups with a tile go by their first tile-column, then block row, and
+    the empty ones (count 0) go last."""
     assert [spgemm_tiles.group_size(bm) for bm in (1, 16, 24, 32, 48, 64, 65, 128)] == \
         [16, 16, 8, 8, 4, 4, 1, 1]
     rng = np.random.default_rng(2)
@@ -423,15 +426,22 @@ def test_kernel6_groups_and_group_size():
     meta = torch.cat([torch.zeros((mb, t), dtype=torch.int32), flags], dim=1)
     for g in (1, 4, 16):
         active, groups = spgemm_tiles.group_tiles(meta, t, g)
-        assert torch.equal(active.long(), torch.nonzero(flags))
-        covered = torch.zeros(active.shape[0], dtype=torch.int64)
-        keys = []
-        for first, count in groups.tolist():
-            assert 1 <= count <= g
-            assert len(set(active[first:first + count, 0].tolist())) == 1
-            covered[first:first + count] += 1
-            keys.append((int(active[first, 1]), int(active[first, 0])))
-        assert (covered == 1).all() and keys == sorted(keys)
+        q = -(-nb // g)
+        assert active.shape == (mb * q * g, 2) and groups.shape == (mb * q, 2)
+        counts = groups[:, 1]
+        n_full = int((counts > 0).sum())
+        assert (counts[:n_full] > 0).all() and (counts[n_full:] == 0).all()
+        tiles, keys = [], []
+        for first, count in groups[:n_full].tolist():
+            assert 1 <= count <= g and first % g == 0
+            part = active[first:first + count]
+            assert len(set(part[:, 0].tolist())) == 1
+            cols = part[:, 1].tolist()
+            assert cols == sorted(cols) and min(cols) >= 0
+            tiles += part.tolist()
+            keys.append((cols[0], int(part[0, 0])))
+        assert sorted(tiles) == torch.nonzero(flags).tolist()
+        assert keys == sorted(keys)
 
 
 def test_tensor_cores_take_plus_times_at_multiples_of_16():

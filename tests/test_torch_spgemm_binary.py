@@ -250,7 +250,9 @@ def test_pack_keeps_a_and_transposes_b():
 def test_group_tiles_by_hand():
     """Block row 0 has active tiles at columns 0, 1, 3, 4, 6; row 1 at 2;
     row 2 none; row 3 at 1, 5. Groups of up to 2 consecutive active tiles
-    of a row, ordered by the column of their first tile, then row."""
+    of a row, ordered by the column of their first tile, then row; each
+    row has ceil(7 / 2) = 4 groups of 2 entries, and the empty groups go
+    last."""
     t = 3
     flags = torch.tensor([[1, 1, 0, 1, 1, 0, 1],
                           [0, 0, 1, 0, 0, 0, 0],
@@ -258,12 +260,16 @@ def test_group_tiles_by_hand():
                           [0, 1, 0, 0, 0, 1, 0]], dtype=torch.int32)
     meta = torch.cat([torch.zeros((4, t), dtype=torch.int32), flags], dim=1)
     active, groups = spgemm_binary.group_tiles(meta, t, 2)
-    assert active.tolist() == [[0, 0], [0, 1], [0, 3], [0, 4], [0, 6], [1, 2], [3, 1], [3, 5]]
-    assert groups.dtype == torch.int32
-    # (first, count): row 0 → (0,2) (2,2) (4,1); row 1 → (5,1); row 3 → (6,2)
-    assert groups.tolist() == [[0, 2], [6, 2], [5, 1], [2, 2], [4, 1]]
+    assert active.dtype == groups.dtype == torch.int32
+    assert active.shape == (4 * 4 * 2, 2) and groups.shape == (4 * 4, 2)
+    # (first, count): group q of row i starts at entry (4i + q)·2
+    assert groups[:5].tolist() == [[0, 2], [24, 2], [8, 1], [2, 2], [4, 1]]
+    assert [active[f:f + c].tolist() for f, c in groups[:5].tolist()] == \
+        [[[0, 0], [0, 1]], [[3, 1], [3, 5]], [[1, 2]], [[0, 3], [0, 4]], [[0, 6]]]
+    assert (groups[5:, 1] == 0).all()
     none = spgemm_binary.group_tiles(torch.zeros((2, t + 3), dtype=torch.int32), t, 2)
-    assert none[0].shape == none[1].shape == (0, 2)
+    assert none[0].shape == (8, 2) and none[1].shape == (4, 2)
+    assert (none[1][:, 1] == 0).all()
 
 
 def test_group_size_matches_the_kernels_configurations():

@@ -5,7 +5,8 @@ NVIDIA GPU on full-size ca-Q with phase 9's operands of ``chip_smoke.py``
 (B dense, a mask of density 0.4, every semiring in its safe domain):
 
     python3 tools/spgemm_tiles_sweep.py [--variants base,KC=16+STAGES=4,...]
-        [--blocks 16,64,128] [--triangle]
+        [--blocks 16,64,128] [--semirings plus_times,...] [--repeat R]
+        [--degree 81,1000] [--triangle]
 
 A variant is ``base`` (the source as it is) or NAME=VALUE pairs joined by
 ``+``, each built as ``-DSPGEMM_NAME=VALUE``: ``KC`` (k-columns of a ring
@@ -24,7 +25,12 @@ tensor cores (3×TF32) and on the CUDA cores, beside
 ``torch.sparse.sampled_addmm`` (mask as CSR, A dense) and the wrapper's
 per-call preparation (groups, pad row, finite flags). ``--triangle`` adds
 cit-HP's triangle operands at 64×64 (int32 ⟨+,∧⟩, the operands kernel 6
-is timed on in phase 10), held to ``torch._int_mm``. Prints the nvcc
+is timed on in phase 10), held to ``torch._int_mm``. ``--repeat`` times
+every (variant, path) R rounds in turn (a list a row). ``--degree`` adds,
+for each degree d, ⟨+,×⟩ f32 at 64×64 on a 4096 × 4096 A with about d
+nonzeros in every row: each path's worst ratio |y − want| / (atol + rtol
+· |want|) under phase 9's tolerance (rtol 1e-5, atol 1e-6), against the
+plain version and against the product in float64. Prints the nvcc
 register and spill lines of each variant, the card's name and power
 limit, then one JSON object. Exits non-zero without a card.
 """
@@ -86,6 +92,10 @@ def main() -> int:
     parser.add_argument("--variants",
                         default="base,TC_STAGES=3+TC_BLOCKS=1,COLS=128,KC=16+STAGES=4")
     parser.add_argument("--blocks", default="64")
+    parser.add_argument("--semirings", default=None,
+                        help="comma-separated semiring names (default: all)")
+    parser.add_argument("--repeat", type=int, default=1)
+    parser.add_argument("--degree", default="")
     parser.add_argument("--triangle", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -151,8 +161,46 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     caq = generate("ca-Q", 1.0, SEED)
     n = caq.n
-    report = {"graph": "ca-Q", "variants": variants, "rows": []}
+    report = {"graph": "ca-Q", "variants": variants, "rows": [], "precision": [],
+              "caq_max_row_degree": int(np.bincount(caq.rows).max())}
+
+    def ratio(y, want) -> float:
+        """Worst |y − want| / (atol + rtol·|want|) under ⟨+,×⟩'s tolerance."""
+        y, want = y.double(), want.double()
+        return float(((y - want).abs() / (1e-6 + 1e-5 * want.abs())).max())
+
+    # --degree: ⟨+,×⟩ f32 at 64×64 on a 4096² A with about d nonzeros a
+    # row, values and B in [0, 1): each path's worst ratio against the
+    # plain version and against float64
+    sr = SEMIRINGS["plus_times"]
+    for degree in (int(x) for x in args.degree.split(",") if x):
+        nd, bm = 4096, 64
+        keep = torch.rand((nd, nd), generator=gen, device=dev) < degree / nd
+        a_dense = torch.where(keep, torch.rand((nd, nd), generator=gen, device=dev), 0.0)
+        b = torch.rand((nd, nd), generator=gen, device=dev)
+        r, c = torch.nonzero(a_dense, as_tuple=True)
+        a = build_bsr_padded(r.int().cpu().numpy(), c.int().cpu().numpy(),
+                             a_dense[r, c].cpu().numpy(), (nd, nd), sr, block=(bm, bm),
+                             device=dev)
+        bp, mk, meta, bn, _ = ops._spgemm_operands(a, b, sr, None)
+        want64 = a_dense.double() @ b.double()
+        plain = ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn)
+        row = {"degree": degree, "max_row_degree": int(keep.sum(dim=1).max()),
+               "tiles": list(a.tiles.shape), "plain_vs_f64": ratio(plain, want64)}
+        for tc in (True, False):
+            y = runner(variants[0], a.tiles, meta, bp, mk, sr, tc)()
+            key = "tensor" if tc else "cuda"
+            row[f"{key}_vs_plain"] = ratio(y, plain)
+            row[f"{key}_vs_f64"] = ratio(y, want64)
+        report["precision"].append(row)
+        print(json.dumps(row), flush=True)
+        del keep, a_dense, b, a, bp, mk, meta, want64, plain, y
+        torch.cuda.empty_cache()
+
+    names = args.semirings.split(",") if args.semirings else list(SEMIRINGS)
     for name, sr in SEMIRINGS.items():
+        if name not in names:
+            continue
         def u():
             return torch.rand((n, n), generator=gen, device=dev)
 
@@ -181,6 +229,7 @@ def main() -> int:
                    "n_active": st_["n_active"], "real_slots": st_["real_slots"],
                    "real_macs": st_["real_macs"], "pad_pairs": None}
             paths = [True, False] if st.tensor_cores(sr, bm, bm) else [False]
+            calls = {}
             for tag in variants:
                 for tc in paths:
                     call = runner(tag, a.tiles, meta, bp, mk, sr, tc)
@@ -188,8 +237,12 @@ def main() -> int:
                     same(call(), want, sr, f"{name} {bm} {tag} tc={tc}")
                     counts = {k: int(v) for k, v in st.semiring_spgemm_padded.paths.items()}
                     row["pad_pairs"] = counts["pad"]
-                    row[f"{'tensor' if tc else 'cuda'}_{tag}_ms"] = time_ms(call)
-                    row[f"{'tensor' if tc else 'cuda'}_{tag}_paths"] = counts
+                    key = f"{'tensor' if tc else 'cuda'}_{tag}"
+                    row[f"{key}_paths"] = counts
+                    calls[key] = call
+            for _ in range(args.repeat):
+                for key, call in calls.items():
+                    row.setdefault(f"{key}_ms", []).append(time_ms(call))
             row["prepare_ms"] = time_ms(lambda: (
                 st.group_tiles(meta, a.tiles.shape[1], st.group_size(bm)),
                 ref.pad_row(bp, sr, bm),
