@@ -13,13 +13,13 @@ PyTorch counterpart of ``repro.core.spgemm``, with the same three paths:
   ``kernels/ops.py::semiring_spgemm``): hand-written CUDA kernels on the
   card, their plain PyTorch versions on the host. Only output tiles with
   a non-empty mask tile are computed. Both fold only each block row's
-  real slots; kernel 6 then adds one precomputed pad row per pad slot,
-  so NaN pads (0·inf) come out as the TPU kernel's, and runs ⟨+,×⟩ on
-  the TF32 tensor cores as three products (3×TF32). On the host,
-  ``tests/test_torch_spgemm.py`` holds that decomposition
-  (``kernels/ref.py::spgemm_pad_row_ref``) and an emulation of the
-  3×TF32 products to the plain version; on the card ``chip_smoke.py``
-  phase 9 checks the pairs kernel 6 reports on each path.
+  real slots; kernel 6 then adds one pad row for the pad slots, so NaN
+  pads (0·inf) come out as the TPU kernel's, and folds ⟨+,×⟩ in fp32 on
+  the CUDA cores. On the host, ``tests/test_torch_spgemm.py`` holds that
+  decomposition (``kernels/ref.py::spgemm_pad_row_ref``) to the plain
+  version; on the card ``chip_smoke.py`` phase 9 checks the real and pad
+  pairs kernel 6 reports, and ⟨+,×⟩ on rows of ~1,000 nonzeros within
+  half its tolerance.
 
 The mask ⊙ is *structural* (GraphBLAS semantics): C keeps its value where
 ``mask != sr.zero`` and collapses to the ⊕-identity elsewhere. B and the

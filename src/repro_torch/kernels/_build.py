@@ -123,12 +123,10 @@ def tile_batch_kernel(source: str, symbol: str):
 
 @functools.lru_cache(maxsize=None)
 def spgemm_kernel():
-    """The masked tile SpGEMM: (tiles, meta, n_real, b, mask, pad row,
-    A-finite flags, B-finite flags, active, groups, out, path counts,
-    n_groups, T, nb, bm, bk, group size, semiring code, tensor cores,
-    stream)."""
+    """The masked tile SpGEMM: (tiles, meta, b, mask, out, path counts, T,
+    mb, nb, bm, bk, group size, semiring code, stream)."""
     return _entry("spgemm_tiles.cu", "semiring_spgemm_padded",
-                  [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)

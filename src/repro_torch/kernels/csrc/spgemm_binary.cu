@@ -25,11 +25,13 @@
 //                                   only (the hardware transpose is for
 //                                   16-bit types)
 //   mask    int32 [mb·bm, nb·bn]    structural mask (≠ 0 ⇒ keep)
-//   active  int32 [n_active, 2]     (i, j) of every output tile whose mask
-//                                   tile is non-empty, block-row-major
+//   active  int32 [n_slots, 2]      (i, j) of the output tiles whose mask
+//                                   tile is non-empty, G entries a group
 //   groups  int32 [n_groups, 2]     (first, count): active[first : first +
 //                                   count] are up to G tiles of one block
-//                                   row; ordered by their first tile-column
+//                                   row; groups with a tile are ordered by
+//                                   their first tile-column, empty ones
+//                                   (count 0) return at once
 //   out     int32 [mb·bm, nb·bn]    zero-filled by the wrapper; the kernel
 //                                   writes the active tiles
 // Square output tiles, bn = bm; bm and bk multiples of 16, at most 128.

@@ -11,100 +11,65 @@
 //   tiles   T_val [mb, T, bm, bk]   A's ELL-of-tiles: real tiles first in
 //                                   increasing tile-column order, then pads
 //                                   (⊕-identity tiles at tile-column 0)
-//   meta    int32 [mb, T + nb]      meta[i, :T] = tile-columns (the
-//                                   mask-tile flags are read by the wrapper)
-//   n_real  int32 [mb]              real slots of each block row (a row
-//                                   with no real tile has 1, a pad)
+//   meta    int32 [mb, T + nb]      meta[i, :T] = tile-columns,
+//                                   meta[i, T+j] = 1 iff mask tile (i, j)
+//                                   is non-empty
 //   b       T_val [kb·bk, nb·bn]    dense right operand
 //   mask    T_val [mb·bm, nb·bn]    structural mask
-//   pad_row T_val [nb·bn]           P[c] = ⊕_{k<bk} (zero ⊗ b[k, c]): what
-//                                   one pad slot adds to output column c
-//   a_fin   int32 [mb, T]           1 iff A tile (i, t) is all finite
-//   b_fin   int32 [kb, nb]          1 iff B block (k, j) is all finite (the
-//                                   two flags are read on the tensor-core
-//                                   path only)
-//   active  int32 [n_active, 2]     (i, j) of every output tile whose mask
-//                                   tile is non-empty, block-row-major
-//   groups  int32 [n_groups, 2]     (first, count): active[first : first +
-//                                   count] are up to G tiles of one block
-//                                   row, ordered by their first tile-column
 //   out     T_val [mb·bm, nb·bn]    filled with the ⊕-identity by the
 //                                   wrapper; the kernel writes the active tiles
-//   counts  uint64 [3]              (tile, slot) pairs folded on the tensor
-//                                   cores, on the CUDA cores, and as the pad
-//                                   row; the kernel adds to them
+//   counts  uint64 [2]              (tile, slot) pairs folded as real slots
+//                                   and as the pad row; the kernel adds to them
 // Square output tiles, bn = bm ≤ 128, and bk ≤ 128.
 //
 // Design. Every pad slot is the same ⊕-identity tile under tile-column 0,
-// so what it adds to output column c is one value, P[c], whatever the row.
-// A block of 8 warps owns a group of G output tiles of one block row
-// (G = 16, 8, 4, 1 for bm up to 16, 32, 64, 128: kCols = 256 output
-// columns, 128 at 128) and folds only the row's n_real real slots,
-// densely; then it folds P[c] once per pad slot (for min and max, where ⊕
-// is idempotent, once) and applies the mask. That is the TPU kernel's function exactly:
-// pads come after the real slots in slot order, and their contribution is
-// P. Each A tile staged serves G output tiles. Groups are ordered by
-// tile-column, so blocks running together read the same column strips of
-// B from L2.
+// so what it adds to output column c is one value, P[c] = ⊕_{k<bk} (zero ⊗
+// b[k, c]), whatever the row. A block of 8 warps owns group q of block row
+// i: the row's active output tiles (non-empty mask tiles) of ranks q·G to
+// q·G + G − 1 (G = 16, 8, 4, 1 for bm up to 16, 32, 64, 128: 256 output
+// columns, 128 at 128). It finds them from the row's mask-tile flags, and
+// the row's real slots n_real (1 + the strict increases of its
+// tile-columns: real tiles come first in increasing order, pads repeat
+// tile-column 0), by two block-wide scans; a block whose group is empty
+// returns. It folds only the n_real real slots, densely; then it folds
+// P[c], computed from B's first bk rows, once for the row's pad slots
+// (npad times for the int32 sum) and applies the mask. That is the TPU
+// kernel's function exactly: pads come after the real slots in slot order,
+// and their contribution is P. Each A tile staged serves G output tiles.
+// The grid runs group q of every block row before group q + 1, so blocks
+// running together read nearby column strips of B from L2. Nothing is
+// prepared on the host or in another launch.
 //
-// The real slots stream through a ring of stages in shared memory, each
-// kKC k-columns of one slot: the A tile's rows (k contiguous, row stride
-// kKC + 4) and the group's B rows (G blocks side by side, row stride N +
-// 8), copied by 16-byte cp.async (4-byte where bm or bk is not a multiple
-// of 4 or an operand is not 16-byte aligned) one or two steps ahead, with
-// one barrier per step. Pads inside a stage (k past bk, rows past bm,
+// The real slots stream through a 3-stage ring in shared memory, each
+// stage kKC k-columns of one slot: the A tile's rows (k contiguous, row
+// stride kKC + 4) and the group's B rows (G blocks side by side, row
+// stride N + 8), copied by 16-byte cp.async (4-byte where bm or bk is not
+// a multiple of 4 or an operand is not 16-byte aligned) two steps ahead,
+// with one barrier per step. Pads inside a stage (k past bk, rows past bm,
 // columns past bn, tiles past the group) hold the ⊕-identity, written
 // once; zero ⊗ zero ⊕ x = x in every semiring, and they are not stored.
 //
-// Two folds over a stage:
-// * CUDA cores, every semiring (3 stages, one block an SM): each thread
-//   owns TM rows (4 apart) × 8 columns (two 4-wide runs 32 apart) of the
-//   group's output in registers; a warp is 4 row lanes × 8 column lanes.
-//   Per 4 k it loads TM 16-byte words of A (one per row, k contiguous) and
-//   8 of B, for 32·TM ⊕/⊗ pairs. The min semirings fold with min.NaN (one
-//   instruction; NaN wins, as min_nan). Integer and min semirings are
-//   exact in any order.
-// * Tensor cores, ⟨+,×⟩ f32 with bm and bk multiples of 16 (2 stages, two
-//   blocks an SM, so that one block's copies and barrier overlap the
-//   other's products): mma.sync m16n8k8 in TF32, three products a step
-//   (3×TF32). Each operand is split into its TF32 rounding and the TF32
-//   rounding of the rest, and lo·hi + hi·lo + hi·hi is accumulated in
-//   fp32, which keeps about fp32's precision (one TF32 product keeps 3
-//   digits). Integers below 2¹¹ have no rest, so integer-valued products
-//   and sums below 2²⁴ stay exact. The split of inf or NaN is NaN, so a
-//   (slot, B block) pair with a non-finite A tile or B block folds its
-//   8-column fragments in fp32 on the CUDA cores instead, into the same
-//   accumulators; the wrapper's all-finite flags decide per pair.
+// The fold, on the CUDA cores for every semiring: each thread owns TM rows
+// (4 apart) × 8 columns (two 4-wide runs 32 apart) of the group's output
+// in registers; a warp is 4 row lanes × 8 column lanes. Per 4 k it loads
+// TM 16-byte words of A (one per row, k contiguous) and 8 of B, for 32·TM
+// ⊕/⊗ pairs. ⟨+,×⟩ is one fp32 FMA a pair; the min semirings fold with
+// min.NaN (NaN wins, as min_nan). Integer and min semirings are exact in
+// any order. ⟨+,×⟩ stays off the tensor cores: as three TF32 products
+// (3×TF32) it ran ~10% faster, but the mma's fp32 accumulation is not
+// rounded to nearest, and its error grows with a row's nonzeros, past
+// rtol 1e-5 at a few hundred (PERF.md §6).
 //
 // Bound on the card: operations. ca-Q ⟨+,×⟩ at 64 × 64 needs 1.04e11 MACs
-// over the real slots: 3.1 ms in fp32 on the CUDA cores, 1.26 ms as three
-// TF32 products on the tensor cores. Besides, the B block of every
+// over the real slots: 3.1 ms in fp32. Besides, the B block of every
 // (output tile, real slot) pair and each group's row of A tiles cross L2
 // into shared memory, 8.2 GB there. On an H100 SXM (700 W) the launch
-// takes ~6.1 ms on the tensor cores and ~6.7 ms on the CUDA cores
-// (tools/spgemm_tiles_sweep.py): the copies overlap the products only in
-// part. The compile-time constants below are that tool's best.
+// takes ~6.8 ms (tools/spgemm_tiles_sweep.py): 46% of the bound.
 
 #include <cstdint>
 #include <type_traits>
 
 #include "tile_fold.cuh"
-
-#ifndef SPGEMM_KC
-#define SPGEMM_KC 32
-#endif
-#ifndef SPGEMM_STAGES
-#define SPGEMM_STAGES 3
-#endif
-#ifndef SPGEMM_TC_STAGES
-#define SPGEMM_TC_STAGES 2
-#endif
-#ifndef SPGEMM_COLS
-#define SPGEMM_COLS 256
-#endif
-#ifndef SPGEMM_TC_BLOCKS
-#define SPGEMM_TC_BLOCKS 2
-#endif
 
 namespace spgemm {
 
@@ -115,29 +80,23 @@ using tilefold::kPlusAnd;
 using tilefold::kPlusTimes;
 using tilefold::Ops;
 
-constexpr int kThreads = 256;           // 8 warps
-constexpr int kTcBlocks = SPGEMM_TC_BLOCKS;  // blocks an SM holds on the tensor-core path
-constexpr int kKC = SPGEMM_KC;         // k-columns of one ring stage
-constexpr int kCcStages = SPGEMM_STAGES;     // ring depth on the CUDA-core path
-constexpr int kTcStages = SPGEMM_TC_STAGES;  // ... and on the tensor-core path
-constexpr int kCols = SPGEMM_COLS;      // output columns of a group (at most)
+constexpr int kThreads = 256;          // 8 warps
+constexpr int kKC = 32;                // k-columns of one ring stage
+constexpr int kStages = 3;             // ring depth
 constexpr int kMaxBlock = 128;
 constexpr int kColCache = 512;         // tile-columns of a row kept in shared memory
 constexpr int kPadA = 4;               // words after each shared A row
 constexpr int kPadB = 8;               // words after each shared B row
 constexpr int kShortK = 16;            // k folded of a stage where bk ≤ 16
-static_assert(kKC % 8 == 0 && kKC >= kShortK && kKC <= kMaxBlock, "stage depth");
-static_assert(kCcStages >= 2 && kTcStages >= 2, "ring depth");
-static_assert(kCols == 128 || kCols == 256, "group width");
 
 __host__ __device__ constexpr int round_block(int bm) {
   return bm <= 16 ? 16 : (bm <= 32 ? 32 : (bm <= 64 ? 64 : 128));
 }
 
-// Output tiles per group for a block of bm rows; the wrapper passes its own
-// count, which must agree.
+// Output tiles per group for a block of bm rows, 256 output columns up to
+// 64 rows; the wrapper passes its own count, which must agree.
 __host__ __device__ constexpr int group_size(int bm) {
-  return round_block(bm) == 128 ? 1 : kCols / round_block(bm);
+  return bm <= 16 ? 16 : (bm <= 32 ? 8 : (bm <= 64 ? 4 : 1));
 }
 
 // BM is bm rounded up to 16, 32, 64 or 128.
@@ -148,18 +107,12 @@ struct Shape {
   static constexpr int LDA = kKC + kPadA;    // 4 banks apart row to row
   static constexpr int LDB = N + kPadB;      // 8 banks apart row to row
   static constexpr int kStageElems = BM * LDA + kKC * LDB;
-  // CUDA-core fold: 8 columns and TM rows a thread; warps WM × WN, each
-  // 4·TM rows × 64 columns
+  // 8 columns and TM rows a thread; warps WM × WN, each 4·TM rows × 64
+  // columns
   static constexpr int TM = BM * N / (kThreads * 8);
   static constexpr int WM = BM / (4 * TM);
   static constexpr int WN = N / 64;
-  static_assert(TM >= 1 && WM * WN == kThreads / 32, "CUDA-core warp tiling");
-  // tensor cores: warps WMT × WNT, each MF m16 × NF n8 fragments
-  static constexpr int WMT = BM == 16 ? 1 : (BM == 128 ? 4 : 2);
-  static constexpr int WNT = (kThreads / 32) / WMT;
-  static constexpr int MF = BM / (16 * WMT);
-  static constexpr int NF = N / (8 * WNT);
-  static_assert(MF >= 1 && NF >= 1, "tensor-core warp tiling");
+  static_assert(TM >= 1 && WM * WN == kThreads / 32, "warp tiling");
 };
 
 template <typename T> struct V4;
@@ -212,8 +165,9 @@ __device__ __forceinline__ typename Ops<SR>::T fold(typename Ops<SR>::T p, typen
   }
 }
 
-// acc ⊕ P folded npad times: once where ⊕ is idempotent (min, max), as a
-// wrapping product for the int32 sum, one by one for the f32 sum.
+// acc ⊕ P folded npad times: as a wrapping product for the int32 sum,
+// else once: ⊕ is idempotent for min and max, and the f32 sum's P is ±0
+// or NaN, which a second add leaves as the first left it.
 template <int SR>
 __device__ __forceinline__ typename Ops<SR>::T pad_fold(typename Ops<SR>::T acc,
                                                         typename Ops<SR>::T p, int npad) {
@@ -221,76 +175,84 @@ __device__ __forceinline__ typename Ops<SR>::T pad_fold(typename Ops<SR>::T acc,
   if constexpr (SR == kPlusAnd) {
     return static_cast<int>(static_cast<unsigned>(acc) +
                             static_cast<unsigned>(npad) * static_cast<unsigned>(p));
-  } else if constexpr (SR == kPlusTimes) {
-    for (int q = 0; q < npad; ++q) acc += p;
-    return acc;
   } else {
     return Ops<SR>::add(acc, p);
   }
-}
-
-// x rounded to TF32, 10 mantissa bits, to nearest with ties away from zero
-// (cvt.rna.tf32.f32 on the bits of a finite x, in two integer operations).
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, each a TF32 value.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// c += a · b over one 16 × 8 × 8 step: a 16 rows × 8 k (row-major), b 8 k
-// × 8 columns (column-major), TF32 in, fp32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 template <typename T>
 struct Args {
   const T* tiles;
   const int* meta;
-  const int* n_real;
   const T* b;
   const T* mask;
-  const T* pad_row;
-  const int* a_fin;
-  const int* b_fin;
-  const int* active;
-  const int* groups;
   T* out;
   unsigned long long* counts;
-  int t_slots, nb, bm, bk;
+  int t_slots, mb, nb, bm, bk;
   int vec;  // 16-byte copies and vector epilogue
 };
 
-template <int SR, int BM, bool TC>
-__global__ void __launch_bounds__(kThreads, TC ? kTcBlocks : 1)
+// Exclusive prefix sum of v over the block's threads in thread order;
+// *total gets the sum over the block. Every thread of the block calls it.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
+  __shared__ int warp_sum[kThreads / 32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    before += w < warp ? warp_sum[w] : 0;
+    sum += warp_sum[w];
+  }
+  __syncthreads();  // warp_sum is free for the next call
+  *total = sum;
+  return before + x - v;
+}
+
+template <int SR, int BM>
+__global__ void __launch_bounds__(kThreads, 1)
 spgemm_group_kernel(const Args<typename Ops<SR>::T> p) {
   using O = Ops<SR>;
   using T = typename O::T;
   using V = typename V4<T>::type;
   using S = Shape<BM>;
-  constexpr int kStages = TC ? kTcStages : kCcStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   __shared__ int tile_j[S::G];
   __shared__ int cols_s[kColCache];
-  __shared__ int ok_s[kStages][1 + S::G];  // per stage: A tile finite, B block g finite
+  __shared__ __align__(16) T pad_s[S::N];  // P of the group's columns
 
   const int tid = threadIdx.x;
-  const int first = p.groups[2 * static_cast<size_t>(blockIdx.x)];
-  const int count = p.groups[2 * static_cast<size_t>(blockIdx.x) + 1];
-  if (count == 0) return;
-  const int i = p.active[2 * static_cast<size_t>(first)];
+  const int grp = blockIdx.x / p.mb, i = blockIdx.x % p.mb;
   const int bm = p.bm, bk = p.bk, bn = bm;
-  const int n_real = p.n_real[i];
+  const int* cols = p.meta + static_cast<size_t>(i) * (p.t_slots + p.nb);
+  const int* flags = cols + p.t_slots;
+  // the group: each thread counts the active tiles of its run of the
+  // row's flags, and the strict increases of the row's tile-columns
+  const int run = (p.nb + kThreads - 1) / kThreads;
+  const int j0 = min(p.nb, tid * run), j1 = min(p.nb, j0 + run);
+  int mine = 0, inc = 0;
+  for (int j = j0; j < j1; ++j) mine += flags[j] > 0;
+  for (int t = tid + 1; t < p.t_slots; t += kThreads) inc += cols[t] > cols[t - 1];
+  int n_active, n_inc;
+  int rank = block_exclusive_scan(mine, &n_active);
+  block_exclusive_scan(inc, &n_inc);
+  const int count = min(S::G, n_active - grp * S::G);
+  if (count <= 0) return;  // the same for every thread of the block
+  for (int j = j0; j < j1; ++j) {
+    if (flags[j] > 0) {
+      const int g = rank++ - grp * S::G;
+      if (g >= 0 && g < S::G) tile_j[g] = j;
+    }
+  }
+  const int n_real = 1 + n_inc;
   const int npad = p.t_slots - n_real;
   const int cps = (bk + kKC - 1) / kKC;  // ring steps per slot
   const int steps = n_real * cps;
@@ -299,11 +261,9 @@ spgemm_group_kernel(const Args<typename Ops<SR>::T> p) {
   // offset into them is size_t.
   const size_t ld = static_cast<size_t>(p.nb) * bn;
   const size_t tile_elems = static_cast<size_t>(bm) * bk;
-  const int* cols = p.meta + static_cast<size_t>(i) * (p.t_slots + p.nb);
   const T* a_row = p.tiles + static_cast<size_t>(i) * p.t_slots * tile_elems;
 
   for (int e = tid; e < kStages * S::kStageElems; e += kThreads) smem[e] = O::zero();
-  if (tid < count) tile_j[tid] = p.active[2 * (static_cast<size_t>(first) + tid) + 1];
   for (int t = tid; t < min(n_real, kColCache); t += kThreads) cols_s[t] = cols[t];
   __syncthreads();
 
@@ -352,282 +312,136 @@ spgemm_group_kernel(const Args<typename Ops<SR>::T> p) {
         bs[(e / S::N) * S::LDB + e % S::N] = O::zero();
       }
     }
-    if constexpr (TC) {
-      if (tid <= count) {
-        const int* src = tid == 0 ? p.a_fin + static_cast<size_t>(i) * p.t_slots + t
-                                  : p.b_fin + static_cast<size_t>(col) * p.nb + tile_j[tid - 1];
-        cp_async4(&ok_s[stage][tid], src);
-      }
-    }
   };
 
   const int warp = tid / 32, lane_id = tid % 32;
-  unsigned long long n_tc = 0;  // thread 0: pairs folded on the tensor cores
-
-  if constexpr (TC) {
-    // ------------------------------------------------ tensor cores, 3×TF32
-    const int gid = lane_id >> 2, tig = lane_id & 3;
-    const int rt0 = (warp / S::WNT) * S::MF * 16;
-    const int ct0 = (warp % S::WNT) * S::NF * 8;
-    float acc[S::MF][S::NF][4];
+  const int lr = lane_id / 8, lc = lane_id % 8;
+  const int row0 = (warp / S::WN) * 4 * S::TM + lr;  // rows row0 + 4u
+  const int col0 = (warp % S::WN) * 64 + 4 * lc;      // columns col0 + v, col0 + 32 + v
+  T acc[S::TM][8];
 #pragma unroll
-    for (int mf = 0; mf < S::MF; ++mf) {
+  for (int u = 0; u < S::TM; ++u) {
 #pragma unroll
-      for (int nf = 0; nf < S::NF; ++nf) {
+    for (int v = 0; v < 8; ++v) acc[u][v] = O::zero();
+  }
+  auto fold_stage = [&](const T* as, const T* bs, auto kend) {
+    constexpr int KEND = decltype(kend)::value;
 #pragma unroll
-        for (int v = 0; v < 4; ++v) acc[mf][nf][v] = 0.0f;
+    for (int k = 0; k < KEND; k += 4) {
+      V av[S::TM];
+#pragma unroll
+      for (int u = 0; u < S::TM; ++u) {
+        av[u] = *reinterpret_cast<const V*>(as + (row0 + 4 * u) * S::LDA + k);
       }
-    }
-    // one stage: the first KEND k of it (KEND = kShortK where bk ≤ kShortK
-    // and each slot is one stage: the rest of that stage is never written).
-    // Bit nf of tc: fragment column nf is in the group and its pair is
-    // finite; of live: it is in the group. The three products of a step
-    // go out as three passes over the fragments, so that consecutive
-    // mma.sync write different accumulators.
-    auto mma_stage = [&](const float* as, const float* bs, unsigned tc, unsigned live, auto kend) {
-      constexpr int KEND = decltype(kend)::value;
 #pragma unroll
-      for (int kk = 0; kk < KEND; kk += 8) {
-        unsigned ah[S::MF][4], al[S::MF][4];
-#pragma unroll
-        for (int mf = 0; mf < S::MF; ++mf) {
-          const float* pa = as + (rt0 + mf * 16 + gid) * S::LDA + kk + tig;
-          split_tf32(pa[0], ah[mf][0], al[mf][0]);
-          split_tf32(pa[8 * S::LDA], ah[mf][1], al[mf][1]);
-          split_tf32(pa[4], ah[mf][2], al[mf][2]);
-          split_tf32(pa[8 * S::LDA + 4], ah[mf][3], al[mf][3]);
-        }
-        unsigned bh[S::NF][2], bl[S::NF][2];
-#pragma unroll
-        for (int nf = 0; nf < S::NF; ++nf) {
-          const float* pb = bs + (kk + tig) * S::LDB + ct0 + nf * 8 + gid;
-          split_tf32(pb[0], bh[nf][0], bl[nf][0]);
-          split_tf32(pb[4 * S::LDB], bh[nf][1], bl[nf][1]);
-        }
-#pragma unroll
-        for (int nf = 0; nf < S::NF; ++nf) {
-#pragma unroll
-          for (int mf = 0; mf < S::MF; ++mf) {
-            if (tc >> nf & 1) mma_tf32(acc[mf][nf], al[mf], bh[nf]);
-          }
-        }
-#pragma unroll
-        for (int nf = 0; nf < S::NF; ++nf) {
-#pragma unroll
-          for (int mf = 0; mf < S::MF; ++mf) {
-            if (tc >> nf & 1) mma_tf32(acc[mf][nf], ah[mf], bl[nf]);
-          }
-        }
-#pragma unroll
-        for (int nf = 0; nf < S::NF; ++nf) {
-#pragma unroll
-          for (int mf = 0; mf < S::MF; ++mf) {
-            if (tc >> nf & 1) mma_tf32(acc[mf][nf], ah[mf], bh[nf]);
-          }
-        }
-        if (live & ~tc) {
-          // a non-finite operand: fp32 on the CUDA cores, same layout
-#pragma unroll
-          for (int nf = 0; nf < S::NF; ++nf) {
-            if (!((live & ~tc) >> nf & 1)) continue;
-            for (int q = 0; q < 8; ++q) {
-              const float* pb = bs + (kk + q) * S::LDB + ct0 + nf * 8 + 2 * tig;
-              const float b0 = pb[0], b1 = pb[1];
-#pragma unroll
-              for (int mf = 0; mf < S::MF; ++mf) {
-                const float* pa = as + (rt0 + mf * 16 + gid) * S::LDA + kk + q;
-                const float a0 = pa[0], a1 = pa[8 * S::LDA];
-                acc[mf][nf][0] = __fmaf_rn(a0, b0, acc[mf][nf][0]);
-                acc[mf][nf][1] = __fmaf_rn(a0, b1, acc[mf][nf][1]);
-                acc[mf][nf][2] = __fmaf_rn(a1, b0, acc[mf][nf][2]);
-                acc[mf][nf][3] = __fmaf_rn(a1, b1, acc[mf][nf][3]);
-              }
-            }
-          }
-        }
-      }
-    };
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < steps) load(s, s);
-      cp_async_commit();
-    }
-    for (int s = 0; s < steps; ++s) {
-      cp_async_wait<kStages - 2>();  // step s's copies by this thread have landed
-      __syncthreads();               // ... and everyone's; step s − 1 is done with
-      const int nxt = s + kStages - 1;
-      if (nxt < steps) load(nxt, nxt % kStages);
-      cp_async_commit();
-      const int stage = s % kStages;
-      const float* as = reinterpret_cast<const float*>(smem) + stage * S::kStageElems;
-      const float* bs = as + BM * S::LDA;
-      const int* ok = ok_s[stage];
-      if (tid == 0 && s % cps == 0) {
-        for (int g = 0; g < count; ++g) n_tc += (ok[0] & ok[1 + g]) != 0;
-      }
-      unsigned tc = 0, live = 0;
-#pragma unroll
-      for (int nf = 0; nf < S::NF; ++nf) {
-        const int g = (ct0 + nf * 8) / BM;
-        if (g < count) {
-          live |= 1u << nf;
-          if (ok[0] & ok[1 + g]) tc |= 1u << nf;
-        }
-      }
-      if (short_k) {
-        mma_stage(as, bs, tc, live, std::integral_constant<int, kShortK>{});
-      } else {
-        mma_stage(as, bs, tc, live, std::integral_constant<int, kKC>{});
-      }
-    }
-    cp_async_wait<0>();
-
-#pragma unroll
-    for (int mf = 0; mf < S::MF; ++mf) {
-#pragma unroll
-      for (int nf = 0; nf < S::NF; ++nf) {
-        const int n = ct0 + nf * 8 + 2 * tig;
-        const int g = n / BM, c = n % BM;
-        if (g >= count) continue;
-        const size_t col = static_cast<size_t>(tile_j[g]) * bn + c;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = rt0 + mf * 16 + gid + 8 * h;
-          if (r >= bm) continue;
-          const size_t off = (static_cast<size_t>(i) * bm + r) * ld + col;
-#pragma unroll
-          for (int w = 0; w < 2; ++w) {
-            if (c + w >= bn) continue;
-            const float v = pad_fold<SR>(acc[mf][nf][2 * h + w], p.pad_row[col + w], npad);
-            p.out[off + w] = p.mask[off + w] != O::zero() ? v : O::zero();
-          }
-        }
-      }
-    }
-  } else {
-    // ------------------------------------------------ CUDA cores
-    const int lr = lane_id / 8, lc = lane_id % 8;
-    const int row0 = (warp / S::WN) * 4 * S::TM + lr;  // rows row0 + 4u
-    const int col0 = (warp % S::WN) * 64 + 4 * lc;      // columns col0 + v, col0 + 32 + v
-    T acc[S::TM][8];
-#pragma unroll
-    for (int u = 0; u < S::TM; ++u) {
-#pragma unroll
-      for (int v = 0; v < 8; ++v) acc[u][v] = O::zero();
-    }
-    auto fold_stage = [&](const T* as, const T* bs, auto kend) {
-      constexpr int KEND = decltype(kend)::value;
-#pragma unroll
-      for (int k = 0; k < KEND; k += 4) {
-        V av[S::TM];
+      for (int q = 0; q < 4; ++q) {
+        const V b0 = *reinterpret_cast<const V*>(bs + (k + q) * S::LDB + col0);
+        const V b1 = *reinterpret_cast<const V*>(bs + (k + q) * S::LDB + col0 + 32);
 #pragma unroll
         for (int u = 0; u < S::TM; ++u) {
-          av[u] = *reinterpret_cast<const V*>(as + (row0 + 4 * u) * S::LDA + k);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const V b0 = *reinterpret_cast<const V*>(bs + (k + q) * S::LDB + col0);
-          const V b1 = *reinterpret_cast<const V*>(bs + (k + q) * S::LDB + col0 + 32);
-#pragma unroll
-          for (int u = 0; u < S::TM; ++u) {
-            const T a = lane(av[u], q);
-            acc[u][0] = fold<SR>(acc[u][0], a, b0.x);
-            acc[u][1] = fold<SR>(acc[u][1], a, b0.y);
-            acc[u][2] = fold<SR>(acc[u][2], a, b0.z);
-            acc[u][3] = fold<SR>(acc[u][3], a, b0.w);
-            acc[u][4] = fold<SR>(acc[u][4], a, b1.x);
-            acc[u][5] = fold<SR>(acc[u][5], a, b1.y);
-            acc[u][6] = fold<SR>(acc[u][6], a, b1.z);
-            acc[u][7] = fold<SR>(acc[u][7], a, b1.w);
-          }
+          const T a = lane(av[u], q);
+          acc[u][0] = fold<SR>(acc[u][0], a, b0.x);
+          acc[u][1] = fold<SR>(acc[u][1], a, b0.y);
+          acc[u][2] = fold<SR>(acc[u][2], a, b0.z);
+          acc[u][3] = fold<SR>(acc[u][3], a, b0.w);
+          acc[u][4] = fold<SR>(acc[u][4], a, b1.x);
+          acc[u][5] = fold<SR>(acc[u][5], a, b1.y);
+          acc[u][6] = fold<SR>(acc[u][6], a, b1.z);
+          acc[u][7] = fold<SR>(acc[u][7], a, b1.w);
         }
       }
-    };
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < steps) load(s, s);
-      cp_async_commit();
     }
-    for (int s = 0; s < steps; ++s) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      const int nxt = s + kStages - 1;
-      if (nxt < steps) load(nxt, nxt % kStages);
-      cp_async_commit();
-      const T* as = smem + (s % kStages) * S::kStageElems;
-      const T* bs = as + BM * S::LDA;
-      if (short_k) {
-        fold_stage(as, bs, std::integral_constant<int, kShortK>{});
-      } else {
-        fold_stage(as, bs, std::integral_constant<int, kKC>{});
-      }
+  };
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  // P of the group's columns, while the first copies fly; the epilogue
+  // reads it after the ring's barriers (steps ≥ 1)
+  if (npad > 0) {
+    for (int n = tid; n < S::N; n += kThreads) {
+      const int g = n / BM, c = n % BM;
+      if (g >= count || c >= bn) continue;
+      const T* bc = p.b + static_cast<size_t>(tile_j[g]) * bn + c;
+      T pv = O::zero();
+#pragma unroll 8
+      for (int k = 0; k < bk; ++k) pv = O::add(pv, O::mul(O::zero(), bc[k * ld]));
+      pad_s[n] = pv;
     }
-    cp_async_wait<0>();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nxt = s + kStages - 1;
+    if (nxt < steps) load(nxt, nxt % kStages);
+    cp_async_commit();
+    const T* as = smem + (s % kStages) * S::kStageElems;
+    const T* bs = as + BM * S::LDA;
+    if (short_k) {
+      fold_stage(as, bs, std::integral_constant<int, kShortK>{});
+    } else {
+      fold_stage(as, bs, std::integral_constant<int, kKC>{});
+    }
+  }
+  cp_async_wait<0>();
 
 #pragma unroll
-    for (int u = 0; u < S::TM; ++u) {
-      const int r = row0 + 4 * u;
-      if (r >= bm) continue;
+  for (int u = 0; u < S::TM; ++u) {
+    const int r = row0 + 4 * u;
+    if (r >= bm) continue;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = col0 + 32 * h;
-        const int g = n / BM, c = n % BM;
-        if (g >= count || c >= bn) continue;
-        const size_t col = static_cast<size_t>(tile_j[g]) * bn + c;
-        const size_t off = (static_cast<size_t>(i) * bm + r) * ld + col;
-        T v[4];
+    for (int h = 0; h < 2; ++h) {
+      const int n = col0 + 32 * h;
+      const int g = n / BM, c = n % BM;
+      if (g >= count || c >= bn) continue;
+      const size_t col = static_cast<size_t>(tile_j[g]) * bn + c;
+      const size_t off = (static_cast<size_t>(i) * bm + r) * ld + col;
+      T v[4];
 #pragma unroll
-        for (int w = 0; w < 4; ++w) v[w] = acc[u][4 * h + w];
-        if (p.vec) {  // c + 3 < bn: bn is a multiple of 4
-          const V pr = *reinterpret_cast<const V*>(p.pad_row + col);
-          const V m = *reinterpret_cast<const V*>(p.mask + off);
+      for (int w = 0; w < 4; ++w) v[w] = acc[u][4 * h + w];
+      if (p.vec) {  // c + 3 < bn: bn is a multiple of 4
+        const V pr = *reinterpret_cast<const V*>(pad_s + n);
+        const V m = *reinterpret_cast<const V*>(p.mask + off);
 #pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            v[w] = pad_fold<SR>(v[w], lane(pr, w), npad);
-            v[w] = lane(m, w) != O::zero() ? v[w] : O::zero();
-          }
-          V o;
-          o.x = v[0];
-          o.y = v[1];
-          o.z = v[2];
-          o.w = v[3];
-          *reinterpret_cast<V*>(p.out + off) = o;
-        } else {
+        for (int w = 0; w < 4; ++w) {
+          v[w] = pad_fold<SR>(v[w], lane(pr, w), npad);
+          v[w] = lane(m, w) != O::zero() ? v[w] : O::zero();
+        }
+        V o;
+        o.x = v[0];
+        o.y = v[1];
+        o.z = v[2];
+        o.w = v[3];
+        *reinterpret_cast<V*>(p.out + off) = o;
+      } else {
 #pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            if (c + w >= bn) continue;
-            const T x = pad_fold<SR>(v[w], p.pad_row[col + w], npad);
-            p.out[off + w] = p.mask[off + w] != O::zero() ? x : O::zero();
-          }
+        for (int w = 0; w < 4; ++w) {
+          if (c + w >= bn) continue;
+          const T x = pad_fold<SR>(v[w], pad_s[n + w], npad);
+          p.out[off + w] = p.mask[off + w] != O::zero() ? x : O::zero();
         }
       }
     }
   }
 
   if (tid == 0) {
-    const unsigned long long pairs = static_cast<unsigned long long>(count) * n_real;
-    atomicAdd(p.counts, n_tc);
-    atomicAdd(p.counts + 1, pairs - n_tc);
-    atomicAdd(p.counts + 2, static_cast<unsigned long long>(count) * npad);
+    atomicAdd(p.counts, static_cast<unsigned long long>(count) * n_real);
+    atomicAdd(p.counts + 1, static_cast<unsigned long long>(count) * npad);
   }
 }
 
-template <int SR, int BM, bool TC>
-int launch(const Args<typename Ops<SR>::T>& args, int n_groups, cudaStream_t stream) {
-  const int smem = (TC ? kTcStages : kCcStages) * Shape<BM>::kStageElems *
-                   static_cast<int>(sizeof(typename Ops<SR>::T));
-  auto kernel = spgemm_group_kernel<SR, BM, TC>;
+template <int SR, int BM>
+int launch(const Args<typename Ops<SR>::T>& args, cudaStream_t stream) {
+  const int smem = kStages * Shape<BM>::kStageElems * static_cast<int>(sizeof(typename Ops<SR>::T));
+  const long long blocks = static_cast<long long>(args.mb) *
+                           ((args.nb + Shape<BM>::G - 1) / Shape<BM>::G);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = spgemm_group_kernel<SR, BM>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<n_groups, kThreads, smem, stream>>>(args);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int SR, bool TC>
-int launch_block(const Args<typename Ops<SR>::T>& args, int n_groups, cudaStream_t stream) {
-  if (args.bm <= 16) return launch<SR, 16, TC>(args, n_groups, stream);
-  if (args.bm <= 32) return launch<SR, 32, TC>(args, n_groups, stream);
-  if (args.bm <= 64) return launch<SR, 64, TC>(args, n_groups, stream);
-  return launch<SR, 128, TC>(args, n_groups, stream);
 }
 
 inline bool aligned16(const void* ptr) {
@@ -635,35 +449,28 @@ inline bool aligned16(const void* ptr) {
 }
 
 template <int SR>
-int launch_semiring(const void* tiles, const void* meta, const void* n_real, const void* b,
-                    const void* mask, const void* pad_row, const void* a_fin, const void* b_fin,
-                    const void* active, const void* groups, void* out, void* counts,
-                    int n_groups, int t_slots, int nb, int bm, int bk, bool tensor_cores,
+int launch_semiring(const void* tiles, const void* meta, const void* b, const void* mask,
+                    void* out, void* counts, int t_slots, int mb, int nb, int bm, int bk,
                     cudaStream_t stream) {
   using T = typename Ops<SR>::T;
   Args<T> args;
   args.tiles = static_cast<const T*>(tiles);
   args.meta = static_cast<const int*>(meta);
-  args.n_real = static_cast<const int*>(n_real);
   args.b = static_cast<const T*>(b);
   args.mask = static_cast<const T*>(mask);
-  args.pad_row = static_cast<const T*>(pad_row);
-  args.a_fin = static_cast<const int*>(a_fin);
-  args.b_fin = static_cast<const int*>(b_fin);
-  args.active = static_cast<const int*>(active);
-  args.groups = static_cast<const int*>(groups);
   args.out = static_cast<T*>(out);
   args.counts = static_cast<unsigned long long*>(counts);
   args.t_slots = t_slots;
+  args.mb = mb;
   args.nb = nb;
   args.bm = bm;
   args.bk = bk;
   args.vec = bm % 4 == 0 && bk % 4 == 0 && aligned16(tiles) && aligned16(b) && aligned16(mask) &&
-             aligned16(out) && aligned16(pad_row);
-  if constexpr (SR == kPlusTimes) {
-    if (tensor_cores) return launch_block<SR, true>(args, n_groups, stream);
-  }
-  return launch_block<SR, false>(args, n_groups, stream);
+             aligned16(out);
+  if (bm <= 16) return launch<SR, 16>(args, stream);
+  if (bm <= 32) return launch<SR, 32>(args, stream);
+  if (bm <= 64) return launch<SR, 64>(args, stream);
+  return launch<SR, 128>(args, stream);
 }
 
 }  // namespace spgemm
@@ -672,30 +479,20 @@ extern "C" int spgemm_tiles_group_size(int bm) { return spgemm::group_size(bm); 
 
 // Returns the cudaError_t of the launch (0 = success). A block shape the
 // kernel does not take, a group size other than spgemm_tiles_group_size(bm),
-// an unknown semiring code, or tensor_cores set for another semiring than
-// ⟨+,×⟩ or for bm or bk not a multiple of 16 (or on an operand not 16-byte
-// aligned) returns cudaErrorInvalidValue without launching; n_groups = 0
-// launches nothing.
-extern "C" int semiring_spgemm_padded(const void* tiles, const void* meta, const void* n_real,
-                                      const void* b, const void* mask, const void* pad_row,
-                                      const void* a_fin, const void* b_fin, const void* active,
-                                      const void* groups, void* out, void* counts, int n_groups,
-                                      int t_slots, int nb, int bm, int bk, int group_size,
-                                      int sr_code, int tensor_cores, void* stream) {
+// an unknown semiring code or a grid past 2³¹ − 1 blocks returns
+// cudaErrorInvalidValue without launching; mb = 0 launches nothing.
+extern "C" int semiring_spgemm_padded(const void* tiles, const void* meta, const void* b,
+                                      const void* mask, void* out, void* counts, int t_slots,
+                                      int mb, int nb, int bm, int bk, int group_size,
+                                      int sr_code, void* stream) {
   using namespace spgemm;
   if (bm < 1 || bm > kMaxBlock || bk < 1 || bk > kMaxBlock || t_slots < 1 || nb < 1 ||
-      n_groups < 0 || group_size != spgemm::group_size(bm)) {
+      mb < 0 || group_size != spgemm::group_size(bm)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (tensor_cores && (sr_code != kPlusTimes || bm % 16 || bk % 16 || !aligned16(tiles) ||
-                       !aligned16(b) || !aligned16(mask) || !aligned16(out))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_groups == 0) return 0;
+  if (mb == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tc = tensor_cores != 0;
-#define SPGEMM_ARGS tiles, meta, n_real, b, mask, pad_row, a_fin, b_fin, active, groups, out, \
-                    counts, n_groups, t_slots, nb, bm, bk, tc, s
+#define SPGEMM_ARGS tiles, meta, b, mask, out, counts, t_slots, mb, nb, bm, bk, s
   switch (sr_code) {
     case kBoolOrAnd: return launch_semiring<kBoolOrAnd>(SPGEMM_ARGS);
     case kMinPlus: return launch_semiring<kMinPlus>(SPGEMM_ARGS);

@@ -163,11 +163,13 @@ def spgemm_pad_row_ref(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, sr:
                        bn: int) -> Tensor:
     """The masked tile SpGEMM as the CUDA kernel decomposes it, in plain
     PyTorch: each flagged output tile folds its block row's ``ell_n_real``
-    real slots as ``spgemm_padded_ref`` folds a slot, then ⊕ ``pad_row``
-    once for each remaining (pad) slot, in slot order; then the mask. Pads
-    come after the real slots and each adds P, so this is
-    ``spgemm_padded_ref``'s function, bit for bit where both reduce alike.
-    Same operands."""
+    real slots as ``spgemm_padded_ref`` folds a slot, then its pad slots
+    as the kernel folds them: npad · ``pad_row`` for the int32 sum, else
+    ⊕ ``pad_row`` once (⊕ is idempotent for min and max, and the f32
+    sum's P is ±0 or NaN, which a second add leaves as the first left
+    it); then the mask. Pads come after the real slots and each adds P,
+    so this is ``spgemm_padded_ref``'s function, bit for bit where both
+    reduce alike. Same operands."""
     mb, t, bm, bk = tiles.shape
     n = b.shape[1]
     nb = n // bn
@@ -191,8 +193,11 @@ def spgemm_pad_row_ref(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, sr:
             contrib = sr.add_reduce(sr.mul(a[:, :, :, None], bb[:, None]), dim=2)
             acc = torch.where(live, sr.add(acc, contrib), acc)
         pads = (t - real)[:, None, None]
-        for slot in range(int(pads.max())):
-            acc = torch.where(slot < pads, sr.add(acc, p[jj][:, None, :]), acc)
+        pj = p[jj][:, None, :]
+        if sr.name == "plus_and":
+            acc = acc + pads.to(sr.dtype) * pj
+        else:
+            acc = torch.where(pads > 0, sr.add(acc, pj), acc)
         keep = mask_tiles[ii, :, jj] != sr.zero                       # [c, bm, bn]
         out_tiles[ii, :, jj] = torch.where(keep, acc, sr.zero)
     return out

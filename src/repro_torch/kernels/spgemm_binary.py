@@ -12,8 +12,8 @@ It takes kernel 6's operands (tiles [mb, T, bm, bk], meta [mb, T + nb]
 and gives kernel 6's result on them, folding only each block row's real
 slots. The wrapper packs A and B to int8 once per call (B transposed to
 [N, K]), groups the active output tiles of each block row by
-``group_size(bm)`` and orders the groups by tile-column (kernel 6's
-``group_tiles``). It does not look
+``group_size(bm)`` and orders the groups by tile-column
+(``group_tiles``, on the card with no host sync). It does not look
 at the values: that they are 0 or 1 is the caller's promise, which the
 front door checks.
 
@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.spgemm_tiles import MAX_BLOCK, _check_operands, group_tiles
+from repro_torch.kernels.spgemm_tiles import MAX_BLOCK, _check_operands
 
 Tensor = torch.Tensor
 
@@ -67,6 +67,37 @@ def pack(tiles: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
     if err:
         raise RuntimeError(f"semiring_spgemm_binary: pack launch failed with cudaError_t {err}")
     return tiles.to(torch.int8), bt8
+
+
+def group_tiles(meta: Tensor, t: int, g: int) -> tuple[Tensor, Tensor]:
+    """The active output tiles and their groups, built on the device with
+    no host sync. Block row i has Q = ceil(nb / g) groups; group (i, q)
+    holds its row's active tiles of ranks q·g to q·g + g − 1.
+    ``active`` int32 [mb·Q·g, 2]: entry (i·Q + q)·g + r is (i, j) of the
+    r-th tile of group (i, q), j = −1 past the row's active tiles.
+    ``groups`` int32 [mb·Q, 2] = (first, count): active[first : first +
+    count] are the group's tiles. Groups with a tile go first, ordered by
+    the tile-column of their first tile (then block row), so that groups
+    running together read the same column strips of B; the empty ones
+    (count 0, whose CUDA block returns at once) go last."""
+    mb = meta.shape[0]
+    flags = meta[:, t:] > 0                                        # [mb, nb]
+    nb = flags.shape[1]
+    q = -(-nb // g)
+    dev = meta.device
+    rank = torch.cumsum(flags, dim=1) - 1
+    slot = torch.where(flags, rank, q * g)                         # q·g: a spare column
+    cols = torch.full((mb, q * g + 1), -1, dtype=torch.int32, device=dev)
+    cols.scatter_(1, slot, torch.arange(nb, dtype=torch.int32, device=dev).expand(mb, nb)
+                  .contiguous())
+    cols = cols[:, :q * g]
+    count = (flags.sum(dim=1, keepdim=True) - g * torch.arange(q, device=dev)).clamp(0, g)
+    rows = torch.arange(mb, device=dev)[:, None]
+    key = torch.where(count > 0, cols[:, ::g].long() * mb + rows, mb * nb)
+    order = torch.argsort(key.flatten(), stable=True)
+    active = torch.stack([rows.expand(mb, q * g).to(torch.int32), cols], dim=2).view(-1, 2)
+    groups = torch.stack([order * g, count.flatten()[order]], dim=1)
+    return active.contiguous(), groups.to(torch.int32).contiguous()
 
 
 def semiring_spgemm_binary(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, *,

@@ -15,23 +15,22 @@ TPU kernel's:
     out   [mb·bm, nb·bn]
 
 The kernel folds each block row's real slots (``ref.ell_n_real``) and then,
-once per pad slot, the pad row P[c] = ⊕_{k<bk} (zero ⊗ b[k, c]) that every
+for its pad slots, the pad row P[c] = ⊕_{k<bk} (zero ⊗ b[k, c]) that every
 pad slot adds to output column c (``ref.pad_row``): the TPU kernel's function
-exactly, pads included. Per call the wrapper computes P, groups the active
-output tiles of each block row by ``group_size(bm)`` (``group_tiles``,
-shared with kernel 6b) and, where ⟨+,×⟩ runs on the tensor cores
-(``tensor_cores``), one all-finite flag per A tile and per B block
-(``finite_flags``): pairs with a non-finite operand fold in fp32 on the
-CUDA cores. ``ref.spgemm_pad_row_ref`` is this decomposition in plain
-PyTorch.
+exactly, pads included. ``ref.spgemm_pad_row_ref`` is this decomposition in
+plain PyTorch. Each CUDA block takes up to ``group_size(bm)`` active output
+tiles of one block row, which it finds from the mask-tile flags itself; it
+also counts the row's real slots and computes P. So the wrapper prepares
+nothing and never waits on the card: one fill of the output, one launch.
+Every semiring folds on the CUDA cores, ⟨+,×⟩ in fp32.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream or
 raises; on a CPU tensor it runs the plain version from ``kernels/ref.py``.
 ``.launches`` counts its kernel launches; ``.paths`` counts the (output
-tile, slot) pairs the kernel reported folding on the tensor cores
-(``tensor``), on the CUDA cores (``cuda``) and as the pad row (``pad``).
-Its values are 0-d int64 tensors on the card once a launch has added to
-them (no host sync per call): read them with ``int()``.
+tile, slot) pairs the kernel reported folding as real slots (``real``)
+and as the pad row (``pad``). Its values are 0-d int64 tensors on the
+card once a launch has added to them (no host sync per call): read them
+with ``int()``.
 """
 from __future__ import annotations
 
@@ -46,7 +45,7 @@ Tensor = torch.Tensor
 # The CUDA kernel keeps a group's output tiles in registers.
 MAX_BLOCK = 128
 # what the kernel reports, in the order of its counts
-PATHS = ("tensor", "cuda", "pad")
+PATHS = ("real", "pad")
 
 
 def _check_operands(name: str, tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor,
@@ -81,56 +80,9 @@ def _check_operands(name: str, tiles: Tensor, meta: Tensor, b: Tensor, mask: Ten
 def group_size(bm: int) -> int:
     """Output tiles of one block row that one CUDA block computes together,
     sharing each A tile it stages (``spgemm_tiles_group_size`` in the
-    source): 256 output columns up to 64 rows (16, 8, 4 tiles up to 16, 32,
-    64 rows), 1 tile above."""
+    source, which refuses a launch that disagrees): 256 output columns up
+    to 64 rows (16, 8, 4 tiles up to 16, 32, 64 rows), 1 tile above."""
     return 16 if bm <= 16 else 8 if bm <= 32 else 4 if bm <= 64 else 1
-
-
-def tensor_cores(sr: Semiring, bm: int, bk: int) -> bool:
-    """Whether the kernel folds on the tensor cores (3×TF32): ⟨+,×⟩ with
-    bm and bk multiples of 16 (the mma's m16 and two of its k8)."""
-    return sr.name == "plus_times" and bm % 16 == 0 and bk % 16 == 0
-
-
-def group_tiles(meta: Tensor, t: int, g: int) -> tuple[Tensor, Tensor]:
-    """The active output tiles and their groups, built on the device with
-    no host sync. Block row i has Q = ceil(nb / g) groups; group (i, q)
-    holds its row's active tiles of ranks q·g to q·g + g − 1.
-    ``active`` int32 [mb·Q·g, 2]: entry (i·Q + q)·g + r is (i, j) of the
-    r-th tile of group (i, q), j = −1 past the row's active tiles.
-    ``groups`` int32 [mb·Q, 2] = (first, count): active[first : first +
-    count] are the group's tiles. Groups with a tile go first, ordered by
-    the tile-column of their first tile (then block row), so that groups
-    running together read the same column strips of B; the empty ones
-    (count 0, whose CUDA block returns at once) go last."""
-    mb = meta.shape[0]
-    flags = meta[:, t:] > 0                                        # [mb, nb]
-    nb = flags.shape[1]
-    q = -(-nb // g)
-    dev = meta.device
-    rank = torch.cumsum(flags, dim=1) - 1
-    slot = torch.where(flags, rank, q * g)                         # q·g: a spare column
-    cols = torch.full((mb, q * g + 1), -1, dtype=torch.int32, device=dev)
-    cols.scatter_(1, slot, torch.arange(nb, dtype=torch.int32, device=dev).expand(mb, nb)
-                  .contiguous())
-    cols = cols[:, :q * g]
-    count = (flags.sum(dim=1, keepdim=True) - g * torch.arange(q, device=dev)).clamp(0, g)
-    rows = torch.arange(mb, device=dev)[:, None]
-    key = torch.where(count > 0, cols[:, ::g].long() * mb + rows, mb * nb)
-    order = torch.argsort(key.flatten(), stable=True)
-    active = torch.stack([rows.expand(mb, q * g).to(torch.int32), cols], dim=2).view(-1, 2)
-    groups = torch.stack([order * g, count.flatten()[order]], dim=1)
-    return active.contiguous(), groups.to(torch.int32).contiguous()
-
-
-def finite_flags(tiles: Tensor, b: Tensor, bn: int) -> tuple[Tensor, Tensor]:
-    """int32 [mb, T], 1 where A tile (i, t) is all finite, and int32 [kb, nb],
-    1 where B block (k, j) is: a pair with a flag 0 leaves the tensor
-    cores, whose split of inf or NaN is NaN."""
-    bk = tiles.shape[3]
-    a_fin = torch.isfinite(tiles).flatten(2).all(dim=2)
-    b_fin = torch.isfinite(b).view(b.shape[0] // bk, bk, b.shape[1] // bn, bn).all(3).all(1)
-    return a_fin.to(torch.int32).contiguous(), b_fin.to(torch.int32).contiguous()
 
 
 def semiring_spgemm_padded(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, *,
@@ -146,36 +98,24 @@ def semiring_spgemm_padded(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor,
         raise ValueError(f"{name}: no kernel for device {tiles.device}")
     mb, t, bm, bk = tiles.shape
     out = torch.full((mb * bm, b.shape[1]), sr.zero, dtype=sr.dtype, device=tiles.device)
-    active, groups = group_tiles(meta, t, group_size(bm))
-    _launch(tiles, meta, b, mask, out, active, groups, sr, tensor_cores(sr, bm, bk))
+    _launch(tiles, meta, b, mask, out, sr)
     return out
 
 
-def _launch(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, out: Tensor, active: Tensor,
-            groups: Tensor, sr: Semiring, on_tensor_cores: bool, kernel=None,
-            g: int | None = None) -> None:
+def _launch(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, out: Tensor,
+            sr: Semiring) -> None:
     """One launch of the kernel on the current stream into ``out`` (filled
-    with the ⊕-identity), on the tensor cores where ``on_tensor_cores``
-    (it must hold ``tensor_cores``); adds one to
-    ``semiring_spgemm_padded.launches`` and the kernel's counts to its
-    ``.paths``; raises if the launch is refused.
-    ``kernel`` and ``g``: another build's C entry and its group size (the
-    sweep tool's variants); ``groups`` must come from ``group_tiles`` with
-    that group size."""
+    with the ⊕-identity); adds one to ``semiring_spgemm_padded.launches``
+    and the kernel's counts to its ``.paths``; raises if the launch is
+    refused."""
     mb, t, bm, bk = tiles.shape
-    n_real = ref.ell_n_real(meta[:, :t])
-    p = ref.pad_row(b, sr, bk)
-    # the flags are read on the tensor-core path only
-    a_fin, b_fin = finite_flags(tiles, b, bm) if on_tensor_cores else (n_real, n_real)
     counts = torch.zeros(len(PATHS), dtype=torch.int64, device=tiles.device)
-    fn = kernel or _build.spgemm_kernel()
+    fn = _build.spgemm_kernel()
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(tiles.data_ptr(), meta.data_ptr(), n_real.data_ptr(), b.data_ptr(),
-                 mask.data_ptr(), p.data_ptr(), a_fin.data_ptr(), b_fin.data_ptr(),
-                 active.data_ptr(), groups.data_ptr(), out.data_ptr(), counts.data_ptr(),
-                 groups.shape[0], t, b.shape[1] // bm, bm, bk, g or group_size(bm), sr.code,
-                 int(on_tensor_cores), stream)
+        err = fn(tiles.data_ptr(), meta.data_ptr(), b.data_ptr(), mask.data_ptr(),
+                 out.data_ptr(), counts.data_ptr(), t, mb, b.shape[1] // bm, bm, bk,
+                 group_size(bm), sr.code, stream)
     if err:
         raise RuntimeError(f"semiring_spgemm_padded: kernel launch failed with cudaError_t {err}")
     semiring_spgemm_padded.launches += 1

@@ -7,11 +7,9 @@ interpret mode, runs once per module.
 
 Also kernel 6's decomposition as its CUDA kernel folds it
 (``ref.spgemm_pad_row_ref``: each block row's real slots, then the pad row
-P once per pad slot) against the plain version and the JAX package's
+P for its pad slots) against the plain version and the JAX package's
 ``semiring_spgemm_ref`` at 16×16 and 64×64, with NaN pads and a negative
-row under tile-column 0; the wrapper's operand helpers (P, the finite
-flags, the groups) on hand-built cases; and a plain emulation of the
-kernel's 3×TF32 products on the tensor cores.
+row under tile-column 0; P and the group sizes on hand-built cases.
 
 Exact for the integer and min semirings; ⟨+,×⟩ within rtol 1e-5, atol
 1e-6, because the JAX dot and the port sum in other orders (the
@@ -32,7 +30,7 @@ from repro_torch import convert
 from repro_torch.core import semiring as tsemiring
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels import spgemm_tiles
+from repro_torch.kernels import spgemm_binary, spgemm_tiles
 from repro_torch.kernels.spgemm_binary import semiring_spgemm_binary
 from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
 
@@ -396,23 +394,10 @@ def test_pad_row_by_hand():
                for k, p in got.items())
 
 
-def test_finite_flags_by_hand():
-    """One flag per A tile and per B block, 1 iff every value is finite:
-    A tile (1, 0) holds an inf, B block (2, 1) a NaN."""
-    tiles = torch.ones((2, 3, 4, 2))
-    tiles[1, 0, 3, 1] = float("inf")
-    b = torch.ones((3 * 2, 2 * 4))
-    b[5, 6] = float("nan")
-    a_fin, b_fin = spgemm_tiles.finite_flags(tiles, b, 4)
-    assert a_fin.dtype == b_fin.dtype == torch.int32
-    assert a_fin.tolist() == [[1, 1, 1], [0, 1, 1]]
-    assert b_fin.tolist() == [[1, 1], [1, 1], [1, 0]]
-
-
 def test_kernel6_groups_and_group_size():
     """Kernel 6's group sizes: 256 output columns up to 64 rows, one tile
     above. Its CUDA blocks group a block row's active tiles as
-    ``spgemm_tiles.group_tiles`` does: on a random flag pattern every
+    ``spgemm_binary.group_tiles`` does: on a random flag pattern every
     active tile lies in exactly one group,
     each group holds up to G consecutive active tiles of one block row, the
     groups with a tile go by their first tile-column, then block row, and
@@ -425,7 +410,7 @@ def test_kernel6_groups_and_group_size():
     flags[4] = 0
     meta = torch.cat([torch.zeros((mb, t), dtype=torch.int32), flags], dim=1)
     for g in (1, 4, 16):
-        active, groups = spgemm_tiles.group_tiles(meta, t, g)
+        active, groups = spgemm_binary.group_tiles(meta, t, g)
         q = -(-nb // g)
         assert active.shape == (mb * q * g, 2) and groups.shape == (mb * q, 2)
         counts = groups[:, 1]
@@ -443,62 +428,3 @@ def test_kernel6_groups_and_group_size():
         assert sorted(tiles) == torch.nonzero(flags).tolist()
         assert keys == sorted(keys)
 
-
-def test_tensor_cores_take_plus_times_at_multiples_of_16():
-    sr = tsemiring.SEMIRINGS
-    assert spgemm_tiles.tensor_cores(sr["plus_times"], 64, 64)
-    assert spgemm_tiles.tensor_cores(sr["plus_times"], 16, 128)
-    assert not spgemm_tiles.tensor_cores(sr["plus_times"], 24, 64)
-    assert not spgemm_tiles.tensor_cores(sr["plus_times"], 64, 40)
-    assert not any(spgemm_tiles.tensor_cores(sr[name], 64, 64)
-                   for name in ("min_plus", "min_times", "plus_and", "bool_or_and"))
-
-
-def tf32(x: np.ndarray) -> np.ndarray:
-    """float32 rounded to TF32 on its bit pattern: 10 mantissa bits, to
-    nearest with ties away from zero (as cvt.rna.tf32.f32)."""
-    bits = x.astype(np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def matmul_3xtf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """The kernel's product on the tensor cores, in plain numpy: each
-    operand split into hi = tf32(x) and lo = tf32(x - hi), and lo·hi +
-    hi·lo + hi·hi accumulated in fp32, k by k (each TF32 product is exact
-    in fp32)."""
-    ah, bh = tf32(a), tf32(b)
-    al, bl = tf32(a - ah), tf32(b - bh)
-    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
-    for k in range(a.shape[1]):
-        for x, y in ((al, bh), (ah, bl), (ah, bh)):
-            acc = acc + np.outer(x[:, k], y[k]).astype(np.float32)
-    return acc
-
-
-def test_tf32_rounding_by_hand():
-    """Half a TF32 ulp rounds away from zero; below half, down; integers
-    up to 2¹¹ are TF32 values, so their rest is 0."""
-    one, ulp = np.float32(1.0), np.float32(2.0 ** -10)
-    x = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12, 2047.0, 2048.0, 3.0],
-                 np.float32)
-    np.testing.assert_array_equal(tf32(x), [one + ulp, -(one + ulp), one, 2047.0, 2048.0, 3.0])
-    ints = np.arange(-2048, 2049, dtype=np.float32)
-    np.testing.assert_array_equal(tf32(ints), ints)
-
-
-@pytest.mark.parametrize("k", [64, 4096])
-def test_3xtf32_matches_fp32(k):
-    """On random [0, 1) operands the 3×TF32 product is within rtol 1e-5,
-    atol 1e-6 of the fp32 product (float64 reference, rounded to fp32);
-    on integer-valued operands (0..9, sums below 2²⁴) it is exact. A
-    single TF32 product is not: it misses rtol 1e-5."""
-    rng = np.random.default_rng(k)
-    a = rng.random((24, k)).astype(np.float32)
-    b = rng.random((k, 16)).astype(np.float32)
-    want = (a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
-    np.testing.assert_allclose(matmul_3xtf32(a, b), want, rtol=1e-5, atol=1e-6)
-    one_pass = (tf32(a).astype(np.float64) @ tf32(b).astype(np.float64)).astype(np.float32)
-    assert not np.allclose(one_pass, want, rtol=1e-5, atol=1e-6)
-    ai = rng.integers(0, 10, (24, k)).astype(np.float32)
-    bi = rng.integers(0, 10, (k, 16)).astype(np.float32)
-    np.testing.assert_array_equal(matmul_3xtf32(ai, bi), ai.astype(np.int64) @ bi.astype(np.int64))

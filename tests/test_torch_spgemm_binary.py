@@ -320,3 +320,35 @@ def test_wrapper_rejects_other_semirings():
     with pytest.raises(ValueError, match="plus_and and bool_or_and"):
         semiring_spgemm_binary(tiles, torch.zeros((1, 2), dtype=torch.int32),
                                torch.zeros((16, 16)), torch.zeros((16, 16)), sr=sr, bn=16)
+
+
+def plain_groups(flags: np.ndarray, g: int) -> list:
+    """Groups of up to g consecutive active tiles of a block row, by loops:
+    [(tile-column of the first tile, block row, [tile-columns])], ordered
+    by first tile-column, then block row."""
+    groups = []
+    for i, row in enumerate(flags):
+        cols = [int(j) for j in np.nonzero(row)[0]]
+        groups += [(cols[s], i, cols[s:s + g]) for s in range(0, len(cols), g)]
+    return sorted(groups)
+
+
+@pytest.mark.parametrize("density", [0.1, 0.6, 1.0])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+def test_group_tiles_match_plain_grouping(g, density):
+    """``group_tiles`` on a random flag pattern (13 block rows, 37
+    tile-columns, one row empty) names the same groups in the same order
+    as the plain loops, then only empty groups."""
+    rng = np.random.default_rng(int(100 * density) + g)
+    t, mb, nb = 2, 13, 37
+    flags = (rng.random((mb, nb)) < density).astype(np.int32)
+    flags[5] = 0
+    meta = torch.cat([torch.zeros((mb, t), dtype=torch.int32), torch.from_numpy(flags)], dim=1)
+    active, groups = spgemm_binary.group_tiles(meta, t, g)
+    want = plain_groups(flags, g)
+    got = []
+    for first, count in groups[:len(want)].tolist():
+        part = active[first:first + count]
+        got.append((int(part[0, 1]), int(part[0, 0]), part[:, 1].tolist()))
+    assert got == want
+    assert (groups[len(want):, 1] == 0).all()

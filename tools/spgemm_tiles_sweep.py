@@ -1,45 +1,36 @@
 #!/usr/bin/env python3
 """Kernel 6, the masked tile SpGEMM (``src/repro_torch/kernels/csrc/
-spgemm_tiles.cu``), at values of its compile-time constants, timed on one
-NVIDIA GPU on full-size ca-Q with phase 9's operands of ``chip_smoke.py``
-(B dense, a mask of density 0.4, every semiring in its safe domain):
+spgemm_tiles.cu``), timed on one NVIDIA GPU on full-size ca-Q with phase
+9's operands of ``chip_smoke.py`` (B dense, a mask of density 0.4, every
+semiring in its safe domain), and its ⟨+,×⟩ precision against the row
+degree:
 
-    python3 tools/spgemm_tiles_sweep.py [--variants base,KC=16+STAGES=4,...]
-        [--blocks 16,64,128] [--semirings plus_times,...] [--repeat R]
-        [--degree 81,1000] [--triangle]
+    python3 tools/spgemm_tiles_sweep.py [--blocks 16,64,128]
+        [--semirings plus_times,...] [--repeat R] [--degree 81,1000]
+        [--triangle]
 
-A variant is ``base`` (the source as it is) or NAME=VALUE pairs joined by
-``+``, each built as ``-DSPGEMM_NAME=VALUE``: ``KC`` (k-columns of a ring
-stage), ``STAGES`` and ``TC_STAGES`` (the ring's depth on the CUDA-core
-and the tensor-core path), ``COLS`` (output columns of a group, which set
-the group size G and each thread's micro-tile) and ``TC_BLOCKS`` (blocks
-an SM holds on the tensor-core path, which caps its registers).
-
-Each variant is built with nvcc into ``kernels/build/sweep/`` (all started
-together) and called through the wrapper's launch (``spgemm_tiles._launch``)
-with its own C entry and group size. For each block and semiring the
-output is held to the plain version (``ref.spgemm_padded_ref``: exact for
-the integer and min semirings, ⟨+,×⟩ within rtol 1e-5, atol 1e-6) and
-timed, medians of 5 CUDA-event timings of the kernel alone; ⟨+,×⟩ on the
-tensor cores (3×TF32) and on the CUDA cores, beside
-``torch.sparse.sampled_addmm`` (mask as CSR, A dense) and the wrapper's
-per-call preparation (groups, pad row, finite flags). ``--triangle`` adds
-cit-HP's triangle operands at 64×64 (int32 ⟨+,∧⟩, the operands kernel 6
-is timed on in phase 10), held to ``torch._int_mm``. ``--repeat`` times
-every (variant, path) R rounds in turn (a list a row). ``--degree`` adds,
-for each degree d, ⟨+,×⟩ f32 at 64×64 on a 4096 × 4096 A with about d
-nonzeros in every row: each path's worst ratio |y − want| / (atol + rtol
-· |want|) under phase 9's tolerance (rtol 1e-5, atol 1e-6), against the
-plain version and against the product in float64. Prints the nvcc
-register and spill lines of each variant, the card's name and power
-limit, then one JSON object. Exits non-zero without a card.
+The kernel is built by the wrapper's build (``kernels/_build.py``) and
+called through its launch (``spgemm_tiles._launch``) into an output
+filled once. For each block and semiring the output is held to the plain
+version (``ref.spgemm_padded_ref``: exact for the integer and min
+semirings, ⟨+,×⟩ within rtol 1e-5, atol 1e-6) and timed, medians of 5
+CUDA-event timings of the launch alone, ``--repeat`` rounds (a list a row); beside
+it the whole wrapper call and, for ⟨+,×⟩, ``torch.sparse.sampled_addmm``
+(mask as CSR, A dense). ``--degree`` adds, for each degree d, ⟨+,×⟩ f32
+at 64×64 on a 4096 × 4096 A with about d nonzeros in every row (values
+and a dense B in [0, 1), every output tile active): the kernel's worst
+ratio |y − want| / (atol + rtol · |want|) under that tolerance against
+the plain version and against the product in float64, and the plain
+version's against float64; above 1 a comparison fails. ``--triangle``
+adds cit-HP's triangle operands at 64×64 (int32 ⟨+,∧⟩, the operands
+kernel 6 is timed on in phase 10), held to ``torch._int_mm``. Prints the
+card's name and power limit, a JSON line a row, then one JSON object.
+Exits non-zero without a card.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import re
 import statistics
 import subprocess
 import sys
@@ -49,48 +40,10 @@ from pathlib import Path
 SEED = 0
 
 
-def build_variants(_build, variants):
-    """Compile the source once per variant, all nvcc processes started
-    together; returns {variant: (fn, group_size)} and the ptxas lines of
-    the kernels."""
-    out_dir = _build.BUILD_DIR / "sweep"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for variant in variants:
-        defs = [] if variant == "base" else [f"-DSPGEMM_{d}" for d in variant.split("+")]
-        lib = out_dir / f"spgemm_tiles-{variant.replace('=', '').replace('+', '-')}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *defs, "-o", str(lib),
-               str(_build.CSRC / "spgemm_tiles.cu")]
-        procs.append((variant, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    fns, log = {}, []
-    for variant, lib, p in procs:
-        _, err = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {variant}:\n{err}")
-        lines = err.splitlines()
-        for k, line in enumerate(lines):
-            m = re.search(r"spgemm_group_kernel(ILi\d+ELi\d+ELb\d)", line)
-            if m and "Compiling" in line:
-                regs = " ".join(x.strip() for x in lines[k + 1:k + 4]
-                                if "Used" in x or "spill" in x)
-                log.append(f"{variant} {m.group(1)}: {regs}")
-        cdll = ctypes.CDLL(str(lib))
-        fn = cdll.semiring_spgemm_padded
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        cdll.spgemm_tiles_group_size.argtypes = [ctypes.c_int]
-        cdll.spgemm_tiles_group_size.restype = ctypes.c_int
-        fns[variant] = (fn, cdll.spgemm_tiles_group_size)
-    return fns, log
-
-
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--variants",
-                        default="base,TC_STAGES=3+TC_BLOCKS=1,COLS=128,KC=16+STAGES=4")
     parser.add_argument("--blocks", default="64")
     parser.add_argument("--semirings", default=None,
                         help="comma-separated semiring names (default: all)")
@@ -114,12 +67,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi.splitlines()[0]}")
-    variants = args.variants.split(",")
     t0 = time.perf_counter()
-    fns, log = build_variants(_build, variants)
-    print(f"built {len(variants)} variants in {time.perf_counter() - t0:.1f} s")
-    for line in log:
-        print(line)
+    _build.spgemm_kernel()
+    print(f"built kernel 6 in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
 
     def time_ms(fn, reps: int = 5) -> float:
@@ -144,34 +94,27 @@ def main() -> int:
         elif not torch.equal(y, want):
             raise RuntimeError(f"{what}: differs from the plain version")
 
-    def runner(variant, a_tiles, meta, bp, mk, sr, tc):
-        """A closure that launches the variant on prepared operands."""
-        fn, group_size = fns[variant]
-        mb, t, bm, _ = a_tiles.shape
-        g = group_size(bm)
-        active, groups = st.group_tiles(meta, t, g)
+    def launcher(a_tiles, meta, bp, mk, sr):
+        """A closure that launches the kernel into an output filled once."""
         out = torch.full_like(mk, sr.zero)
 
         def call():
-            st._launch(a_tiles, meta, bp, mk, out, active, groups, sr, tc, kernel=fn, g=g)
+            st._launch(a_tiles, meta, bp, mk, out, sr)
             return out
         return call
-
-    rng = np.random.default_rng(SEED)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    caq = generate("ca-Q", 1.0, SEED)
-    n = caq.n
-    report = {"graph": "ca-Q", "variants": variants, "rows": [], "precision": [],
-              "caq_max_row_degree": int(np.bincount(caq.rows).max())}
 
     def ratio(y, want) -> float:
         """Worst |y − want| / (atol + rtol·|want|) under ⟨+,×⟩'s tolerance."""
         y, want = y.double(), want.double()
         return float(((y - want).abs() / (1e-6 + 1e-5 * want.abs())).max())
 
-    # --degree: ⟨+,×⟩ f32 at 64×64 on a 4096² A with about d nonzeros a
-    # row, values and B in [0, 1): each path's worst ratio against the
-    # plain version and against float64
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    caq = generate("ca-Q", 1.0, SEED)
+    n = caq.n
+    report = {"graph": "ca-Q", "rows": [], "precision": [],
+              "caq_max_row_degree": int(np.bincount(caq.rows).max())}
+
     sr = SEMIRINGS["plus_times"]
     for degree in (int(x) for x in args.degree.split(",") if x):
         nd, bm = 4096, 64
@@ -185,13 +128,10 @@ def main() -> int:
         bp, mk, meta, bn, _ = ops._spgemm_operands(a, b, sr, None)
         want64 = a_dense.double() @ b.double()
         plain = ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn)
+        y = launcher(a.tiles, meta, bp, mk, sr)()
         row = {"degree": degree, "max_row_degree": int(keep.sum(dim=1).max()),
-               "tiles": list(a.tiles.shape), "plain_vs_f64": ratio(plain, want64)}
-        for tc in (True, False):
-            y = runner(variants[0], a.tiles, meta, bp, mk, sr, tc)()
-            key = "tensor" if tc else "cuda"
-            row[f"{key}_vs_plain"] = ratio(y, plain)
-            row[f"{key}_vs_f64"] = ratio(y, want64)
+               "tiles": list(a.tiles.shape), "plain_vs_f64": ratio(plain, want64),
+               "kernel_vs_plain": ratio(y, plain), "kernel_vs_f64": ratio(y, want64)}
         report["precision"].append(row)
         print(json.dumps(row), flush=True)
         del keep, a_dense, b, a, bp, mk, meta, want64, plain, y
@@ -201,6 +141,7 @@ def main() -> int:
     for name, sr in SEMIRINGS.items():
         if name not in names:
             continue
+
         def u():
             return torch.rand((n, n), generator=gen, device=dev)
 
@@ -227,26 +168,20 @@ def main() -> int:
             st_ = ops.spgemm_stream_stats(a, meta, bp, mk)
             row = {"semiring": name, "block": bm, "tiles": list(a.tiles.shape),
                    "n_active": st_["n_active"], "real_slots": st_["real_slots"],
-                   "real_macs": st_["real_macs"], "pad_pairs": None}
-            paths = [True, False] if st.tensor_cores(sr, bm, bm) else [False]
-            calls = {}
-            for tag in variants:
-                for tc in paths:
-                    call = runner(tag, a.tiles, meta, bp, mk, sr, tc)
-                    st.semiring_spgemm_padded.paths = dict.fromkeys(st.PATHS, 0)
-                    same(call(), want, sr, f"{name} {bm} {tag} tc={tc}")
-                    counts = {k: int(v) for k, v in st.semiring_spgemm_padded.paths.items()}
-                    row["pad_pairs"] = counts["pad"]
-                    key = f"{'tensor' if tc else 'cuda'}_{tag}"
-                    row[f"{key}_paths"] = counts
-                    calls[key] = call
+                   "real_macs": st_["real_macs"]}
+            call = launcher(a.tiles, meta, bp, mk, sr)
+            st.semiring_spgemm_padded.paths = dict.fromkeys(st.PATHS, 0)
+            same(call(), want, sr, f"{name} {bm}")
+            row["paths"] = {k: int(v) for k, v in st.semiring_spgemm_padded.paths.items()}
+
+            def wrapper():
+                return st.semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr, bn=bn)
+
+            same(wrapper(), want, sr, f"{name} {bm} through the wrapper")
+            row["launch_ms"], row["wrapper_ms"] = [], []
             for _ in range(args.repeat):
-                for key, call in calls.items():
-                    row.setdefault(f"{key}_ms", []).append(time_ms(call))
-            row["prepare_ms"] = time_ms(lambda: (
-                st.group_tiles(meta, a.tiles.shape[1], st.group_size(bm)),
-                ref.pad_row(bp, sr, bm),
-                st.finite_flags(a.tiles, bp, bm) if st.tensor_cores(sr, bm, bm) else None))
+                row["launch_ms"].append(time_ms(call))
+                row["wrapper_ms"].append(time_ms(wrapper))
             if name == "plus_times":
                 a_dense = torch.zeros((n, n), dtype=torch.float32, device=dev)
                 a_dense.index_put_((torch.from_numpy(caq.rows.astype(np.int64)).to(dev),
@@ -258,7 +193,7 @@ def main() -> int:
                 del a_dense, mask_csr
             report["rows"].append(row)
             print(json.dumps(row), flush=True)
-            del a, bpad, mpad, bp, mk, meta, want
+            del a, bpad, mpad, bp, mk, meta, want, call
             torch.cuda.empty_cache()
         del b, mask
 
@@ -270,13 +205,11 @@ def main() -> int:
         l8 = mk.to(torch.int8)
         want = torch._int_mm(l8, l8.t()) * mk     # (L·Lᵀ) ⊙ L, exact in int32
         del l8
+        call = launcher(a.tiles, meta, bp, mk, PLUS_AND)
+        same(call(), want, PLUS_AND, "cit-HP triangle operands")
         row = {"semiring": "plus_and", "graph": "cit-HP", "block": 64,
-               "tiles": list(a.tiles.shape)}
-        for tag in variants:
-            call = runner(tag, a.tiles, meta, bp, mk, PLUS_AND, False)
-            same(call(), want, PLUS_AND, f"cit-HP triangle operands {tag}")
-            row[f"cuda_{tag}_ms"] = time_ms(call, reps=3)
-            print(json.dumps(row), flush=True)
+               "tiles": list(a.tiles.shape), "launch_ms": time_ms(call, reps=3)}
+        print(json.dumps(row), flush=True)
         report["rows"].append(row)
     report["device"] = torch.cuda.get_device_name(0)
     report["nvidia_smi"] = smi.splitlines()[0]
