@@ -7,9 +7,11 @@ literally the same matrix. ``to_numpy`` goes the other way, field by field.
 ``model_params_from_numpy`` takes a JAX params pytree with numpy leaves
 (segments stacked [L, ...], the VLM's self layers [groups, per, ...]) and
 returns the port's model state, one entry per layer;
-``mla_cache_from_numpy``/``mla_cache_to_numpy`` and
-``gqa_cache_from_numpy``/``gqa_cache_to_numpy`` carry a segment's MLA and
-GQA (KVCache, QuantKVCache) caches both ways. ``partitioned_from_numpy`` carries a
+``mla_cache_from_numpy``/``mla_cache_to_numpy``,
+``gqa_cache_from_numpy``/``gqa_cache_to_numpy`` and
+``ssm_cache_from_numpy``/``ssm_cache_to_numpy`` carry a segment's MLA,
+GQA (KVCache, QuantKVCache) and recurrent (mLSTM, Mamba2, sLSTM) caches
+both ways. ``partitioned_from_numpy`` carries a
 JAX ``PartitionedMatrix`` (stacked leaves, grid, shapes, format, plan) into
 the port's. Nothing here imports the JAX package: the caller hands over
 plain arrays.
@@ -31,7 +33,8 @@ from repro_torch.models.attention import MLACache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import AnyKVCache, KVCache, QuantKVCache
 from repro_torch.models.params import spec_leaves
-from repro_torch.models.transformer import model_specs
+from repro_torch.models.ssm import GLAState
+from repro_torch.models.transformer import SLSTMState, SSMCache, model_specs
 
 
 def _t(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -150,11 +153,18 @@ def _leaf(tree: dict, dotted: str):
     return tree
 
 
+# segments whose leaves are not stacked over one layer dim: the VLM's self
+# layers and xLSTM's mLSTM blocks [g, per, ...], zamba2's one shared block
+_LAYER_DIMS = {"self_layers": 2, "mlstm": 2, "shared_attn": 0}
+
+
 def model_params_from_numpy(cfg: ModelConfig, params_np: dict, device=None) -> dict:
     """The port's model state (``Model.load_state_dict``) from the JAX
     params pytree: each segment's stacked leaf [L, ...] split into its L
-    layers (the VLM's self layers [g, per, ...] into g·per, group-major),
-    every leaf in the spec's dtype and checked against its shape."""
+    layers (the VLM's self layers and xLSTM's mLSTM blocks [g, per, ...]
+    into g·per, group-major; zamba2's ``shared_attn`` is one block and
+    stays whole), every leaf in the spec's dtype and checked against its
+    shape."""
     device = resolve_device(device)
     state = {}
     for name, spec in spec_leaves(model_specs(cfg)):
@@ -162,11 +172,11 @@ def model_params_from_numpy(cfg: ModelConfig, params_np: dict, device=None) -> d
         if tuple(a.shape) != tuple(spec.shape):
             raise ValueError(f"{name}: shape {a.shape}, the spec has {spec.shape}")
         seg, _, rest = name.partition(".")
-        if not rest:                               # a top-level leaf
+        lead = _LAYER_DIMS.get(seg, 1)
+        if not rest or lead == 0:                  # a top-level leaf, or an unstacked block
             state[name] = _float_tensor(a, spec.dtype, device)
             continue
-        if seg == "self_layers":                   # [g, per, ...] → g·per layers
-            a = a.reshape((-1,) + a.shape[2:])
+        a = a.reshape((-1,) + a.shape[lead:])
         for i in range(a.shape[0]):
             state[f"{seg}.{i}.{rest}"] = _float_tensor(a[i], spec.dtype, device)
     return state
@@ -215,3 +225,43 @@ def gqa_cache_to_numpy(caches: list[AnyKVCache]) -> dict:
         out[f] = np.stack([(getattr(c, f) if quant else getattr(c, f).float()).cpu().numpy()
                            for c in caches])
     return out
+
+
+def ssm_cache_from_numpy(stack, dtype: torch.dtype, device=None) -> list:
+    """A segment's recurrent states from the reference's stacks, as the
+    port's per-layer containers: an mLSTM or Mamba2 ``{"conv": [..., B,
+    K−1, C], "gla": (s, n)}`` as ``SSMCache``s (conv in ``dtype``, the
+    GLA state in f32), an sLSTM ``(c, n)`` [..., B, d] as ``SLSTMState``s.
+    The leading dims are the layers ([L], or mLSTM's [g, per], taken
+    group-major)."""
+    device = resolve_device(device)
+    f32 = torch.float32
+    if isinstance(stack, dict):
+        conv, s, n = (np.asarray(a) for a in (stack["conv"], *stack["gla"]))
+        lead = conv.ndim - 3                       # conv is [B, K−1, C] a layer
+        conv, s, n = (a.reshape((-1,) + a.shape[lead:]) for a in (conv, s, n))
+        return [SSMCache(_float_tensor(conv[i], dtype, device),
+                         GLAState(_float_tensor(s[i], f32, device),
+                                  _float_tensor(n[i], f32, device)))
+                for i in range(conv.shape[0])]
+    c, n = (np.asarray(a) for a in stack)
+    c, n = (a.reshape((-1,) + a.shape[-2:]) for a in (c, n))
+    return [SLSTMState(_float_tensor(c[i], f32, device), _float_tensor(n[i], f32, device))
+            for i in range(c.shape[0])]
+
+
+def ssm_cache_to_numpy(caches: list, lead: Tuple[int, ...] | None = None):
+    """The port's per-layer recurrent states of a segment, stacked as the
+    reference's are, float32: ``{"conv", "gla": GLAState(s, n)}`` for
+    ``SSMCache``s, ``SLSTMState(c, n)`` for sLSTM states. ``lead`` gives
+    the leading dims (mLSTM's (g, per)); by default [L]."""
+    lead = (len(caches),) if lead is None else tuple(lead)
+
+    def stack(get):
+        a = np.stack([get(c).float().cpu().numpy() for c in caches])
+        return a.reshape(lead + a.shape[1:])
+
+    if isinstance(caches[0], SSMCache):
+        return {"conv": stack(lambda c: c.conv),
+                "gla": GLAState(stack(lambda c: c.gla.s), stack(lambda c: c.gla.n))}
+    return SLSTMState(stack(lambda c: c.c), stack(lambda c: c.n))

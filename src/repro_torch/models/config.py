@@ -1,7 +1,6 @@
-"""Model configuration (``repro.models.config``): the fields the ported
-families read, the generic ones another family's config sets, and the
-dry-run shapes. ``SSMConfig`` and ``HybridConfig`` wait for their
-families."""
+"""Model configuration (``repro.models.config``): the configs of every
+family (the MoE, MLA, SSM, hybrid and VLM parts, with the reference's
+defaults) and the dry-run shapes."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,6 +30,26 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256
+    # xLSTM: one sLSTM block per `slstm_every` mLSTM blocks (0 = none)
+    slstm_every: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """zamba2-style: groups of SSM blocks with a shared attention block."""
+    attn_every: int = 6          # one shared-attn application per group
+    shared_d_ff: int = 8192
+    # sliding window for the shared attention sites (0 = full attention)
+    attn_window: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class VLMConfig:
     cross_attn_every: int = 5
     vision_dim: int = 7680
@@ -57,6 +76,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     vlm: Optional[VLMConfig] = None
     # input frontend: "tokens" (LM) or "frames" (audio stub: precomputed embeds)
     frontend: str = "tokens"

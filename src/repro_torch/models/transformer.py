@@ -1,11 +1,15 @@
-"""Model assembly (``repro.models.transformer``) for the ``dense``,
-``audio``, ``moe`` and ``vlm`` families: segments of identical pre-norm
-layers (GQA or MLA attention, then a dense SwiGLU or the routed MoE), each
-a list of per-layer modules run by a Python loop. The VLM runs groups of
-``cross_attn_every`` self layers, each group followed by one gated
-cross-attention layer over the projected vision sequence; the audio
-encoder takes precomputed frames through a linear frontend, attends
-without a causal mask and reads its logits off the embedding.
+"""Model assembly (``repro.models.transformer``) for every family:
+segments of identical pre-norm layers (GQA or MLA attention, then a dense
+SwiGLU or the routed MoE), each a list of per-layer modules run by a
+Python loop. The VLM runs groups of ``cross_attn_every`` self layers,
+each group followed by one gated cross-attention layer over the projected
+vision sequence; the audio encoder takes precomputed frames through a
+linear frontend, attends without a causal mask and reads its logits off
+the embedding. xLSTM (``ssm``) runs groups of one sLSTM block followed by
+``slstm_every − 1`` mLSTM blocks; zamba2 (``hybrid``) runs groups of one
+shared attention+MLP block (one set of weights, a KV cache per site)
+followed by ``attn_every`` Mamba2 blocks, and a last site before the
+remainder layers.
 
 Three modes share the layer bodies:
   * forward — full-sequence logits, no cache (the reference's train mode)
@@ -13,25 +17,35 @@ Three modes share the layer bodies:
   * decode  — single-token step against the caches
 
 The parameter specs are the reference's tree, so counts and init match
-it; ``build_model`` raises for the families not ported yet (ssm, hybrid).
+it. The recurrent states (mLSTM, sLSTM, Mamba2) carry no position, as in
+the reference; prefill and decode write them into the tensors that
+``init_cache`` allocated, so a cache keeps its storage from prefill
+through every decode step.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models.attention import TensorSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm, swiglu
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import P_, ParamTree, init_param_
+from repro_torch.models.ssm import (
+    GLAState, causal_conv1d, gla_chunked, gla_step, slstm_scan, slstm_step,
+)
 
 Tensor = torch.Tensor
 
-PORTED_FAMILIES = ("dense", "audio", "moe", "vlm")
+PORTED_FAMILIES = ("dense", "audio", "moe", "ssm", "hybrid", "vlm")
 # parameters outside the layer stacks, in the reference's tree order
 _TOP_LEVEL = ("final_norm", "frontend", "embed", "lm_head", "w_vision")
 
@@ -73,9 +87,10 @@ def body_kind(kind: str) -> Tuple[str, str]:
     return a, f
 
 
-def attn_mlp_specs(cfg: ModelConfig, kind: str, ld=()) -> dict:
-    """A pre-norm layer: attn + (mlp | moe); a ``*_dense`` body takes the
-    MoE config's ``d_ff_dense``."""
+def attn_mlp_specs(cfg: ModelConfig, kind: str, ld=(), d_ff: int = 0) -> dict:
+    """A pre-norm layer: attn + (mlp | moe). The MLP is ``d_ff`` wide when
+    given (zamba2's shared block), else a ``*_dense`` body takes the MoE
+    config's ``d_ff_dense`` and any other ``cfg.d_ff``."""
     a, f = body_kind(kind)
     s = {"norm1": _norm_spec(cfg, ld),
          "attn": (attn.mla_specs if a == "mla" else attn.gqa_specs)(cfg, ld),
@@ -83,7 +98,8 @@ def attn_mlp_specs(cfg: ModelConfig, kind: str, ld=()) -> dict:
     if f == "moe":
         s["moe"] = _moe_specs(cfg, ld)
     else:
-        s["mlp"] = _mlp_specs(cfg, ld, cfg.moe.d_ff_dense if kind.endswith("_dense") else 0)
+        s["mlp"] = _mlp_specs(cfg, ld, d_ff or (cfg.moe.d_ff_dense if kind.endswith("_dense")
+                                                else 0))
     return s
 
 
@@ -94,16 +110,15 @@ def cross_specs(cfg: ModelConfig, ld=()) -> dict:
 
 def plan(cfg: ModelConfig) -> list[tuple[str, str, int]]:
     """The reference's segment plan: (segment name, body kind, layers),
-    the dense-FFN layers of a ``moe`` config first; the VLM is one group
-    segment."""
+    the dense-FFN layers of a ``moe`` config first; xLSTM, zamba2 and the
+    VLM are one group segment each."""
     fam = cfg.family
     if fam not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {fam!r} is not ported yet (ROADMAP.md §1: the rest of the LM stack)")
+        raise ValueError(f"unknown model family {fam!r}; the families are {PORTED_FAMILIES}")
     if fam in ("dense", "audio"):
         return [("layers", "gqa_mlp", cfg.n_layers)]
-    if fam == "vlm":
-        return [("vlm", "group", cfg.n_layers)]
+    if fam in ("ssm", "hybrid", "vlm"):
+        return [({"ssm": "xlstm", "hybrid": "zamba"}.get(fam, fam), "group", cfg.n_layers)]
     a = "mla" if cfg.mla else "gqa"
     segs = []
     nd = cfg.moe.first_dense_layers
@@ -121,10 +136,38 @@ def vlm_groups(cfg: ModelConfig) -> Tuple[int, int]:
     return cfg.n_layers // per, per
 
 
+def xlstm_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """(groups, mLSTM blocks per group) of xLSTM: each group is one sLSTM
+    block and ``slstm_every − 1`` mLSTM blocks."""
+    per = cfg.ssm.slstm_every or cfg.n_layers
+    if cfg.n_layers % per:
+        raise ValueError(f"{cfg.n_layers} layers are not groups of {per}")
+    return cfg.n_layers // per, per - 1
+
+
+def zamba_groups(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(full groups, Mamba2 layers per group, remainder layers) of zamba2:
+    a shared-attention site before each group, and one more before the
+    remainder when there is one."""
+    every = cfg.hybrid.attn_every
+    full = cfg.n_layers // every
+    return full, every, cfg.n_layers - full * every
+
+
+def hybrid_attn_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config of zamba2's shared-attention sites: ``attn_window`` > 0
+    gives them a sliding window (a ring cache)."""
+    if cfg.hybrid.attn_window:
+        return dataclasses.replace(cfg, sliding_window=cfg.hybrid.attn_window)
+    return cfg
+
+
 def model_specs(cfg: ModelConfig) -> dict:
     """The reference's parameter spec tree, segments stacked over layers
     (the VLM's self layers over [groups, per], its cross layers over
-    [groups])."""
+    [groups]; xLSTM's sLSTM blocks over [groups], its mLSTM blocks over
+    [groups, per]; zamba2's Mamba2 blocks over [layers] and its shared
+    block unstacked)."""
     d = cfg.d_model
     s: dict = {"final_norm": P_((d,), init="ones", dtype=cfg.dtype)}
     if cfg.frontend == "frames":
@@ -138,6 +181,15 @@ def model_specs(cfg: ModelConfig) -> dict:
         s["cross_layers"] = cross_specs(cfg, (g,))
         s["w_vision"] = P_((cfg.vlm.vision_dim, d), dtype=cfg.dtype)
         return s
+    if cfg.family == "ssm":
+        g, per = xlstm_groups(cfg)
+        s["slstm"] = slstm_specs(cfg, (g,))
+        s["mlstm"] = mlstm_specs(cfg, (g, per))
+        return s
+    if cfg.family == "hybrid":
+        s["mamba"] = mamba2_specs(cfg, (cfg.n_layers,))
+        s["shared_attn"] = attn_mlp_specs(cfg, "gqa_mlp", d_ff=cfg.hybrid.shared_d_ff)
+        return s
     for name, kind, n in plan(cfg):
         s[name] = attn_mlp_specs(cfg, kind, (n,))
     return s
@@ -145,11 +197,21 @@ def model_specs(cfg: ModelConfig) -> dict:
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     """Per segment, the cache shapes stacked over its layers (the VLM's
-    on its self layers only; an encoder has none)."""
+    on its self layers only; an encoder has none; xLSTM's mLSTM states
+    over [groups, per]; zamba2's KV caches over its attention sites)."""
     if cfg.encoder_only:
         return {}
     if cfg.family == "vlm":
         return {"self": attn.gqa_cache_spec(cfg, batch, max_seq, (cfg.n_layers,))}
+    if cfg.family == "ssm":
+        g, per = xlstm_groups(cfg)
+        return {"slstm": slstm_cache_spec(cfg, batch, (g,)),
+                "mlstm": mlstm_cache_spec(cfg, batch, (g, per))}
+    if cfg.family == "hybrid":
+        full, _, rem = zamba_groups(cfg)
+        return {"attn": attn.gqa_cache_spec(hybrid_attn_cfg(cfg), batch, max_seq,
+                                            (full + (1 if rem else 0),)),
+                "mamba": mamba2_cache_spec(cfg, batch, (cfg.n_layers,))}
     return {name: (attn.mla_cache_spec if kind.startswith("mla") else attn.gqa_cache_spec)(
         cfg, batch, max_seq, (n,)) for name, kind, n in plan(cfg)}
 
@@ -207,6 +269,211 @@ class CrossBlock(ParamTree):
         return x + attn.cross_attn(self["xattn"], h, vision_kv, self.cfg)
 
 
+# ------------------------------- recurrent bodies ---------------------------
+
+
+class SSMCache(NamedTuple):
+    """One mLSTM or Mamba2 layer's state: the last K−1 conv inputs
+    [B, K−1, di] in the model's dtype and the f32 GLA state."""
+    conv: Tensor
+    gla: GLAState
+
+
+class SLSTMState(NamedTuple):
+    """One sLSTM layer's f32 state, [B, d] each."""
+    c: Tensor
+    n: Tensor
+
+
+def mlstm_specs(cfg: ModelConfig, ld=()) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    h = cfg.n_heads
+    dk = di // h
+    return {
+        "norm": _norm_spec(cfg, ld),
+        "w_in": P_(ld + (d, 2 * di), dtype=cfg.dtype),
+        "conv_w": P_(ld + (s.d_conv, di), scale=0.5, dtype=cfg.dtype),
+        # block-diagonal per-head q/k projections (xLSTM style)
+        "wq": P_(ld + (h, dk, dk), dtype=cfg.dtype),
+        "wk": P_(ld + (h, dk, dk), dtype=cfg.dtype),
+        "w_gate": P_(ld + (d, 2 * h), init="zeros", dtype=cfg.dtype),
+        "f_bias": P_(ld + (h,), init="ones", dtype=cfg.dtype),
+        "w_down": P_(ld + (di, d), dtype=cfg.dtype),
+    }
+
+
+def mlstm_cache_spec(cfg: ModelConfig, batch: int, ld=()) -> SSMCache:
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    h = cfg.n_heads
+    dk = di // h
+    return SSMCache(TensorSpec(ld + (batch, s.d_conv - 1, di), cfg.dtype),
+                    GLAState(TensorSpec(ld + (batch, h, dk, dk), torch.float32),
+                             TensorSpec(ld + (batch, h, dk), torch.float32)))
+
+
+def slstm_specs(cfg: ModelConfig, ld=()) -> dict:
+    d = cfg.d_model
+    return {
+        "norm": _norm_spec(cfg, ld),
+        "w_gates": P_(ld + (d, 4 * d), dtype=cfg.dtype),
+        "w_out": P_(ld + (d, d), dtype=cfg.dtype),
+    }
+
+
+def slstm_cache_spec(cfg: ModelConfig, batch: int, ld=()) -> SLSTMState:
+    c = TensorSpec(ld + (batch, cfg.d_model), torch.float32)
+    return SLSTMState(c, c)
+
+
+def mamba2_specs(cfg: ModelConfig, ld=()) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    h = di // s.head_dim
+    return {
+        "norm": _norm_spec(cfg, ld),
+        "w_in": P_(ld + (d, 2 * di), dtype=cfg.dtype),
+        "conv_w": P_(ld + (s.d_conv, di), scale=0.5, dtype=cfg.dtype),
+        "w_B": P_(ld + (d, s.d_state), dtype=cfg.dtype),
+        "w_C": P_(ld + (d, s.d_state), dtype=cfg.dtype),
+        "w_dt": P_(ld + (d, h), dtype=cfg.dtype),
+        "dt_bias": P_(ld + (h,), init="zeros", dtype=cfg.dtype),
+        "A_log": P_(ld + (h,), init="zeros", dtype=torch.float32),
+        "D": P_(ld + (h,), init="ones", dtype=torch.float32),
+        "w_down": P_(ld + (di, d), dtype=cfg.dtype),
+    }
+
+
+def mamba2_cache_spec(cfg: ModelConfig, batch: int, ld=()) -> SSMCache:
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    h = di // s.head_dim
+    return SSMCache(TensorSpec(ld + (batch, s.d_conv - 1, di), cfg.dtype),
+                    GLAState(TensorSpec(ld + (batch, h, s.d_state, s.head_dim), torch.float32),
+                             TensorSpec(ld + (batch, h, s.d_state), torch.float32)))
+
+
+def _store(cache, new):
+    """Write ``new``'s tensors into ``cache``'s (same structure), so the
+    cache keeps its storage; returns ``cache``."""
+    for dst, src in zip(_leaves(cache, Tensor), _leaves(new, Tensor)):
+        dst.copy_(src)
+    return cache
+
+
+def _leaves(tree, leaf_type):
+    """The ``leaf_type`` leaves of a cache container (nested tuples), in
+    order."""
+    if isinstance(tree, leaf_type):
+        yield tree
+    else:
+        for v in tree:
+            yield from _leaves(v, leaf_type)
+
+
+class _Recurrent(ParamTree):
+    """A recurrent layer: holds one layer's slice of its segment's stacked
+    specs (``layer_dims`` leading dims dropped). ``forward(x, cache, mode)``
+    returns (x, cache): no cache in ``forward`` mode, else the given cache
+    with the new state written into its tensors."""
+
+    def __init__(self, cfg: ModelConfig, specs: dict, device: torch.device, layer_dims: int = 1):
+        super().__init__(specs, device, layer_dims=layer_dims)
+        self.cfg = cfg
+
+    def _conv(self, u: Tensor, cache: Optional[SSMCache], mode: str) -> Tuple[Tensor, Tensor]:
+        uc, conv = causal_conv1d(u, self["conv_w"], None if mode == "forward" else cache.conv)
+        return F.silu(uc), conv
+
+    def _gla(self, q, k, v, g, cache: Optional[SSMCache], mode: str, normalize: bool):
+        if mode == "decode":
+            y, gla = gla_step(q[:, 0], k[:, 0], v[:, 0], g[:, 0], cache.gla, normalize=normalize)
+            return y[:, None], gla
+        return gla_chunked(q, k, v, g, chunk=self.cfg.ssm.chunk,
+                           state=None if mode == "forward" else cache.gla, normalize=normalize)
+
+
+class MLSTMBlock(_Recurrent):
+    """xLSTM's mLSTM block: in-projection, causal conv, per-head q/k, a
+    sigmoid input gate folded into k, a log-sigmoid forget gate, the
+    normalised GLA core and an output gate."""
+
+    def __init__(self, cfg: ModelConfig, specs: dict, device: torch.device, layer_dims: int = 1):
+        super().__init__(cfg, specs, device, layer_dims)
+        self.dk = cfg.ssm.expand * cfg.d_model // cfg.n_heads
+        # k is divided by √dk rounded to the model's dtype, as in the reference
+        self.k_scale = torch.tensor(math.sqrt(self.dk)).to(cfg.dtype).item()
+
+    def _qkvg(self, xn: Tensor, uc: Tensor, u: Tensor):
+        h, dk = self.cfg.n_heads, self.dk
+        lead = uc.shape[:-1]
+        uh = uc.reshape(lead + (h, dk))
+        q = torch.einsum("...hk,hkq->...hq", uh, self["wq"])
+        k = torch.einsum("...hk,hkq->...hq", uh, self["wk"]) / self.k_scale
+        v = u.reshape(lead + (h, dk))
+        gates = (xn @ self["w_gate"]).float()
+        i_raw, f_raw = gates.chunk(2, dim=-1)
+        i = torch.sigmoid(i_raw)                                          # input gate
+        g = F.logsigmoid(f_raw + self["f_bias"].float())                  # log forget
+        return q, k * i[..., None].to(k.dtype), v, g
+
+    def forward(self, x: Tensor, cache: Optional[SSMCache], mode: str):
+        cfg = self.cfg
+        xn = rms_norm(x, self["norm"], cfg.norm_eps)
+        u, z = (xn @ self["w_in"]).chunk(2, dim=-1)
+        uc, conv = self._conv(u, cache, mode)
+        q, k, v, g = self._qkvg(xn, uc, u)
+        y, gla = self._gla(q, k, v, g, cache, mode, normalize=True)
+        out = y.reshape(y.shape[:2] + (-1,)) * F.silu(z)
+        x = x + out @ self["w_down"]
+        return x, None if mode == "forward" else _store(cache, SSMCache(conv, gla))
+
+
+class SLSTMBlock(_Recurrent):
+    """xLSTM's sLSTM block (head-diagonal): tanh cell input, sigmoid
+    input, forget and output gates, the scanned (c, n) recurrence."""
+
+    def forward(self, x: Tensor, cache: Optional[SLSTMState], mode: str):
+        xn = rms_norm(x, self["norm"], self.cfg.norm_eps)
+        zr, ir, fr, orr = (xn @ self["w_gates"]).chunk(4, dim=-1)
+        z, i, f, o = torch.tanh(zr), torch.sigmoid(ir), torch.sigmoid(fr), torch.sigmoid(orr)
+        if mode == "decode":
+            y, state = slstm_step(f[:, 0], i[:, 0], z[:, 0], o[:, 0], cache)
+            y = y[:, None]
+        else:
+            y, state = slstm_scan(f, i, z, o, None if mode == "forward" else cache)
+        x = x + y.to(x.dtype) @ self["w_out"]
+        return x, None if mode == "forward" else _store(cache, state)
+
+
+class Mamba2Block(_Recurrent):
+    """Mamba2 through the SSD mapping onto GLA: k = B and q = C shared by
+    every head, a per-head decay g = softplus(x·w_dt + dt_bias)·(−e^{A_log}),
+    v = the conv output scaled by dt, and the D skip."""
+
+    def forward(self, x: Tensor, cache: Optional[SSMCache], mode: str):
+        s = self.cfg.ssm
+        xn = rms_norm(x, self["norm"], self.cfg.norm_eps)
+        z, u = (xn @ self["w_in"]).chunk(2, dim=-1)
+        uc, conv = self._conv(u, cache, mode)
+        lead = uc.shape[:-1]
+        h = uc.shape[-1] // s.head_dim
+        bm, cm = xn @ self["w_B"], xn @ self["w_C"]
+        dt = F.softplus((xn @ self["w_dt"]).float() + self["dt_bias"].float())
+        g = dt * -torch.exp(self["A_log"])                      # log-decay ≤ 0, [.., h]
+        uh = uc.reshape(lead + (h, s.head_dim))
+        v = uh * dt[..., None].to(uc.dtype)
+        k = bm[..., None, :].expand(lead + (h, s.d_state))
+        q = cm[..., None, :].expand(lead + (h, s.d_state))
+        y, gla = self._gla(q, k, v, g, cache, mode, normalize=False)
+        y = y + uh * self["D"][:, None].to(uc.dtype)
+        x = x + (y.reshape(lead + (-1,)) * F.silu(z)) @ self["w_down"]
+        return x, None if mode == "forward" else _store(cache, SSMCache(conv, gla))
+
+
 class Model(nn.Module):
     """A model of a ported family. Parameters are allocated on ``device``
     (the CUDA card unless named; with no card and no ``device=`` the
@@ -234,6 +501,20 @@ class Model(nn.Module):
             self.cross_layers = nn.ModuleList(
                 [CrossBlock(cfg, specs["cross_layers"], self.device) for _ in range(g)])
             self.stacks = ("self_layers", "cross_layers")
+        elif cfg.family == "ssm":
+            g, per = xlstm_groups(cfg)
+            self.slstm = nn.ModuleList(
+                [SLSTMBlock(cfg, specs["slstm"], self.device) for _ in range(g)])
+            self.mlstm = nn.ModuleList(
+                [MLSTMBlock(cfg, specs["mlstm"], self.device, layer_dims=2)
+                 for _ in range(g * per)])
+            self.stacks = ("slstm", "mlstm")
+        elif cfg.family == "hybrid":
+            self.shared_attn = Block(hybrid_attn_cfg(cfg), specs["shared_attn"], "gqa_mlp",
+                                     self.device, layer_dims=0)
+            self.mamba = nn.ModuleList(
+                [Mamba2Block(cfg, specs["mamba"], self.device) for _ in range(cfg.n_layers)])
+            self.stacks = ("shared_attn", "mamba")
         else:
             for name, kind, n in self.segments:
                 self.add_module(name, nn.ModuleList(
@@ -241,9 +522,11 @@ class Model(nn.Module):
             self.stacks = tuple(name for name, _, _ in self.segments)
 
     def stack_modules(self):
-        """(name, ModuleList) of each layer stack, in run order."""
+        """(name, layers) of each layer stack: a ModuleList, or zamba2's
+        one shared block as a list of one."""
         for name in self.stacks:
-            yield name, self.get_submodule(name)
+            m = self.get_submodule(name)
+            yield name, m if isinstance(m, nn.ModuleList) else [m]
 
     @torch.no_grad()
     def init(self, generator: torch.Generator | None = None, *, seed: int = 0) -> "Model":
@@ -296,6 +579,10 @@ class Model(nn.Module):
                     seg.append(c)
                 x = self.cross_layers[gi](x, vision_kv)
             return x, {"self": seg}
+        if self.cfg.family == "ssm":
+            return self._run_xlstm(x, caches, mode)
+        if self.cfg.family == "hybrid":
+            return self._run_zamba(x, caches, mode)
         new_caches = {}
         for name, blocks in self.stack_modules():
             seg = []
@@ -304,6 +591,33 @@ class Model(nn.Module):
                 seg.append(c)
             new_caches[name] = seg
         return x, new_caches
+
+    def _run_xlstm(self, x: Tensor, caches: dict | None, mode: str):
+        """Each group: its sLSTM block, then its mLSTM blocks."""
+        g, per = xlstm_groups(self.cfg)
+        new = {"slstm": [], "mlstm": []}
+        for gi in range(g):
+            x, c = self.slstm[gi](x, None if caches is None else caches["slstm"][gi], mode)
+            new["slstm"].append(c)
+            for i in range(gi * per, (gi + 1) * per):
+                x, c = self.mlstm[i](x, None if caches is None else caches["mlstm"][i], mode)
+                new["mlstm"].append(c)
+        return x, new
+
+    def _run_zamba(self, x: Tensor, caches: dict | None, mode: str):
+        """Each group: the shared block at its own site (its own KV cache),
+        then ``attn_every`` Mamba2 layers; a remainder gets one more site
+        before its layers."""
+        full, every, rem = zamba_groups(self.cfg)
+        starts = [gi * every for gi in range(full)] + ([full * every] if rem else [])
+        new = {"attn": [], "mamba": []}
+        for site, lo in enumerate(starts):
+            x, c = self.shared_attn(x, None if caches is None else caches["attn"][site], mode)
+            new["attn"].append(c)
+            for i in range(lo, min(lo + every, self.cfg.n_layers)):
+                x, c = self.mamba[i](x, None if caches is None else caches["mamba"][i], mode)
+                new["mamba"].append(c)
+        return x, new
 
     # ---- public API --------------------------------------------------------
 
@@ -322,13 +636,14 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_seq: int) -> dict:
         """Zero caches on the model's device: per segment, one cache per
-        layer (``MLACache``, ``KVCache`` or ``QuantKVCache``) at
-        position 0."""
+        layer or site (``MLACache``, ``KVCache`` or ``QuantKVCache`` at
+        position 0; ``SSMCache`` or ``SLSTMState``, which have none). The
+        mLSTM states, stacked [groups, per], come group-major."""
         out = {}
         for name, spec in self.cache_specs(batch, max_seq).items():
-            out[name] = [type(spec)(*(torch.zeros(f.shape[1:], dtype=f.dtype, device=self.device)
-                                      for f in spec[:-1]), 0)
-                         for _ in range(spec.pos.shape[0])]
+            lead = 2 if name == "mlstm" else 1
+            n = math.prod(next(_leaves(spec, TensorSpec)).shape[:lead])
+            out[name] = [_zero_cache(spec, lead, self.device) for _ in range(n)]
         return out
 
     @torch.no_grad()
@@ -353,8 +668,17 @@ class Model(nn.Module):
         return self._head(x)[:, 0], new_cache
 
 
+def _zero_cache(spec, lead: int, device: torch.device):
+    """One layer's cache from a stacked spec container: zero tensors
+    without the ``lead`` layer dims, and a ``pos`` field at 0."""
+    if isinstance(spec, TensorSpec):
+        return torch.zeros(spec.shape[lead:], dtype=spec.dtype, device=device)
+    return type(spec)(*(0 if f == "pos" else _zero_cache(v, lead, device)
+                        for f, v in zip(spec._fields, spec)))
+
+
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """The model for ``cfg`` with its parameters allocated on ``device``;
-    raises for a family that is not ported yet."""
+    raises for an unknown family."""
     plan(cfg)
     return Model(cfg, device)

@@ -1,5 +1,5 @@
-"""Architecture registry (``repro.models.zoo``) for the ported archs:
-config lookup, the model, parameter counts without allocation, the
+"""Architecture registry (``repro.models.zoo``) for the reference's ten
+archs: config lookup, the model, parameter counts without allocation, the
 shapes each arch runs, their input specs (tensors on the ``meta``
 device, where JAX gives ``ShapeDtypeStruct``s), and the family-faithful
 reduced config of the CPU tests."""
@@ -17,15 +17,17 @@ from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.params import spec_leaves
 from repro_torch.models.transformer import Model, build_model, cache_specs, model_specs
 
-# the reference's order; xlstm-1.3b and zamba2-1.2b wait for their families
+# the reference's order
 ARCH_IDS: List[str] = [
     "deepseek-v2-lite-16b",
     "mixtral-8x22b",
+    "xlstm-1.3b",
     "deepseek-7b",
     "qwen1.5-32b",
     "mistral-nemo-12b",
     "minitron-4b",
     "hubert-xlarge",
+    "zamba2-1.2b",
     "llama-3.2-vision-11b",
 ]
 
@@ -36,8 +38,7 @@ def _module_name(arch_id: str) -> str:
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
-        raise KeyError(f"{arch_id!r} is not ported yet; ported: {ARCH_IDS} "
-                       "(ROADMAP.md §1 has the order)")
+        raise KeyError(f"unknown arch {arch_id!r}; the archs are {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_module_name(arch_id)}").CONFIG
 
 
@@ -62,18 +63,21 @@ def active_params(cfg: ModelConfig) -> int:
 
 def reduced_config(arch_id: str, scale: float = 0.08) -> ModelConfig:
     """The reference's reduced config for smoke tests: same topology
-    (segments, MoE/MLA/VLM wiring), small dims, float32. As in the
-    reference it drops an explicit head_dim (d_model // n_heads), turns
-    the int8 cache off and caps the window at 32. For deepseek-v2-lite it
-    keeps 8 experts with top-6 (density 0.75), so it runs ``moe_dense``:
-    a test of the sparse dispatch replaces ``moe``."""
+    (segments, MoE/MLA/SSM/hybrid/VLM wiring), small dims, float32. As in
+    the reference it drops an explicit head_dim (d_model // n_heads),
+    turns the int8 cache off and caps the window at 32. For
+    deepseek-v2-lite it keeps 8 experts with top-6 (density 0.75), so it
+    runs ``moe_dense``: a test of the sparse dispatch replaces ``moe``.
+    An SSM keeps chunks of at most 32 and Mamba2 heads of di / 8; xLSTM
+    takes an sLSTM every 2 blocks and zamba2 a shared site every 2
+    layers."""
     cfg = get_config(arch_id)
 
     def r8(x):
         return max(8, int(x * scale) // 8 * 8)
 
     d_model = r8(cfg.d_model)
-    moe, mla, vlm = cfg.moe, cfg.mla, cfg.vlm
+    moe, mla, ssm, hybrid, vlm = cfg.moe, cfg.mla, cfg.ssm, cfg.hybrid, cfg.vlm
     n_layers = max(2, int(cfg.n_layers * scale))
     n_heads = 4 if d_model % 4 == 0 else 2
     n_kv = max(1, min(cfg.n_kv_heads * n_heads // max(cfg.n_heads, 1), n_heads))
@@ -91,6 +95,18 @@ def reduced_config(arch_id: str, scale: float = 0.08) -> ModelConfig:
     if mla is not None:
         mla = dataclasses.replace(mla, kv_lora_rank=max(16, r8(mla.kv_lora_rank)),
                                   rope_head_dim=8, nope_head_dim=16, v_head_dim=16)
+    if ssm is not None:
+        di = 2 * d_model            # expand stays 2
+        ssm = dataclasses.replace(
+            ssm, chunk=min(ssm.chunk, 32),
+            head_dim=(di // 8 if ssm.head_dim else ssm.head_dim),
+            slstm_every=(2 if ssm.slstm_every else 0))
+        if cfg.family == "ssm" and ssm.slstm_every:
+            n_layers = max(2, n_layers // ssm.slstm_every * ssm.slstm_every)
+            n_heads = 4 if di % (4 * 8) == 0 else 2
+            n_kv = n_heads
+    if hybrid is not None:
+        hybrid = dataclasses.replace(hybrid, attn_every=2, shared_d_ff=r8(hybrid.shared_d_ff))
     if vlm is not None:
         vlm = dataclasses.replace(vlm, cross_attn_every=2, vision_dim=48, vision_tokens=5)
         n_layers = max(2, n_layers // 2 * 2)
@@ -99,7 +115,8 @@ def reduced_config(arch_id: str, scale: float = 0.08) -> ModelConfig:
         d_ff=r8(cfg.d_ff) if cfg.d_ff else 0, vocab=min(cfg.vocab, 512), head_dim=0,
         sliding_window=min(cfg.sliding_window, 32) if cfg.sliding_window else 0,
         frontend_dim=min(cfg.frontend_dim, 24) if cfg.frontend_dim else 0,
-        dtype=torch.float32, kv_quant=False, moe=moe, mla=mla, vlm=vlm)
+        dtype=torch.float32, kv_quant=False, moe=moe, mla=mla, ssm=ssm, hybrid=hybrid,
+        vlm=vlm)
 
 
 def arch_shapes(cfg: ModelConfig) -> List[str]:

@@ -8,10 +8,11 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models.attention import MLACache
+from repro_torch.models.attention import MLACache, TensorSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import KVCache, QuantKVCache
-from repro_torch.models.transformer import cache_specs
+from repro_torch.models.ssm import GLAState
+from repro_torch.models.transformer import SLSTMState, SSMCache, cache_specs
 from repro_torch.models.zoo import count_params
 
 # NVIDIA H100 SXM device memory
@@ -21,12 +22,17 @@ H100_BYTES = 80e9
 def _leaves(tree):
     """Every TensorSpec of a cache spec tree: a dict of segments, each an
     ``MLACache``, ``KVCache`` or ``QuantKVCache`` of TensorSpecs (``pos``
-    included, one int32 per layer, as the reference counts it)."""
-    if isinstance(tree, dict):
+    included, one int32 per layer, as the reference counts it), or a
+    recurrent state: ``SSMCache`` (conv and a ``GLAState``) or
+    ``SLSTMState``."""
+    if isinstance(tree, TensorSpec):
+        yield tree
+    elif isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    elif isinstance(tree, (MLACache, KVCache, QuantKVCache)):
-        yield from tree
+    elif isinstance(tree, (MLACache, KVCache, QuantKVCache, SSMCache, GLAState, SLSTMState)):
+        for v in tree:
+            yield from _leaves(v)
     else:
         raise TypeError(f"not a cache spec: {type(tree).__name__}")
 

@@ -168,8 +168,8 @@ def test_lm_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(model)
     assert ServingEngine(model, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(cfg, family="ssm"), device="cpu")
+    with pytest.raises(ValueError, match="unknown model family"):
+        build_model(dataclasses.replace(cfg, family="no-such-family"), device="cpu")
 
 
 def _top_level_names(path: pathlib.Path) -> set[str]:

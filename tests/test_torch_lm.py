@@ -80,8 +80,8 @@ def test_configs_match_the_reference():
         assert str(jnp.dtype(jdtype)) == str(pdtype).removeprefix("torch.")
         assert {k: v for k, v in jd.items() if k in pd} == pd
         assert all(jd[k] in (None, 0, False) for k in set(jd) - set(pd)), set(jd) - set(pd)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        zoo.get_config("xlstm-1.3b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        zoo.get_config("no-such-arch")
 
 
 def test_full_config_counts_without_allocation():
