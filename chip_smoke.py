@@ -253,8 +253,40 @@ Phases:
      within rtol 1e-3, atol 1e-4; then on the card 2 × 600 tokens and 32
      decode steps, each step within rtol 1e-3, atol 1e-4 of ``forward``
      over the same tokens (chunked against stepwise recurrence). No
-     hand-written kernel is on this path: all ten launch counts are set
-     to 0 before the phase and must read 0 after it.
+     hand-written kernel is on this path: all eleven launch counts are
+     set to 0 before the phase and must read 0 after it.
+ 21. Train mode. (a) Kernel 7ᵀ (``moe_dispatch_gather_backward``, the
+     dispatch gather's transpose) on three ``dispatch_plan`` plans from
+     random routing: deepseek's training microbatch (2 × 2,048 tokens,
+     64 experts top-6, capacity 240, D = 2,048: S = 30,720), the same at
+     capacity factor 0.5 (assignments drop) and mixtral's (8 experts
+     top-2, D = 6,144), in bf16 and f32, ``torch.equal`` to its plain
+     version; x's gradient through the dispatch Function (kernels 7 and
+     7ᵀ) equal to the plain versions' bit for bit; kernel, plain, bound
+     (the kept rows read once, x written once, the index) and library
+     (``torch.zeros(T, D).index_add_`` over the kept slots) times. (b)
+     deepseek-v2-lite-16b cut to 2 layers at full width in f32, TF32
+     off, matrices redrawn: ``Model.loss`` (total, NLL, aux) within rtol
+     1e-4 of the host's, the same routing, every gradient leaf within
+     rtol 1e-3, atol 1e-5·max|g| of the leaf, and one ``adamw_apply``
+     from the card's gradients on each side: master, mu and nu within
+     rtol 1e-5, atol 1e-6·max|leaf|. (c) deepseek-v2-lite-16b at full
+     width, 4 of its 27 layers (the dense one and 3 MoE layers,
+     2,254,983,168 parameters), bf16 weights from seed 0 by the
+     reference's rule, trained 8 steps through ``train_step_fn`` (AdamW
+     with f32 master weights, lr 3e-4, warmup 2; remat; 4 × 2,048 tokens
+     of ``SyntheticLM`` in 2 microbatches): every loss and grad norm
+     finite, step 8's loss below step 1's, the parameters in their
+     storage and dtype, kernel 7 launched 12 times a step and 7ᵀ 6
+     times; parameters and bytes of weights, gradients and optimizer
+     state, peak memory, init and first-step s, the median step ms of
+     steps 2–8, tokens/s, and a profiler window of one more step. (d)
+     ``TrainDriver`` on ``scaled_config(deepseek-v2-lite-16b, 0.05)`` at
+     top-2 (sparse dispatch, kernels 7 and 7ᵀ): 12 steps with async
+     checkpoints every 4, once clean and once failing at steps 5 and 9:
+     2 restarts, every loss, the final parameters and optimizer state
+     equal bit for bit; then ``launch.train.main`` at its defaults for
+     12 steps in a temporary directory, its loss falling.
 
 Launch counters: all eight are set to 0 before phase 3 and kernels 1–2
 read after phase 4. In phases 6–8 every call of the fused path, in phase
@@ -262,9 +294,9 @@ read after phase 4. In phases 6–8 every call of the fused path, in phase
 serving run, in phases 14–15 every multi-source and incremental
 traversal, in phase 16 every distributed call and in phase 17 the served
 path (capacity run) and each bsr batched run, in phase 18 each
-serving run, and phase 20 whole, runs with the counters set to 0 just
-before it and read just after; the comparisons and timings
-in between are not counted. The run fails unless kernels 1–2 launched in
+serving run, phase 20 whole, and in phase 21 each train step, runs
+with the counters set to 0 just before it and read just after; the
+comparisons and timings in between are not counted. The run fails unless kernels 1–2 launched in
 phases 3–4 and the block launches did not, kernels 3–5 in phases 6–8,
 kernels 6 and 6b in phase 9 (each for the cases it is chosen for),
 kernel 6b alone on phase 10's triangle path, kernel 1 on its CC and
@@ -273,7 +305,8 @@ phase 12 and mixtral's phase 18), kernels 1 and 2 over a block
 in phases 14–15 (kernel 2's on r-TX), kernels 1, 2, 3, 5, 1b, 2b, 6
 and 6b through the mesh in phase 16, and 1b and 2b in phase 17's bsr
 cross-check (the served path itself runs csr/csc engines and launches
-none; the count is printed), and none of the ten in phase 20. Any
+none; the count is printed), none of the eleven in phase 20, and kernels
+7 and 7ᵀ in every train step of phase 21. Any
 mismatch raises, so the run
 exits non-zero without the final ``{"ok": true, ...}`` line.
 """
@@ -330,6 +363,20 @@ SSM_CUT_LAYERS = {"xlstm-1.3b": 8,          # one group: 1 sLSTM + 7 mLSTM
                   "zamba2-1.2b": 7}         # a group of 6 and the remainder: 2 sites
 SSM_CHECK_PROMPT = 600         # the cuts' decode against forward
 SSM_CHECK_DECODE = 32
+TRAIN_LAYERS = 4               # phase 21: deepseek's dense layer and 3 of its 26 MoE layers
+TRAIN_BATCH = 4                # sequences a step, of TRAIN_SEQ tokens,
+TRAIN_SEQ = 2048
+TRAIN_MICRO = 2                # in this many microbatches
+TRAIN_MICRO_BATCH = TRAIN_BATCH // TRAIN_MICRO
+TRAIN_STEPS = 8
+TRAIN_CUT_TOKENS = 128         # phase 21b: 1 × 128 tokens through the f32 cut
+FT_STEPS = 12                  # phase 21d: TrainDriver's and the launcher's runs
+# phase 21c's device time by kind of kernel, by words of the kernel's name
+TRAIN_KERNEL_KINDS = (("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+                      ("moe_dispatch", ("moe_dispatch",)),
+                      ("reduction", ("reduce_kernel",)),
+                      ("elementwise", ("elementwise_kernel",)),
+                      ("copy_and_index", ("copy", "index", "gather", "scatter", "cat")))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1148,6 +1195,323 @@ def ssm_phases(torch, dev, prompt_lens, max_new: int, max_seq: int, all_kernels)
           f"tokens; {SSM_PROMPT}-token prompts decoded {SSM_DECODE} steps in the storage "
           f"init_cache gave; f32 cuts equal the host and decode equals forward; no kernel launched")
     return rows
+
+
+def train_phases(torch, dev) -> dict:
+    """Phase 21: train mode on the card. (a) kernel 7ᵀ against its plain
+    version on three plans, (b) an f32 cut against the host, (c)
+    DeepSeek-V2-Lite at full width (4 of its 27 layers) trained for 8
+    steps, (d) ``TrainDriver``'s restarts and the launcher. Returns
+    kernel 7ᵀ's row of the kernels line, with (c)'s launches, and
+    kernel 7's launches in (c)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.distributed.fault_tolerance import FTConfig, TrainDriver
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.moe_dispatch import (
+        moe_dispatch_gather, moe_dispatch_gather_backward,
+    )
+    from repro_torch.launch.train import main as train_main, scaled_config
+    from repro_torch.models import moe
+    from repro_torch.models.moe import capacity, dispatch_plan
+    from repro_torch.models.transformer import build_model
+    from repro_torch.models.zoo import count_params, get_config
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptConfig, adamw_apply, adamw_init
+    from repro_torch.train.train_loop import (
+        TrainConfig, _grads_and_loss, device_batch, init_train_state, train_params,
+        train_step_fn,
+    )
+
+    t_phase = time.perf_counter()
+    full = get_config("deepseek-v2-lite-16b")
+    kernels = (moe_dispatch_gather, moe_dispatch_gather_backward)
+
+    # ---------------------------------------------------------------- 21a
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    plans = {"train": (full.moe, full.d_model),
+             "train-drops": (dataclasses.replace(full.moe, capacity_factor=0.5), full.d_model),
+             "mixtral": (get_config("mixtral-8x22b").moe, get_config("mixtral-8x22b").d_model)}
+    b, t = TRAIN_MICRO_BATCH, TRAIN_SEQ
+    summary = None
+    for label, (m, d) in plans.items():
+        ids = torch.argsort(torch.rand((b, t, m.n_experts), generator=gen, device=dev), dim=-1)
+        c = capacity(t, m)
+        plan = dispatch_plan(ids[..., :m.top_k].to(torch.int32).contiguous(), m.n_experts, c)
+        s = b * m.n_experts * c
+        kept = plan.slot_tok < b * t
+        n_kept = int(kept.sum())
+        if m.capacity_factor < 1:
+            check(n_kept < b * t * m.top_k, f"phase 21 {label}: no assignment dropped")
+        for dtype in (torch.bfloat16, torch.float32):
+            grad = torch.randn((s, d), generator=gen, device=dev).to(dtype)
+            got = moe_dispatch_gather_backward(grad, plan.tok_slots)
+            want = ref.moe_dispatch_gather_backward_ref(grad, plan.tok_slots)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"phase 21 {label} {dtype}: kernel 7ᵀ differs from "
+                  "its plain version")
+            x = torch.randn((b * t, d), generator=gen, device=dev).to(dtype).requires_grad_(True)
+            y = ops.moe_dispatch(x, plan.slot_tok, plan.tok_slots, group=c, experts=m.n_experts)
+            y.backward(grad)
+            torch.cuda.synchronize()
+            check(torch.equal(y.detach(), ref.moe_dispatch_gather_ref(x.detach(), plan.slot_tok)),
+                  f"phase 21 {label} {dtype}: the Function's forward differs from the plain gather")
+            check(torch.equal(x.grad, want), f"phase 21 {label} {dtype}: x.grad through kernels "
+                  "7 and 7ᵀ differs from the plain versions'")
+            idx, rows = plan.slot_tok[kept].long(), grad[kept]
+            esize = grad.element_size()
+            nbytes = (n_kept + b * t) * d * esize + 4 * b * t * m.top_k
+            row = {"phase": "21a", "kernel": "moe_dispatch_gather_backward", "plan": label,
+                   "dtype": str(dtype), "T": b * t, "k": m.top_k, "S": s, "D": d,
+                   "kept": n_kept, "max_abs_err": 0.0,
+                   "ms": device_ms(torch, lambda: moe_dispatch_gather_backward(
+                       grad, plan.tok_slots)),
+                   "plain_ms": device_ms(torch, lambda: ref.moe_dispatch_gather_backward_ref(
+                       grad, plan.tok_slots), reps=10),
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "bound_bytes": nbytes,
+                   "library_ms": device_ms(torch, lambda: torch.zeros(
+                       (b * t, d), dtype=dtype, device=dev).index_add_(0, idx, rows))}
+            print(json.dumps(row))
+            if label == "train" and dtype == torch.bfloat16:
+                summary = row
+            del grad, got, want, x, y
+    print(f"phase 21a: kernel 7ᵀ equals its plain version bit for bit on {list(plans)} in bf16 "
+          f"and f32, and x.grad through kernels 7 and 7ᵀ equals the plain versions'")
+
+    # ---------------------------------------------------------------- 21b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cut = dataclasses.replace(full, n_layers=2, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    card = build_model(cut, device=dev).init(g)
+    redraw_matrices(torch, card, g)
+    host = build_model(cut, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = np.random.default_rng(SEED).integers(0, cut.vocab, (1, TRAIN_CUT_TOKENS + 1))
+    batch = {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32)}
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    routes, res = {}, {}
+    real_plan = moe.dispatch_plan
+
+    def record(top_ids, *args):
+        routes[where].append(top_ids.cpu())
+        return real_plan(top_ids, *args)
+
+    moe.dispatch_plan = record
+    try:
+        for where, mdl in (("card", card), ("host", host)):
+            routes[where] = []
+            for k in kernels:
+                k.launches = 0
+            params = train_params(mdl)
+            t0 = time.perf_counter()
+            total, aux = mdl.loss(device_batch(batch, mdl.device), remat=True)
+            total.backward()
+            grads = {k: p.grad for k, p in params.items()}
+            for p in params.values():
+                p.grad = None
+            if where == "card":
+                torch.cuda.synchronize()
+            res[where] = (total.detach().cpu(), {k: v.detach().cpu() for k, v in aux.items()},
+                          grads, (time.perf_counter() - t0) * 1e3,
+                          tuple(k.launches for k in kernels))
+    finally:
+        moe.dispatch_plan = real_plan
+    check(len(routes["card"]) == len(routes["host"]) == 2, "phase 21b: routing not recorded")
+    for rc, rh in zip(routes["card"], routes["host"]):
+        check(torch.equal(rc, rh), "phase 21b: card and host route tokens differently")
+    check(res["card"][4] == (2, 1), f"phase 21b: kernels 7 and 7ᵀ launched {res['card'][4]} "
+          "times, not twice (forward and recompute) and once")
+    (tc, ac, gc_, card_ms, _), (th, ah, gh, host_ms, _) = res["card"], res["host"]
+    for name, a, b_ in (("total", tc, th), ("loss", ac["loss"], ah["loss"]),
+                        ("moe_aux", ac["moe_aux"], ah["moe_aux"])):
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=0.0,
+                                   msg=lambda msg: f"phase 21b {name}: {msg}")
+    grad_err = 0.0
+    for k in gh:
+        scale = float(gh[k].abs().max())
+        check(scale > 0, f"phase 21b: the host gradient of {k} is zero")
+        torch.testing.assert_close(gc_[k].cpu(), gh[k], rtol=1e-3, atol=1e-5 * scale,
+                                   msg=lambda msg: f"phase 21b grad {k}: {msg}")
+        grad_err = max(grad_err, float((gc_[k].cpu() - gh[k]).abs().max()) / scale)
+    # one AdamW step on each side from the card's gradients
+    pc, ph = train_params(card), train_params(host)
+    sc, sh = adamw_init(pc), adamw_init(ph)
+    _, sc, mc = adamw_apply(pc, gc_, sc, ocfg)
+    _, sh, mh = adamw_apply(ph, {k: v.cpu() for k, v in gc_.items()}, sh, ocfg)
+    torch.testing.assert_close(mc["grad_norm"].cpu(), mh["grad_norm"], rtol=1e-5, atol=0.0)
+    for f in ("master", "mu", "nu"):
+        for k, want in getattr(sh, f).items():
+            torch.testing.assert_close(getattr(sc, f)[k].cpu(), want, rtol=1e-5,
+                                       atol=1e-6 * float(want.abs().max()),
+                                       msg=lambda msg: f"phase 21b adamw {f} {k}: {msg}")
+    print(json.dumps({"phase": "21b", "cut": "deepseek-v2-lite-16b, 2 layers, f32, TF32 off",
+                      "params": count_params(cut), "tokens": TRAIN_CUT_TOKENS,
+                      "total": [float(tc), float(th)], "loss": [float(ac["loss"]), float(ah["loss"])],
+                      "moe_aux": [float(ac["moe_aux"]), float(ah["moe_aux"])],
+                      "max_grad_diff_over_leaf_max": grad_err, "grad_leaves": len(gh),
+                      "card_ms": card_ms, "host_ms": host_ms}))
+    del card, host, pc, ph, sc, sh, gc_, gh, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 21b: the f32 cut's loss, every gradient leaf and one AdamW step on the card "
+          "match the host")
+
+    # ---------------------------------------------------------------- 21c
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params, opt = init_train_state(model, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    before = {k: (p.data_ptr(), p.dtype) for k, p in params.items()}
+    n_params = sum(p.numel() for p in params.values())
+    check(n_params == count_params(cfg), "phase 21c: parameter count")
+    src = SyntheticLM(DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+                                 seed=SEED))
+    tcfg = TrainConfig(opt=ocfg, microbatches=TRAIN_MICRO, remat=True)
+    step = train_step_fn(model, tcfg)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = device_batch(src.batch(i, 0, 1), dev)
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        torch.cuda.synchronize()
+        steps.append({"step": i + 1, "ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                      "grad_norm": gnorm, "launches": [k.launches for k in kernels]})
+        print(json.dumps({"phase": "21c", **steps[-1]}))
+    peak = torch.cuda.max_memory_allocated()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = device_batch(src.batch(TRAIN_STEPS, 0, 1), dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    by_kind = {}
+    for e in events:
+        kind = next((k for k, words in TRAIN_KERNEL_KINDS if any(w in e.key for w in words)),
+                    "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    # the step's two halves apart: the microbatches' forward and backward, then AdamW
+    t0 = time.perf_counter()
+    grads, _, _ = _grads_and_loss(model, params, batch, tcfg)
+    torch.cuda.synchronize()
+    grads_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    params, opt, _ = adamw_apply(params, grads, opt, ocfg)
+    torch.cuda.synchronize()
+    adamw_ms = (time.perf_counter() - t0) * 1e3
+    del grads
+    med_ms = statistics.median(s["ms"] for s in steps[1:])
+    numel = n_params
+    row = {"phase": "21c", "arch": cfg.arch_id, "layers": cfg.n_layers, "params": n_params,
+           "weight_bytes": sum(p.numel() * p.element_size() for p in params.values()),
+           "grad_bytes": {"per_microbatch": sum(p.numel() * p.element_size()
+                                                for p in params.values()),
+                          "f32_accumulator": 4 * numel},
+           "optimizer_bytes": 12 * numel, "max_memory_allocated": peak,
+           "init_s": init_s, "first_step_s": steps[0]["ms"] / 1e3,
+           "median_step_ms_2_to_8": med_ms, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med_ms * 1e3,
+           "loss": [s["loss"] for s in steps], "grad_norm": [s["grad_norm"] for s in steps],
+           "launches_per_step": {k.__name__: steps[-1]["launches"][i]
+                                 for i, k in enumerate(kernels)},
+           "profiled_step": {"window_ms": window_ms, "device_busy_ms": busy_ms,
+                             "device_idle_share": 1 - busy_ms / window_ms,
+                             "launches": sum(e.count for e in events),
+                             "device_ms_by_kind": by_kind,
+                             "top_device_ops_ms": {e.key[:90]: e.self_device_time_total / 1e3
+                                                   for e in top}},
+           "split_ms": {"forward_backward": grads_ms, "adamw": adamw_ms}}
+    print(json.dumps(row))
+    check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps),
+          "phase 21c: a loss or grad norm is not finite")
+    check(steps[-1]["loss"] < steps[0]["loss"],
+          f"phase 21c: step {TRAIN_STEPS}'s loss {steps[-1]['loss']} is not below step 1's "
+          f"{steps[0]['loss']}")
+    check({k: (p.data_ptr(), p.dtype) for k, p in params.items()} == before
+          and all(p is q for p, q in zip(params.values(), model.parameters())),
+          "phase 21c: a parameter moved or changed dtype")
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    for s in steps:
+        check(s["launches"] == [2 * TRAIN_MICRO * n_moe, TRAIN_MICRO * n_moe],
+              f"phase 21c step {s['step']}: kernels 7 and 7ᵀ launched {s['launches']} times, "
+              f"not {2 * TRAIN_MICRO * n_moe} and {TRAIN_MICRO * n_moe}")
+    launches = [sum(s["launches"][i] for s in steps) for i in range(2)]
+    del model, params, opt, met, batch, step, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 21c: {cfg.arch_id} at full width, {cfg.n_layers} layers, "
+          f"{n_params:,} parameters: {TRAIN_STEPS} finite steps, loss {steps[0]['loss']:.3f} → "
+          f"{steps[-1]['loss']:.3f}, {med_ms:.1f} ms a step, peak {peak / 1e9:.1f} GB")
+
+    # ---------------------------------------------------------------- 21d
+    small = scaled_config(full, 0.05)
+    small = dataclasses.replace(small, moe=dataclasses.replace(small.moe, top_k=2))
+    check(not moe.uses_dense(small.moe), "phase 21d: the scaled config takes moe_dense")
+
+    def drive(ckpt_dir, failure_at):
+        mdl = build_model(small, device=dev)
+        p, o = init_train_state(mdl, seed=SEED)
+        fn = train_step_fn(mdl, TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                                          total_steps=20)))
+        data = SyntheticLM(DataConfig(global_batch=8, seq_len=128, vocab=small.vocab, seed=SEED))
+        driver = TrainDriver(fn, lambda i: device_batch(data.batch(i, 0, 1), dev),
+                             FTConfig(ckpt_dir=ckpt_dir, ckpt_every=4, async_save=True))
+        return driver.run(p, o, FT_STEPS, failure_at=failure_at)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for k in kernels:
+            k.launches = 0
+        clean = drive(os.path.join(tmp, "clean"), None)
+        ft_launches = [k.launches for k in kernels]
+        faulty = drive(os.path.join(tmp, "faulty"), [5, 9])
+        ft_s = time.perf_counter() - t0
+        check(clean["restarts"] == 0 and faulty["restarts"] == 2,
+              f"phase 21d: restarts {clean['restarts']} and {faulty['restarts']}")
+        c = [h["loss"] for h in clean["history"]]
+        f = {h["step"]: h["loss"] for h in faulty["history"]}
+        check(len(c) == FT_STEPS and [f[i] for i in range(FT_STEPS)] == c,
+              "phase 21d: the restarted run's losses differ from the uninterrupted run's")
+        for part in ("params", "opt_state"):
+            fa, fb = ckpt._flatten(clean[part]), ckpt._flatten(faulty[part])
+            check(fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k]) for k in fa),
+                  f"phase 21d: the final {part} differ between the clean and restarted runs")
+        check(all(n > 0 for n in ft_launches), f"phase 21d: kernels 7 and 7ᵀ launched "
+              f"{ft_launches} times in TrainDriver's run")
+        t0 = time.perf_counter()
+        out = train_main(["--steps", str(FT_STEPS), "--ckpt-dir", os.path.join(tmp, "cli")])
+        cli_s = time.perf_counter() - t0
+        h = [x["loss"] for x in out["history"]]
+        check(out["final_step"] == FT_STEPS and h[-1] < h[0],
+              f"phase 21d: the launcher's losses {h} do not fall")
+    print(json.dumps({"phase": "21d", "config": "scaled_config(deepseek-v2-lite-16b, 0.05), top-2",
+                      "params": count_params(small), "steps": FT_STEPS, "failure_at": [5, 9],
+                      "restarts": faulty["restarts"], "losses": c, "driver_s": ft_s,
+                      "launches_clean_run": ft_launches, "cli_losses": h, "cli_s": cli_s,
+                      "seconds": time.perf_counter() - t_phase}))
+    print(f"phase 21d: restarted at steps 5 and 9, TrainDriver's run equals the uninterrupted run "
+          f"bit for bit; the launcher trained {FT_STEPS} steps, loss {h[0]:.3f} → {h[-1]:.3f}")
+    summary = dict(summary, launches=launches[1])
+    return {"moe_dispatch_gather_backward": summary, "moe_dispatch_gather_launches": launches[0]}
 
 
 def local_inserts(g, k: int, rng):
@@ -2719,7 +3083,7 @@ def main() -> int:
     from repro_torch.kernels.semiring_spmv import (
         semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_sell,
     )
-    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather, moe_dispatch_gather_backward
     from repro_torch.core.spgemm import spgemm_masked
     from repro_torch.kernels import spgemm_binary, spgemm_tiles
     from repro_torch.kernels.spgemm_binary import semiring_spgemm_binary
@@ -2736,7 +3100,8 @@ def main() -> int:
                      semiring_spmspv_fused_padded)
     block_kernels = (semiring_spmv_padded_batch, semiring_spmspv_padded_batch)
     all_kernels = kernels + fused_kernels + (semiring_spgemm_padded, semiring_spgemm_binary,
-                                             moe_dispatch_gather) + block_kernels
+                                             moe_dispatch_gather) + block_kernels + (
+                                                 moe_dispatch_gather_backward,)
 
     # ---------------------------------------------------------------- 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3568,13 +3933,13 @@ def main() -> int:
     # ---------------------------------------------------------------- 16
     tally, errs = mesh_phases(torch, dev, cit, rtx, caq, time_ms, compare, all_kernels)
     for name, count in tally.items():
-        launches[name] += count
+        launches[name] = launches.get(name, 0) + count
     for name, err in errs.items():
         worst[name] = max(worst[name], err)
 
     # ---------------------------------------------------------------- 17
     for name, count in serve_phases(torch, dev, cit, rtx, oracles, all_kernels).items():
-        launches[name] += count
+        launches[name] = launches.get(name, 0) + count
 
     # ---------------------------------------------------------------- 18, 19
     row = gqa_phases(torch, dev, time_ms, PROMPT_LENS, MAX_NEW_TOKENS, MAX_SEQ)
@@ -3584,6 +3949,17 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 20
     ssm_phases(torch, dev, PROMPT_LENS, MAX_NEW_TOKENS, MAX_SEQ, all_kernels)
+
+    # ---------------------------------------------------------------- 21
+    t0 = time.perf_counter()
+    rows = train_phases(torch, dev)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    row = rows["moe_dispatch_gather_backward"]
+    summary["moe_dispatch_gather_backward"] = row
+    launches["moe_dispatch_gather_backward"] = (launches.get("moe_dispatch_gather_backward", 0)
+                                                + row["launches"])
+    worst["moe_dispatch_gather_backward"] = row["max_abs_err"]
+    launches["moe_dispatch_gather"] += rows["moe_dispatch_gather_launches"]
 
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
                                         "src/repro/kernels/semiring_spmv.py:56"),
@@ -3604,7 +3980,10 @@ def main() -> int:
                "semiring_spmv_padded_batch": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
                                               "src/repro/kernels/semiring_spmv.py:56"),
                "semiring_spmspv_padded_batch": ("src/repro_torch/kernels/csrc/spmspv_tiles.cu",
-                                                "src/repro/kernels/spmspv_tiles.py:71")}
+                                                "src/repro/kernels/spmspv_tiles.py:71"),
+               # the transpose XLA derives from kernel 7's gather in the reference
+               "moe_dispatch_gather_backward": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
+                                                "src/repro/kernels/moe_dispatch.py:45")}
     line = []
     for k in all_kernels:
         row = summary[k.__name__]

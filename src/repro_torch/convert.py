@@ -6,7 +6,11 @@ container, passed as ``np.asarray``, and returns the port's container on
 literally the same matrix. ``to_numpy`` goes the other way, field by field.
 ``model_params_from_numpy`` takes a JAX params pytree with numpy leaves
 (segments stacked [L, ...], the VLM's self layers [groups, per, ...]) and
-returns the port's model state, one entry per layer;
+returns the port's model state, one entry per layer, and
+``model_params_to_numpy`` stacks a state (the parameters, or their
+``.grad``) back into that tree; ``opt_state_from_numpy`` and
+``opt_state_to_numpy`` carry the AdamW state (step, master, mu, nu) both
+ways;
 ``mla_cache_from_numpy``/``mla_cache_to_numpy``,
 ``gqa_cache_from_numpy``/``gqa_cache_to_numpy`` and
 ``ssm_cache_from_numpy``/``ssm_cache_to_numpy`` carry a segment's MLA,
@@ -35,6 +39,7 @@ from repro_torch.models.layers import AnyKVCache, KVCache, QuantKVCache
 from repro_torch.models.params import spec_leaves
 from repro_torch.models.ssm import GLAState
 from repro_torch.models.transformer import SLSTMState, SSMCache, model_specs
+from repro_torch.train.optimizer import OptState
 
 
 def _t(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -158,13 +163,14 @@ def _leaf(tree: dict, dotted: str):
 _LAYER_DIMS = {"self_layers": 2, "mlstm": 2, "shared_attn": 0}
 
 
-def model_params_from_numpy(cfg: ModelConfig, params_np: dict, device=None) -> dict:
+def model_params_from_numpy(cfg: ModelConfig, params_np: dict, device=None,
+                            dtype: torch.dtype | None = None) -> dict:
     """The port's model state (``Model.load_state_dict``) from the JAX
     params pytree: each segment's stacked leaf [L, ...] split into its L
     layers (the VLM's self layers and xLSTM's mLSTM blocks [g, per, ...]
     into g·per, group-major; zamba2's ``shared_attn`` is one block and
-    stays whole), every leaf in the spec's dtype and checked against its
-    shape."""
+    stays whole), every leaf in the spec's dtype (or ``dtype``) and
+    checked against its shape."""
     device = resolve_device(device)
     state = {}
     for name, spec in spec_leaves(model_specs(cfg)):
@@ -174,12 +180,63 @@ def model_params_from_numpy(cfg: ModelConfig, params_np: dict, device=None) -> d
         seg, _, rest = name.partition(".")
         lead = _LAYER_DIMS.get(seg, 1)
         if not rest or lead == 0:                  # a top-level leaf, or an unstacked block
-            state[name] = _float_tensor(a, spec.dtype, device)
+            state[name] = _float_tensor(a, dtype or spec.dtype, device)
             continue
         a = a.reshape((-1,) + a.shape[lead:])
         for i in range(a.shape[0]):
-            state[f"{seg}.{i}.{rest}"] = _float_tensor(a[i], spec.dtype, device)
+            state[f"{seg}.{i}.{rest}"] = _float_tensor(a[i], dtype or spec.dtype, device)
     return state
+
+
+def model_params_to_numpy(cfg: ModelConfig, state) -> dict:
+    """The JAX params tree, float32 numpy leaves, from a port state keyed
+    as ``Model.named_parameters()`` (a ``state_dict``, or ``{name:
+    p.grad}``): each segment's layers stacked back into [L, ...] ([g, per,
+    ...] for the VLM's self layers and xLSTM's mLSTM blocks). A missing or
+    None entry (a parameter the loss never reached) gives zeros."""
+    def host(name, shape):
+        t = state.get(name)
+        if t is None:
+            return np.zeros(shape, np.float32)
+        return t.detach().float().cpu().numpy()
+
+    tree: dict = {}
+    for name, spec in spec_leaves(model_specs(cfg)):
+        seg, _, rest = name.partition(".")
+        lead = _LAYER_DIMS.get(seg, 1)
+        if not rest or lead == 0:
+            a = host(name, spec.shape)
+        else:
+            n = int(np.prod(spec.shape[:lead]))
+            a = np.stack([host(f"{seg}.{i}.{rest}", spec.shape[lead:]) for i in range(n)])
+            a = a.reshape(spec.shape)
+        node = tree
+        keys = name.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = a
+    return tree
+
+
+def opt_state_from_numpy(cfg: ModelConfig, step, master: dict, mu: dict, nu: dict,
+                         device=None) -> OptState:
+    """The port's ``OptState`` from the reference's (step, and master, mu
+    and nu as JAX params trees of numpy leaves): f32 leaves per layer on
+    ``device``, keyed by parameter name."""
+    device = resolve_device(device)
+
+    def per_layer(tree):
+        return model_params_from_numpy(cfg, tree, device, dtype=torch.float32)
+
+    return OptState(torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+                    per_layer(master), per_layer(mu), per_layer(nu))
+
+
+def opt_state_to_numpy(cfg: ModelConfig, opt: OptState) -> dict:
+    """``{"step": int32, "master", "mu", "nu"}``, the three as JAX params
+    trees of float32 numpy leaves."""
+    return {"step": np.int32(int(opt.step)),
+            **{f: model_params_to_numpy(cfg, getattr(opt, f)) for f in ("master", "mu", "nu")}}
 
 
 def mla_cache_from_numpy(c_kv: np.ndarray, k_rope: np.ndarray, pos: np.ndarray,

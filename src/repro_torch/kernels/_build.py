@@ -19,7 +19,9 @@ Each C signature has its own loader, which sets the ctypes argument types:
 * ``spgemm_binary_kernel`` — its tensor-core variant for 0/1 operands,
   ``spgemm_binary.cu``;
 * ``moe_dispatch_kernel`` — the MoE dispatch row gather,
-  ``moe_dispatch.cu``.
+  ``moe_dispatch.cu``;
+* ``moe_dispatch_backward_kernel`` — its transpose, the same source's
+  second entry.
 
 A kernel with another signature gets a loader of its own rather than
 passing its arguments through one of these.
@@ -153,3 +155,13 @@ def moe_dispatch_kernel():
     return _entry("moe_dispatch.cu", "moe_dispatch_gather",
                   [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
                   + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+
+
+@functools.lru_cache(maxsize=None)
+def moe_dispatch_backward_kernel():
+    """The dispatch gather's transpose: (grad_out, tok_slots, grad_x,
+    n_tokens, k, n_slots, d, element size in bytes, device index, stream)."""
+    return _entry("moe_dispatch.cu", "moe_dispatch_gather_backward",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p])

@@ -49,9 +49,26 @@
 // path, one warp a slot row. An index outside [0, T) is a pad, so no
 // index can read outside x. Offsets are 64-bit (32-bit on the flat path
 // where they fit); no atomics.
+//
+// The second entry, moe_dispatch_gather_backward (kernel 7ᵀ), is the
+// gather's transpose, the gradient of x:
+//   grad_x[r] = Σ_j grad_out[tok_slots[r, j]] over the j with a slot in [0, S)
+// tok_slots int32 [T, k] holds each token's slots in ascending expert
+// order, S for a dropped assignment. The reference has no kernel for it:
+// XLA derives it from the gather (repro/models/moe.py, the take and the
+// .at[].add of moe_sparse). Each kept slot names one token, so the sum is
+// a gather, not a scatter: one warp owns a token row and writes it once,
+// with no atomics. A lane takes 16-byte vectors of D, keeps up to
+// kBackSlots slot rows' loads in flight, then adds them in ascending j in
+// fp32 (from zero, each add rounded to nearest) and rounds once to the
+// row's type, the order and rounding of the plain version, so the two
+// agree bit for bit and a rerun gives the same bits. It is bound by
+// bytes: the kept slot rows read once, grad_x written once, the index
+// read once.
 
 #include <climits>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // Compile-time choices swept by tools/moe_dispatch_sweep.py on an H100,
@@ -498,6 +515,142 @@ int dispatch(const void* x, const void* slot_tok, void* out, int n_tokens, long 
   return launch_windows(p, static_cast<int>(batch), s);
 }
 
+// ------------------------------------------------ transpose (kernel 7ᵀ)
+
+constexpr int kBackThreads = 256;  // 8 warps, one token row each
+constexpr int kBackWarps = kBackThreads / 32;
+constexpr int kBackSlots = 8;      // slot rows in flight a lane: k ≤ 8 in one pass
+
+__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
+  return __uint_as_float(bits << 16);
+}
+
+__device__ __forceinline__ unsigned float_to_bf16_bits(float f) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+
+// acc[i] += element i of a 16-byte vector (8 bf16 or 4 f32), in order
+template <bool kBf16>
+__device__ __forceinline__ void add_vec(float* acc, const uint4& v) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (kBf16) {
+      acc[2 * i] = __fadd_rn(acc[2 * i], bf16_bits_to_float(w[i] & 0xffffu));
+      acc[2 * i + 1] = __fadd_rn(acc[2 * i + 1], bf16_bits_to_float(w[i] >> 16));
+    } else {
+      acc[i] = __fadd_rn(acc[i], __uint_as_float(w[i]));
+    }
+  }
+}
+
+template <bool kBf16>
+__device__ __forceinline__ uint4 pack_vec(const float* acc) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (kBf16) {
+      w[i] = float_to_bf16_bits(acc[2 * i]) | (float_to_bf16_bits(acc[2 * i + 1]) << 16);
+    } else {
+      w[i] = __float_as_uint(acc[i]);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kBackThreads)
+gather_back(const uint4* __restrict__ grad_out, const int* __restrict__ tok_slots,
+            uint4* __restrict__ grad_x, int n_tokens, int k, long long n_slots,
+            long long row_vecs) {
+  constexpr int kPer = kBf16 ? 8 : 4;
+  const long long r = static_cast<long long>(blockIdx.x) * kBackWarps + threadIdx.x / 32;
+  if (r >= n_tokens) return;
+  const int lane = threadIdx.x % 32;
+  const int* slots = tok_slots + r * k;
+  for (long long c = lane; c < row_vecs; c += 32) {
+    float acc[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[i] = 0.0f;
+    for (int j0 = 0; j0 < k; j0 += kBackSlots) {
+      uint4 v[kBackSlots];
+      bool live[kBackSlots];
+#pragma unroll
+      for (int j = 0; j < kBackSlots; ++j) {
+        const int slot = j0 + j < k ? __ldg(slots + j0 + j) : -1;
+        live[j] = slot >= 0 && slot < n_slots;
+        v[j] = live[j] ? __ldg(grad_out + static_cast<long long>(slot) * row_vecs + c)
+                       : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int j = 0; j < kBackSlots; ++j) {
+        if (live[j]) add_vec<kBf16>(acc, v[j]);
+      }
+    }
+    grad_x[r * row_vecs + c] = pack_vec<kBf16>(acc);
+  }
+}
+
+// rows or pointers that are not 16-byte aligned: one warp a token row,
+// one element a lane at a time, the same order and rounding
+template <bool kBf16>
+__global__ void __launch_bounds__(kBackThreads)
+gather_back_scalar(const void* __restrict__ grad_out, const int* __restrict__ tok_slots,
+                   void* __restrict__ grad_x, int n_tokens, int k, long long n_slots,
+                   long long d) {
+  const long long r = static_cast<long long>(blockIdx.x) * kBackWarps + threadIdx.x / 32;
+  if (r >= n_tokens) return;
+  const int lane = threadIdx.x % 32;
+  const int* slots = tok_slots + r * k;
+  for (long long i = lane; i < d; i += 32) {
+    float acc = 0.0f;
+    for (int j = 0; j < k; ++j) {
+      const int slot = __ldg(slots + j);
+      if (slot < 0 || slot >= n_slots) continue;
+      const long long at = static_cast<long long>(slot) * d + i;
+      const float g = kBf16 ? bf16_bits_to_float(static_cast<const uint16_t*>(grad_out)[at])
+                            : static_cast<const float*>(grad_out)[at];
+      acc = __fadd_rn(acc, g);
+    }
+    if constexpr (kBf16) {
+      static_cast<uint16_t*>(grad_x)[r * d + i] = static_cast<uint16_t>(float_to_bf16_bits(acc));
+    } else {
+      static_cast<float*>(grad_x)[r * d + i] = acc;
+    }
+  }
+}
+
+int dispatch_back(const void* grad_out, const void* tok_slots, void* grad_x, int n_tokens,
+                  int k, long long n_slots, long long d, int esize, cudaStream_t s) {
+  if (n_tokens < 0 || k < 0 || n_slots < 0 || d < 0 || !(esize == 2 || esize == 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_tokens == 0 || d == 0) return 0;
+  const auto blocks = static_cast<unsigned>((n_tokens + kBackWarps - 1) / kBackWarps);
+  const int* slots = static_cast<const int*>(tok_slots);
+  const long long row_bytes = d * esize;
+  const bool aligned = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(grad_out) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(grad_x) % 16 == 0;
+  if (aligned) {
+    const auto* g = static_cast<const uint4*>(grad_out);
+    auto* out = static_cast<uint4*>(grad_x);
+    if (esize == 2) {
+      gather_back<true><<<blocks, kBackThreads, 0, s>>>(g, slots, out, n_tokens, k, n_slots,
+                                                        row_bytes / 16);
+    } else {
+      gather_back<false><<<blocks, kBackThreads, 0, s>>>(g, slots, out, n_tokens, k, n_slots,
+                                                         row_bytes / 16);
+    }
+  } else if (esize == 2) {
+    gather_back_scalar<true><<<blocks, kBackThreads, 0, s>>>(grad_out, slots, grad_x, n_tokens,
+                                                             k, n_slots, d);
+  } else {
+    gather_back_scalar<false><<<blocks, kBackThreads, 0, s>>>(grad_out, slots, grad_x, n_tokens,
+                                                              k, n_slots, d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace moe_dispatch
 
 // Returns the cudaError_t of the launch (0 = success) and sets *path to
@@ -521,6 +674,25 @@ extern "C" int moe_dispatch_gather(const void* x, const void* slot_tok, void* ou
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rc = moe_dispatch::dispatch(x, slot_tok, out, n_tokens, n_slots, d, esize, group,
                                         experts, static_cast<cudaStream_t>(stream), path);
+  if (current != device) cudaSetDevice(current);
+  return rc;
+}
+
+// Kernel 7ᵀ: grad_x [T, D] from grad_out [S, D] and tok_slots int32
+// [T, k] (see the top of the file). Returns the launch's cudaError_t; an
+// element size other than 2 or 4 bytes or a negative size returns
+// cudaErrorInvalidValue without launching, and T = 0 or D = 0 launches
+// nothing. Launches on `stream` of `device`, made current for the launch
+// if it is not.
+extern "C" int moe_dispatch_gather_backward(const void* grad_out, const void* tok_slots,
+                                            void* grad_x, int n_tokens, int k, long long n_slots,
+                                            long long d, int esize, int device, void* stream) {
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = moe_dispatch::dispatch_back(grad_out, tok_slots, grad_x, n_tokens, k, n_slots,
+                                             d, esize, static_cast<cudaStream_t>(stream));
   if (current != device) cudaSetDevice(current);
   return rc;
 }

@@ -20,6 +20,18 @@ On a CUDA tensor the wrapper launches the kernel on the current stream or
 raises; on a CPU tensor it runs the plain version from ``kernels/ref.py``.
 ``.launches`` counts its kernel launches, and ``.paths`` counts them by
 the path the kernel took (``elementwise``, ``flat``, ``window``).
+
+``moe_dispatch_gather_backward`` is the gather's transpose (kernel 7ᵀ,
+the same source's second C entry), the gradient of x:
+
+    grad_x[r] = Σ_j grad_out[tok_slots[r, j]],  over the j with tok_slots[r, j] < S
+
+in ascending j, summed in f32 and rounded once to grad_out's dtype; a row
+with no kept slot is zero. tok_slots int32 [T, k] lists each token's
+buffer slots in ascending expert order, the pad S for a dropped
+assignment (``dispatch_plan``'s ``tok_slots``). Each kept slot names one
+token, so the sum is a fixed fold with no atomics: the reference gets
+this gradient from XLA's transpose of its gather.
 """
 from __future__ import annotations
 
@@ -104,3 +116,33 @@ def moe_dispatch_gather(x: Tensor, slot_tok: Tensor, *, group: int | None = None
 
 moe_dispatch_gather.launches = 0
 moe_dispatch_gather.paths = dict.fromkeys(PATHS[1:], 0)
+
+
+def moe_dispatch_gather_backward(grad_out: Tensor, tok_slots: Tensor) -> Tensor:
+    """grad_x [T, D] in grad_out's dtype: row r sums the rows of grad_out
+    [S, D] that tok_slots[r] names, in ascending j (see the module)."""
+    name = "moe_dispatch_gather_backward"
+    if tok_slots.dim() != 2 or not tok_slots.is_contiguous():
+        raise ValueError(f"{name}: tok_slots must be a contiguous int32 [T, k], "
+                         f"got {tuple(tok_slots.shape)}")
+    if tok_slots.numel() >= 2**31:
+        raise ValueError(f"{name}: {tuple(tok_slots.shape)} slots exceed the int32 index")
+    dev = _check_operands(name, grad_out, tok_slots.view(-1))
+    if dev.type == "cpu":
+        return ref.moe_dispatch_gather_backward_ref(grad_out, tok_slots)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    s, d = grad_out.shape
+    t, k = tok_slots.shape
+    grad_x = torch.empty((t, d), dtype=grad_out.dtype, device=dev)
+    err = _build.moe_dispatch_backward_kernel()(
+        grad_out.data_ptr(), tok_slots.data_ptr(), grad_x.data_ptr(), t, k, s, d,
+        grad_out.element_size(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
+    if t and d:
+        moe_dispatch_gather_backward.launches += 1
+    return grad_x
+
+
+moe_dispatch_gather_backward.launches = 0

@@ -4,7 +4,9 @@ casts, the fused, SpMSpV and SpGEMM metadata, the dense frontier, the
 SpGEMM padding), the choice between kernel 6 and its tensor-core variant
 for 0/1 operands, the [B, n] block calls of kernels 1 and 2 behind the
 multi-source traversals, the plain ``*_ref`` counterparts of the unfused
-calls, and the bytes and work each tile kernel needs (``*_stream_stats``)."""
+calls, the bytes and work each tile kernel needs (``*_stream_stats``), and
+``moe_dispatch``: the MoE dispatch gather under autograd, its backward the
+gather's transpose (kernel 7ᵀ)."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,6 +17,7 @@ from repro_torch.core.semiring import Semiring
 from repro_torch.core.spmspv import Frontier
 from repro_torch.kernels import ref, spgemm_binary
 from repro_torch.kernels.moe_dispatch import moe_dispatch_gather as _moe_dispatch_gather
+from repro_torch.kernels.moe_dispatch import moe_dispatch_gather_backward
 from repro_torch.kernels.semiring_spmv import (
     semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_padded_batch,
     semiring_spmv_sell,
@@ -290,6 +293,33 @@ def moe_dispatch_gather(x: Tensor, slot_tok: Tensor, *, group: int | None = None
 
 def moe_dispatch_gather_ref(x: Tensor, slot_tok: Tensor) -> Tensor:
     return ref.moe_dispatch_gather_ref(x, slot_tok.to(torch.int32))
+
+
+class MoEDispatch(torch.autograd.Function):
+    """The dispatch gather as an autograd node, on every device: forward
+    through ``moe_dispatch_gather`` (kernel 7, or its plain version on the
+    CPU), backward through ``moe_dispatch_gather_backward`` (kernel 7ᵀ, or
+    its plain version), which needs the plan's per-token slots."""
+
+    @staticmethod
+    def forward(ctx, x, slot_tok, tok_slots, group, experts):
+        ctx.save_for_backward(tok_slots)
+        return moe_dispatch_gather(x, slot_tok, group=group, experts=experts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (tok_slots,) = ctx.saved_tensors
+        return moe_dispatch_gather_backward(grad_out.contiguous(), tok_slots), None, None, None, None
+
+
+def moe_dispatch(x: Tensor, slot_tok: Tensor, tok_slots: Tensor, *, group: int | None = None,
+                 experts: int | None = None) -> Tensor:
+    """``moe_dispatch_gather`` differentiable in x: ``tok_slots`` int32
+    [T, k] lists each token's slots, ascending, S where the assignment
+    dropped (``dispatch_plan``'s ``tok_slots``)."""
+    if tok_slots.dtype != torch.int32 or not tok_slots.is_contiguous():
+        tok_slots = tok_slots.to(torch.int32).contiguous()
+    return MoEDispatch.apply(x, slot_tok, tok_slots, group, experts)
 
 
 def semiring_spmv_ref(a: PaddedBSR, x: Tensor, sr: Semiring) -> Tensor:

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the tile kernels and the MoE dispatch gather.
+"""Plain PyTorch versions of the tile kernels, the MoE dispatch gather and
+its transpose.
 
 The CPU path of every kernel wrapper, and the version ``chip_smoke.py``
 holds each CUDA kernel against on the card. Each folds a block row's slots
@@ -264,3 +265,22 @@ def moe_dispatch_gather_ref(x: Tensor, slot_tok: Tensor) -> Tensor:
     ok = (slot_tok >= 0) & (slot_tok < t)
     rows = x[slot_tok.clamp(0, t - 1).long()]
     return torch.where(ok[:, None], rows, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def moe_dispatch_gather_backward_ref(grad_out: Tensor, tok_slots: Tensor) -> Tensor:
+    """grad_x[r] = Σ_j grad_out[tok_slots[r, j]] over the j whose slot is
+    in [0, S), in ascending j, summed in f32 from zero and rounded once to
+    grad_out's dtype; a row with no slot is zero: the plain version of the
+    dispatch gather's transpose. grad_out [S, D]; tok_slots int32 [T, k]
+    (the pad is S)."""
+    s, d = grad_out.shape
+    t, k = tok_slots.shape
+    acc = torch.zeros((t, d), dtype=torch.float32, device=grad_out.device)
+    if s == 0:
+        return acc.to(grad_out.dtype)
+    ok = (tok_slots >= 0) & (tok_slots < s)
+    idx = tok_slots.clamp(0, s - 1).long()
+    zero = torch.zeros((), dtype=torch.float32, device=grad_out.device)
+    for j in range(k):
+        acc = acc + torch.where(ok[:, j, None], grad_out[idx[:, j]].float(), zero)
+    return acc.to(grad_out.dtype)

@@ -1,0 +1,130 @@
+"""Training launcher on one device (``repro.launch.train``).
+
+Example:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \\
+        --scale 0.05 --steps 50
+
+trains a width/depth-scaled variant of the arch config through the port's
+train step, checkpoints and fault-tolerance driver, on the CUDA card
+unless ``--device`` names another. The reference's mesh flags (``--data``,
+``--model`` or ``--pod`` above 1, ``--compress-pod``) need the process-group
+mesh, which the port does not have yet (ROADMAP.md §1 item 3): they raise.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import tempfile
+
+
+def scaled_config(cfg, scale: float):
+    """Geometry-scaled variant of an arch config (same family/topology)."""
+    def r8(x):
+        return max(8, int(x * scale) // 8 * 8)
+
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(
+            moe, d_ff_expert=r8(moe.d_ff_expert),
+            d_ff_dense=r8(moe.d_ff_dense) if moe.d_ff_dense else 0,
+            n_experts=min(moe.n_experts, 8),
+            top_k=min(moe.top_k, min(moe.n_experts, 8)))
+    mla = cfg.mla
+    if mla is not None:
+        mla = dataclasses.replace(
+            mla, kv_lora_rank=r8(mla.kv_lora_rank),
+            rope_head_dim=max(8, r8(mla.rope_head_dim)),
+            nope_head_dim=max(8, r8(mla.nope_head_dim)),
+            v_head_dim=max(8, r8(mla.v_head_dim)))
+    n_heads = max(2, int(cfg.n_heads * scale) or 2)
+    d_model = r8(cfg.d_model)
+    # keep head structure consistent
+    while d_model % n_heads:
+        n_heads -= 1
+    n_kv = max(1, min(cfg.n_kv_heads, n_heads))
+    while n_heads % n_kv:
+        n_kv -= 1
+    return dataclasses.replace(
+        cfg,
+        n_layers=max(2, int(cfg.n_layers * scale)),
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        d_ff=r8(cfg.d_ff) if cfg.d_ff else 0,
+        vocab=min(cfg.vocab, 8192),
+        head_dim=r8(cfg.head_dim) if cfg.head_dim else 0,
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        moe=moe, mla=mla,
+    )
+
+
+def main(argv=None) -> dict:
+    """Parse ``argv`` (the command line when None), train, print the first
+    and last losses; returns the driver's result."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="minitron-4b")
+    ap.add_argument("--scale", type=float, default=0.05)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--pod", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_train_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--compress-pod", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device to train on (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    if args.data > 1 or args.model > 1 or args.pod > 1 or args.compress_pod:
+        raise NotImplementedError(
+            "--data, --model, --pod above 1 and --compress-pod need the process-group mesh "
+            "(ROADMAP.md §1 item 3), which the port does not have yet; this launcher "
+            "trains on one device")
+
+    from repro_torch.core.device import resolve_device
+    from repro_torch.distributed.fault_tolerance import FTConfig, TrainDriver
+    from repro_torch.models.transformer import build_model
+    from repro_torch.models.zoo import count_params, get_config
+    from repro_torch.train.data import DataConfig, make_source
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import (
+        TrainConfig, device_batch, init_train_state, train_step_fn,
+    )
+
+    device = resolve_device(args.device)
+    cfg = scaled_config(get_config(args.arch), args.scale)
+    model = build_model(cfg, device)
+    print(f"arch={args.arch} scaled params={count_params(cfg) / 1e6:.1f}M device={device}")
+
+    tcfg = TrainConfig(
+        opt=OptConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps),
+        microbatches=args.microbatches, remat=True)
+    params, opt_state = init_train_state(model, seed=0)
+
+    dcfg = DataConfig(global_batch=args.global_batch, seq_len=args.seq,
+                      vocab=cfg.vocab,
+                      frontend=cfg.frontend, frontend_dim=cfg.frontend_dim)
+    source = make_source(dcfg)
+    step_fn = train_step_fn(model, tcfg)
+
+    def batch_fn(step_idx):
+        return device_batch(source.batch(step_idx, 0, 1), device)
+
+    driver = TrainDriver(step_fn, batch_fn,
+                         FTConfig(ckpt_dir=args.ckpt_dir,
+                                  ckpt_every=args.ckpt_every))
+    out = driver.run(params, opt_state, args.steps)
+    h = out["history"]
+    print(f"steps={out['final_step']} restarts={out['restarts']} "
+          f"loss[0]={h[0]['loss']:.3f} loss[-1]={h[-1]['loss']:.3f}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -6,7 +6,10 @@ for sliding-window archs, and the int8 cache with per-token scales.
 ``flash_attention`` is the reference's KV-chunked attention with fp32
 running statistics, written in plain PyTorch: a loop over KV chunks, no
 [Tq, Tk] score tensor over the whole sequence. It is not a Pallas kernel
-in the JAX package either, so it has no kernel to port.
+in the JAX package either, so it has no kernel to port. Without grad it
+updates its score chunk in place; with grad enabled (train mode) the
+exponent takes a new tensor instead, since ``amax`` saved the scores for
+its backward. The arithmetic is the same either way.
 
 The caches are updated in place (the JAX functions return new ones): the
 returned cache holds the same tensors with ``pos``, a Python int,
@@ -110,7 +113,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                 keep &= (q_pos[:, None] - kp[None, :]) < window
             s.masked_fill_(~keep, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = s.sub_(m_new[..., None]).exp_()
+        p = (s - m_new[..., None] if torch.is_grad_enabled() else s.sub_(m_new[..., None])).exp_()
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         o = o * corr[..., None] + torch.einsum("bkgqc,bckd->bkgqd", p.to(vc.dtype), vc).float()

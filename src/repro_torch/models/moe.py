@@ -11,7 +11,13 @@
   router probabilities: the SpMV analogue.
 
 ``moe_ffn`` picks between them statically from the routing density
-top_k / n_experts against ``DENSE_DISPATCH_THRESHOLD``.
+top_k / n_experts against ``DENSE_DISPATCH_THRESHOLD``; with ``with_aux``
+it also returns ``load_balance_loss``, the Switch-style auxiliary of the
+train objective.
+
+The buffer is filled under autograd (``ops.moe_dispatch``): its gradient
+flows back to x through the gather's transpose (kernel 7ᵀ), which sums
+each token's kept slots in the plan's ``tok_slots`` order.
 
 Where the reference scatter-adds, the port writes by a fixed order with
 no atomics: the buffer by the gather's plan, the combine by summing each
@@ -64,12 +70,31 @@ class DispatchPlan(NamedTuple):
     keep: Tensor       # [B, T·k] bool: pos_in_grp < C (capacity drop)
     slot_tok: Tensor   # [B·E·C] int32: b·T + tok for each buffer slot, the pad B·T;
     #                    ascending within each group of C slots, pads at its tail
+    tok_pos: Tensor    # [B, T·k] int64: each token's k sorted positions, ascending
+    #                    (ascending expert id), token-major
+    tok_slots: Tensor  # [B·T, k] int32: the buffer slot of each of them, the pad B·E·C
+    #                    for a dropped assignment
+
+
+def load_balance_loss(x: Tensor, w_router: Tensor, cfg: MoEConfig) -> Tensor:
+    """Switch-style auxiliary loss, f32: E·⟨f, p⟩ with f the fraction of
+    tokens whose top-1 expert (the first of equal maxima) is each expert
+    and p the mean router probability; 1 at uniform routing. f is a count
+    and carries no gradient."""
+    logits = (x @ w_router).float()
+    probs = torch.softmax(logits, dim=-1)
+    p_mean = probs.reshape(-1, cfg.n_experts).mean(dim=0)
+    top1 = probs.argmax(dim=-1).reshape(-1)
+    f = torch.bincount(top1, minlength=cfg.n_experts).float()
+    f = f / torch.clamp_min(f.sum(), 1.0)
+    return cfg.n_experts * torch.sum(f * p_mean)
 
 
 def dispatch_plan(top_ids: Tensor, n_experts: int, c: int) -> DispatchPlan:
     """Stable per-row sort by expert id, ``searchsorted`` group starts,
-    the capacity cut, and the slot→token map of the flat buffer
-    [B·E·C]: slot (b, e, p) is b·E·C + e·C + p."""
+    the capacity cut, the slot→token map of the flat buffer [B·E·C] (slot
+    (b, e, p) is b·E·C + e·C + p) and its transpose, each token's slots in
+    ascending expert order; no host sync."""
     b, t, k = top_ids.shape
     dev = top_ids.device
     flat_ids = top_ids.reshape(b, t * k)
@@ -88,7 +113,12 @@ def dispatch_plan(top_ids: Tensor, n_experts: int, c: int) -> DispatchPlan:
     slot = torch.where(keep, rows * (n_experts * c) + s_ids.long() * c + pos_in_grp, n_slots)
     slot_tok = torch.full((n_slots + 1,), b * t, dtype=torch.int32, device=dev)
     slot_tok.scatter_(0, slot.reshape(-1), (rows * t + s_tok).reshape(-1).to(torch.int32))
-    return DispatchPlan(order, s_ids, s_tok, pos_in_grp, keep, slot_tok[:n_slots])
+    # each token's k sorted positions, ascending = ascending expert id
+    inv = torch.argsort(order, dim=1)
+    tok_pos = inv.view(b, t, k).sort(dim=2).values.reshape(b, t * k)
+    tok_slots = torch.gather(slot, 1, tok_pos).reshape(b * t, k).to(torch.int32)
+    return DispatchPlan(order, s_ids, s_tok, pos_in_grp, keep, slot_tok[:n_slots], tok_pos,
+                        tok_slots)
 
 
 def moe_sparse(x: Tensor, w_router: Tensor, w1: Tensor, w3: Tensor, w2: Tensor,
@@ -105,9 +135,10 @@ def moe_sparse(x: Tensor, w_router: Tensor, w1: Tensor, w3: Tensor, w2: Tensor,
     plan = dispatch_plan(top_ids, e, c)
 
     # kernel 7: buf[b, e, p] = x[b, tok] for each kept assignment, else 0;
-    # the hint tells it the plan's layout, so it reads each token row once
-    buf = ops.moe_dispatch_gather(x.reshape(b * t, d), plan.slot_tok, group=c,
-                                  experts=e).view(b, e, c, d)
+    # the hint tells it the plan's layout, so it reads each token row once;
+    # its gradient is kernel 7ᵀ over tok_slots
+    buf = ops.moe_dispatch(x.reshape(b * t, d), plan.slot_tok, plan.tok_slots, group=c,
+                           experts=e).view(b, e, c, d)
 
     # expert FFN on the compact buffer (SwiGLU)
     h = F.silu(torch.einsum("becd,edf->becf", buf, w1))
@@ -122,10 +153,8 @@ def moe_sparse(x: Tensor, w_router: Tensor, w1: Tensor, w3: Tensor, w2: Tensor,
     contrib = out[rows, safe_e, safe_c] * s_p[..., None].to(out.dtype)
     contrib = torch.where(plan.keep[..., None], contrib, torch.zeros((), dtype=out.dtype,
                                                                      device=x.device))
-    # each token's k sorted positions, ascending = ascending expert id
-    inv = torch.argsort(plan.order, dim=1)
-    where = inv.view(b, t, k).sort(dim=2).values.reshape(b, t * k)
-    per_tok = torch.gather(contrib, 1, where[..., None].expand(b, t * k, d)).view(b, t, k, d)
+    # each token's k contributions in ascending expert order
+    per_tok = torch.gather(contrib, 1, plan.tok_pos[..., None].expand(b, t * k, d)).view(b, t, k, d)
     y = per_tok[:, :, 0]
     for j in range(1, k):
         y = y + per_tok[:, :, j]
@@ -152,11 +181,11 @@ def uses_dense(cfg: MoEConfig) -> bool:
                                        and density > DENSE_DISPATCH_THRESHOLD)
 
 
-def moe_ffn(x: Tensor, moe_params, cfg: MoEConfig) -> Tensor:
+def moe_ffn(x: Tensor, moe_params, cfg: MoEConfig, with_aux: bool = False):
     """Routed experts (+ shared experts, deepseek-style). x [..., D]; a 3-D
     [B, T, D] input is routed per batch row: natively batched on the
     sparse path (the reference's single-device regime), row by row on the
-    dense one."""
+    dense one. ``with_aux`` returns (y, ``load_balance_loss``)."""
     fn = moe_dense if uses_dense(cfg) else moe_sparse
 
     def routed(xt: Tensor) -> Tensor:
@@ -170,4 +199,6 @@ def moe_ffn(x: Tensor, moe_params, cfg: MoEConfig) -> Tensor:
     if cfg.n_shared:
         y = y + swiglu(x, moe_params["shared_w1"], moe_params["shared_w3"],
                        moe_params["shared_w2"])
+    if with_aux:
+        return y, load_balance_loss(x, moe_params["router"], cfg)
     return y

@@ -11,8 +11,12 @@ shared attention+MLP block (one set of weights, a KV cache per site)
 followed by ``attn_every`` Mamba2 blocks, and a last site before the
 remainder layers.
 
-Three modes share the layer bodies:
-  * forward — full-sequence logits, no cache (the reference's train mode)
+Four modes share the layer bodies:
+  * train   — full-sequence forward with grad, no cache; each MoE layer
+    also returns its load-balance loss, and with ``remat`` each layer body
+    runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+    around each scanned body)
+  * forward — the same without grad or auxiliary loss (serving's encoder)
   * prefill — full-sequence forward that also fills the caches
   * decode  — single-token step against the caches
 
@@ -31,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
@@ -230,22 +235,27 @@ class Block(ParamTree):
     def _attn(self, h: Tensor, cache, mode: str):
         p, cfg = self["attn"], self.cfg
         if self.attn_kind == "mla":
-            if mode == "forward":
+            if mode in ("forward", "train"):
                 return attn.mla_forward(p, h, cfg), None
             if mode == "prefill":
                 return attn.mla_prefill(p, h, cfg, cache)
             return attn.mla_decode(p, h, cfg, cache)
-        if mode == "forward":
+        if mode in ("forward", "train"):
             return attn.gqa_forward(p, h, cfg, causal=not cfg.encoder_only), None
         if mode == "prefill":
             return attn.gqa_prefill(p, h, cfg, cache)
         return attn.gqa_decode(p, h, cfg, cache)
 
     def forward(self, x: Tensor, cache, mode: str):
+        """(x, cache); in train mode a MoE layer returns its load-balance
+        loss in the cache's place, as the reference's train body does."""
         cfg = self.cfg
         a, cache = self._attn(rms_norm(x, self["norm1"], cfg.norm_eps), cache, mode)
         x = x + a
         h = rms_norm(x, self["norm2"], cfg.norm_eps)
+        if self.ffn == "moe" and mode == "train":
+            y, aux = moe_ffn(h, self["moe"], cfg.moe, with_aux=True)
+            return x + y, aux
         if self.ffn == "moe":
             x = x + moe_ffn(h, self["moe"], cfg.moe)
         else:
@@ -477,9 +487,13 @@ class Mamba2Block(_Recurrent):
 class Model(nn.Module):
     """A model of a ported family. Parameters are allocated on ``device``
     (the CUDA card unless named; with no card and no ``device=`` the
-    constructor raises) and filled by ``init`` or ``load_state_dict``.
-    Public API: init / forward / cache_specs / init_cache / vision_kv /
-    prefill / decode."""
+    constructor raises) and filled by ``init`` or ``load_state_dict``;
+    they are made with ``requires_grad`` off, and
+    ``train.train_loop.init_train_state`` turns it on.
+    Public API: init / forward / forward_with_aux / loss / cache_specs /
+    init_cache / vision_kv / prefill / decode. ``forward``, ``prefill``,
+    ``decode`` and ``vision_kv`` run without grad; ``forward_with_aux``
+    and ``loss`` are the train mode."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -558,53 +572,72 @@ class Model(nn.Module):
         w = self.embed.T if cfg.tie_embeddings else self.lm_head
         return x @ w
 
+    def _vision_kv(self, image_embeds: Optional[Tensor]) -> Optional[Tensor]:
+        if self.cfg.family != "vlm" or image_embeds is None:
+            return None
+        return image_embeds.to(self.cfg.dtype) @ self.w_vision
+
     @torch.no_grad()
     def vision_kv(self, image_embeds: Optional[Tensor]) -> Optional[Tensor]:
         """The vision sequence projected to d_model, [B, Sv, D]: the k/v
         source of every cross layer (None unless a VLM is given
         ``image_embeds`` [B, Sv, vision_dim])."""
-        if self.cfg.family != "vlm" or image_embeds is None:
-            return None
-        return image_embeds.to(self.cfg.dtype) @ self.w_vision
+        return self._vision_kv(image_embeds)
+
+    @staticmethod
+    def _layer(mode: str, remat: bool):
+        """The call of one layer body, ``(layer, x, cache) -> (x, cache)``:
+        in train mode the recurrent blocks run their ``forward`` mode, and
+        with ``remat`` every body runs under a non-reentrant checkpoint."""
+        if mode != "train":
+            return lambda layer, x, cache: layer(x, cache, mode)
+
+        def call(layer, x, cache):
+            m = "train" if isinstance(layer, Block) else "forward"
+            return checkpoint(layer, x, None, m, use_reentrant=False) if remat else layer(x, None, m)
+        return call
 
     def _run_stack(self, x: Tensor, caches: dict | None, mode: str,
-                   vision_kv: Optional[Tensor] = None):
+                   vision_kv: Optional[Tensor] = None, remat: bool = False):
+        run = self._layer(mode, remat)
         if self.cfg.family == "vlm":
             g, per = vlm_groups(self.cfg)
             seg = []
             for gi in range(g):
                 for i in range(gi * per, (gi + 1) * per):
-                    x, c = self.self_layers[i](x, None if caches is None else caches["self"][i],
-                                               mode)
+                    x, c = run(self.self_layers[i], x,
+                               None if caches is None else caches["self"][i])
                     seg.append(c)
-                x = self.cross_layers[gi](x, vision_kv)
+                cross = self.cross_layers[gi]
+                x = (checkpoint(cross, x, vision_kv, use_reentrant=False)
+                     if remat and mode == "train" else cross(x, vision_kv))
             return x, {"self": seg}
         if self.cfg.family == "ssm":
-            return self._run_xlstm(x, caches, mode)
+            return self._run_xlstm(x, caches, run)
         if self.cfg.family == "hybrid":
-            return self._run_zamba(x, caches, mode)
+            return self._run_zamba(x, caches, run)
         new_caches = {}
         for name, blocks in self.stack_modules():
             seg = []
             for i, block in enumerate(blocks):
-                x, c = block(x, None if caches is None else caches[name][i], mode)
+                x, c = run(block, x, None if caches is None else caches[name][i])
                 seg.append(c)
             new_caches[name] = seg
         return x, new_caches
 
-    def _run_xlstm(self, x: Tensor, caches: dict | None, mode: str):
+    def _run_xlstm(self, x: Tensor, caches: dict | None, run):
         """Each group: its sLSTM block, then its mLSTM blocks."""
         g, per = xlstm_groups(self.cfg)
         new = {"slstm": [], "mlstm": []}
         for gi in range(g):
-            x, c = self.slstm[gi](x, None if caches is None else caches["slstm"][gi], mode)
+            x, c = run(self.slstm[gi], x, None if caches is None else caches["slstm"][gi])
             new["slstm"].append(c)
             for i in range(gi * per, (gi + 1) * per):
-                x, c = self.mlstm[i](x, None if caches is None else caches["mlstm"][i], mode)
+                x, c = run(self.mlstm[i], x, None if caches is None else caches["mlstm"][i])
                 new["mlstm"].append(c)
         return x, new
 
-    def _run_zamba(self, x: Tensor, caches: dict | None, mode: str):
+    def _run_zamba(self, x: Tensor, caches: dict | None, run):
         """Each group: the shared block at its own site (its own KV cache),
         then ``attn_every`` Mamba2 layers; a remainder gets one more site
         before its layers."""
@@ -612,10 +645,10 @@ class Model(nn.Module):
         starts = [gi * every for gi in range(full)] + ([full * every] if rem else [])
         new = {"attn": [], "mamba": []}
         for site, lo in enumerate(starts):
-            x, c = self.shared_attn(x, None if caches is None else caches["attn"][site], mode)
+            x, c = run(self.shared_attn, x, None if caches is None else caches["attn"][site])
             new["attn"].append(c)
             for i in range(lo, min(lo + every, self.cfg.n_layers)):
-                x, c = self.mamba[i](x, None if caches is None else caches["mamba"][i], mode)
+                x, c = run(self.mamba[i], x, None if caches is None else caches["mamba"][i])
                 new["mamba"].append(c)
         return x, new
 
@@ -630,6 +663,43 @@ class Model(nn.Module):
         x, _ = self._run_stack(self._embed_in(tokens, frames), None, "forward",
                                self.vision_kv(image_embeds))
         return self._head(x)
+
+    def forward_with_aux(self, tokens: Optional[Tensor] = None, *,
+                         frames: Optional[Tensor] = None,
+                         image_embeds: Optional[Tensor] = None,
+                         remat: bool = False) -> Tuple[Tensor, Tensor]:
+        """Train mode: (logits [B, T, V], aux), with grad. ``aux`` is the
+        f32 sum of every MoE layer's load-balance loss (0 without MoE);
+        the VLM projects ``image_embeds`` with grad. ``remat`` recomputes
+        each layer body in the backward instead of keeping its
+        activations."""
+        x, extras = self._run_stack(self._embed_in(tokens, frames), None, "train",
+                                    self._vision_kv(image_embeds), remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for seg in extras.values():
+            for a in seg:
+                if a is not None:
+                    aux = aux + a.float()
+        return self._head(x), aux
+
+    def loss(self, batch: dict, remat: bool = False,
+             moe_aux_coeff: float = 0.01) -> Tuple[Tensor, dict]:
+        """The train objective: (total, {"loss", "moe_aux", "tokens"}), total
+        = NLL + ``moe_aux_coeff``·aux. ``batch`` holds ``tokens`` [B, T]
+        (or ``frames``), ``labels`` [B, T] and, for a VLM, optionally
+        ``image_embeds``; the NLL is the mean over the labels ≥ 0, from
+        f32 logits."""
+        logits, moe_aux = self.forward_with_aux(
+            batch.get("tokens"), frames=batch.get("frames"),
+            image_embeds=batch.get("image_embeds"), remat=remat)
+        logits = logits.float()
+        labels = batch["labels"]
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        nll = torch.sum((lse - ll) * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        total = nll + moe_aux_coeff * moe_aux
+        return total, {"loss": nll, "moe_aux": moe_aux, "tokens": torch.sum(mask)}
 
     def cache_specs(self, batch: int, max_seq: int) -> dict:
         return cache_specs(self.cfg, batch, max_seq)

@@ -10,7 +10,9 @@ non-finite B block, integer-valued ⟨+,×⟩ exact, ⟨+,×⟩ on rows of ~1,00
 nonzeros within half its tolerance, no host sync in the wrapper, groups
 cut at a block row's end and past 2³¹ elements; the MoE dispatch gather
 (``torch.equal`` to its plain version, bf16 and f32, aligned and
-misaligned rows) and one MoE layer on the card against the host. Needs
+misaligned rows), its transpose (kernel 7ᵀ, ``torch.equal`` to its plain
+version, the gradient through the dispatch Function) and one MoE layer on
+the card against the host. Needs
 an NVIDIA GPU with nvcc; elsewhere every test here skips. On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -860,6 +862,58 @@ def test_moe_layer_on_the_card_matches_the_host(cuda):
         torch.testing.assert_close(y.cpu(), moe_ffn(xt, host, cfg), rtol=1e-4, atol=1e-5)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("plan", [(2, 256, 64, 6, 1.25, 2048), (2, 256, 64, 6, 0.5, 2048),
+                                  (2, 100, 8, 2, 1.25, 6144), (1, 33, 8, 2, 1.0, 100)],
+                         ids=["deepseek", "deepseek-drops", "mixtral", "misaligned-d"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_moe_dispatch_backward_matches_plain_version(cuda, dtype, plan):
+    """Kernel 7ᵀ on a ``dispatch_plan``'s tok_slots (drops where the
+    capacity factor is cut), bit for bit its plain version, launched once;
+    and x's gradient through the dispatch Function (kernels 7 and 7ᵀ)
+    equal to the one through the plain gather under autograd."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather_backward
+    from repro_torch.models.config import MoEConfig
+    from repro_torch.models.moe import capacity, dispatch_plan
+
+    b, t, e, k, cf, d = plan
+    gen = torch.Generator(device=cuda).manual_seed(t + e + d)
+    ids = torch.argsort(torch.rand((b, t, e), generator=gen, device=cuda), dim=-1)[..., :k]
+    c = capacity(t, MoEConfig(n_experts=e, top_k=k, d_ff_expert=8, capacity_factor=cf))
+    p = dispatch_plan(ids.to(torch.int32).contiguous(), e, c)
+    if cf < 1.0:
+        assert not bool(p.keep.all())
+    grad = torch.randn((b * e * c, d), generator=gen, device=cuda).to(dtype)
+    before = moe_dispatch_gather_backward.launches
+    got = moe_dispatch_gather_backward(grad, p.tok_slots)
+    assert moe_dispatch_gather_backward.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.moe_dispatch_gather_backward_ref(grad, p.tok_slots))
+    x = torch.randn((b * t, d), generator=gen, device=cuda).to(dtype)
+    xk = x.clone().requires_grad_(True)
+    ops.moe_dispatch(xk, p.slot_tok, p.tok_slots, group=c, experts=e).backward(grad)
+    xp = x.clone().requires_grad_(True)
+    ref.moe_dispatch_gather_ref(xp, p.slot_tok).float().backward(grad.float())
+    torch.cuda.synchronize()
+    assert torch.equal(xk.grad, ref.moe_dispatch_gather_backward_ref(grad, p.tok_slots))
+    if dtype == torch.float32:
+        assert torch.equal(xk.grad, xp.grad)
+
+
+def test_moe_dispatch_backward_rejects_bad_operands(cuda):
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather_backward
+
+    g = torch.zeros((6, 128), device=cuda)
+    slots = torch.zeros((3, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="operands on"):
+        moe_dispatch_gather_backward(g, slots.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        moe_dispatch_gather_backward(g, slots.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_dispatch_gather_backward(g, slots.T)
+    with pytest.raises(TypeError):
+        moe_dispatch_gather_backward(g.int(), slots)
 
 
 # ---------------------------------------------------------------------------

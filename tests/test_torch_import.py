@@ -172,25 +172,41 @@ def test_lm_entry_points_raise_without_a_gpu(monkeypatch):
         build_model(dataclasses.replace(cfg, family="no-such-family"), device="cpu")
 
 
+def test_train_launcher_raises_without_a_gpu(monkeypatch, tmp_path):
+    from repro_torch.launch.train import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
+
+
 def _top_level_names(path: pathlib.Path) -> set[str]:
     return {n.name for n in ast.parse(path.read_text()).body
             if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
 
 
 @pytest.mark.parametrize("module,scope", [("core/delta.py", "all"), ("obs/trace.py", "all"),
+                                          ("train/data.py", "all"),
                                           ("core/pipeline.py", "subset"),
                                           ("graphs/multi.py", "subset"),
-                                          ("graphs/dynamic.py", "subset")])
+                                          ("graphs/dynamic.py", "subset"),
+                                          ("train/optimizer.py", "subset"),
+                                          ("train/checkpoint.py", "subset"),
+                                          ("distributed/fault_tolerance.py", "subset")])
 def test_ported_modules_keep_the_reference_names(module, scope):
     """The port's own copies of the JAX package's pure-Python modules
-    (delta, trace) define every function and class the reference does; the
-    ported multi-source, pipeline and dynamic modules define only names the
-    reference has (``_np``/``_block``/``_synchronize``/``_check_semiring``/
-    ``_traces`` are the port's helpers). Read from the source text, so
+    (delta, trace, the data pipeline) define every function and class the
+    reference does; the ported multi-source, pipeline, dynamic, optimizer,
+    checkpoint and fault-tolerance modules define only names the reference
+    has (``_np``/``_block``/``_synchronize``/``_check_semiring``/``_traces``,
+    the optimizer's ``_clip_scale`` and the checkpoint's ``_is_namedtuple``/
+    ``_to_host``/``_load``/``_rebuild`` are the port's helpers). Read from the source text, so
     nothing of the reference is imported."""
     ported = _top_level_names(PKG / module)
     reference = _top_level_names(ROOT / "src" / "repro" / module)
-    helpers = {"_np", "_block", "_synchronize", "_check_semiring", "_traces"}
+    helpers = {"_np", "_block", "_synchronize", "_check_semiring", "_traces",
+               "_clip_scale", "_is_namedtuple", "_to_host", "_load", "_rebuild"}
     if scope == "all":
         assert ported == reference
     else:
