@@ -287,6 +287,29 @@ Phases:
      2 restarts, every loss, the final parameters and optimizer state
      equal bit for bit; then ``launch.train.main`` at its defaults for
      12 steps in a temporary directory, its loss falling.
+ 22. The dry run (``launch/dryrun.py``, on the meta device) against the
+     card's own steps. (a) In phase 21c, the model resident: one more
+     train step on the card under ``launch/op_analysis.py``'s counter,
+     and the dry run of the same cell (DeepSeek-V2-Lite at full width,
+     4 layers, 4 × 2,048 tokens, 2 microbatches, remat) on meta. (b) In
+     phase 12, deepseek-v2-lite-16b resident: one ``make_serve_step``
+     decode at batch 4, max_seq 1,024 after the prompts' prefill, under
+     the counter, and its dry run. Gates of (a) and (b): the same ops
+     (name, FLOPs, dtype, bytes) in the same order on meta and on the
+     card (the first that differs is printed), so the same FLOPs by
+     dtype and bytes; kernels 7 and 7ᵀ report their traffic 12 and 6
+     times a train step, kernel 7 26 times a decode step, on both; the
+     dry run's arguments plus temps within 5% of the card's
+     ``max_memory_allocated`` over the step less what was allocated
+     before the model was built; the roofline's ``bound_s`` at most 1.05
+     × the measured step (phase 21c's median, phase 12's decode ms a
+     step). Printed: the roofline terms, ``bound_s`` over the step,
+     ``useful_flops_ratio``, the top 10 (caller, op) pairs and callers
+     by bytes (and for (a) phase 21c's profiler top ops beside them). (c) The dry run's
+     records of two cells at the reference's shapes, xlstm-1.3b ×
+     decode_32k and deepseek-v2-lite-16b × decode_32k (kernel 7 on
+     meta): every key of the reference's record, FLOPs > 0, and
+     ``model_flops`` = 2 · N_active · batch. Seconds of each part.
 
 Launch counters: all eight are set to 0 before phase 3 and kernels 1–2
 read after phase 4. In phases 6–8 every call of the fused path, in phase
@@ -511,6 +534,7 @@ def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
 
     # ---------------------------------------------------------------- 12
     torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()     # phase 22b's baseline
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
@@ -553,7 +577,24 @@ def lm_phases(torch, dev, cfg, prompt_lens, max_new: int, max_seq: int, time_ms,
     summary["launches"] = runs[0]["kernel7_launches"]
     print(f"phase 12: {cfg.arch_id} served {b} requests × {max_new} tokens in bf16 "
           f"twice with identical tokens; kernel 7 launched {summary['launches']} times")
-    del model, captured
+    del captured
+
+    # ---------------------------------------------------------------- 22b
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve.engine import make_serve_step
+
+    cache = model.init_cache(b, max_seq)
+    logits, cache = model.prefill(left_padded(torch, prompts, dev), cache)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    del logits
+    serve_step = make_serve_step(model)
+    dry = hold_dryrun(torch, "b", lambda: serve_step(tok, cache), (dict(model.named_parameters()),
+                                                                     cache, tok),
+                      base_bytes, statistics.median(r["decode_ms_per_step"] for r in runs),
+                      cfg.arch_id, ShapeConfig("decode_4x1024", max_seq, b, "decode"), cfg, None,
+                      {"moe_dispatch_gather": routed})
+    summary["phase22b_s"] = dry["seconds"]
+    del model, cache, tok
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 13
@@ -1365,6 +1406,7 @@ def train_phases(torch, dev) -> dict:
     # ---------------------------------------------------------------- 21c
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()     # phase 22a's baseline
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev)
     params, opt = init_train_state(model, seed=SEED)
@@ -1421,6 +1463,18 @@ def train_phases(torch, dev) -> dict:
     adamw_ms = (time.perf_counter() - t0) * 1e3
     del grads
     med_ms = statistics.median(s["ms"] for s in steps[1:])
+    # ---------------------------------------------------------------- 22a
+    from repro_torch.models.config import ShapeConfig
+
+    batch = device_batch(src.batch(TRAIN_STEPS + 1, 0, 1), dev)
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    dry = hold_dryrun(torch, "a", lambda: step(params, opt, batch), (params, opt, batch),
+                      base_bytes, med_ms, cfg.arch_id,
+                      ShapeConfig("train_4x2048", TRAIN_SEQ, TRAIN_BATCH, "train"), cfg, tcfg,
+                      {"moe_dispatch_gather": 2 * TRAIN_MICRO * n_moe,
+                       "moe_dispatch_gather_backward": TRAIN_MICRO * n_moe})
+    print(json.dumps({"phase": "22a", "phase_21c_profiler_top_ops_ms":
+                      {e.key[:90]: e.self_device_time_total / 1e3 for e in top}}))
     numel = n_params
     row = {"phase": "21c", "arch": cfg.arch_id, "layers": cfg.n_layers, "params": n_params,
            "weight_bytes": sum(p.numel() * p.element_size() for p in params.values()),
@@ -1449,7 +1503,6 @@ def train_phases(torch, dev) -> dict:
     check({k: (p.data_ptr(), p.dtype) for k, p in params.items()} == before
           and all(p is q for p, q in zip(params.values(), model.parameters())),
           "phase 21c: a parameter moved or changed dtype")
-    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
     for s in steps:
         check(s["launches"] == [2 * TRAIN_MICRO * n_moe, TRAIN_MICRO * n_moe],
               f"phase 21c step {s['step']}: kernels 7 and 7ᵀ launched {s['launches']} times, "
@@ -1511,7 +1564,106 @@ def train_phases(torch, dev) -> dict:
     print(f"phase 21d: restarted at steps 5 and 9, TrainDriver's run equals the uninterrupted run "
           f"bit for bit; the launcher trained {FT_STEPS} steps, loss {h[0]:.3f} → {h[-1]:.3f}")
     summary = dict(summary, launches=launches[1])
-    return {"moe_dispatch_gather_backward": summary, "moe_dispatch_gather_launches": launches[0]}
+    return {"moe_dispatch_gather_backward": summary, "moe_dispatch_gather_launches": launches[0],
+            "phase22a_s": dry["seconds"]}
+
+
+def hold_dryrun(torch, label: str, card_step, resident, base_bytes: int, step_ms: float,
+                arch: str, shape, cfg, tcfg, kernel_notes: dict) -> dict:
+    """Phase 22 (a) or (b): ``card_step()`` once on the card under the op
+    counter (``resident``: its arguments), then the dry run of the same
+    cell on meta; the gates of the module's phase 22. ``base_bytes``: what
+    was allocated before the model was built; ``step_ms``: the measured
+    step; ``kernel_notes``: the traffic reports each hand-written kernel
+    must make. Returns the row printed."""
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.launch.op_profile import contributors
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with OpCounter(resident) as counter:
+        card_step()
+    torch.cuda.synchronize()
+    card_bytes = torch.cuda.max_memory_allocated() - base_bytes
+    card = counter.analysis()
+    rec, meta = lower_cell(arch, shape, {"card": 1}, tcfg, cfg=cfg)
+
+    def sig(r):
+        return (r.op, r.flops, r.dtype, r.bytes)
+
+    first = next((i for i, (a, b) in enumerate(zip(card.ops, meta.ops)) if sig(a) != sig(b)),
+                 None if len(card.ops) == len(meta.ops) else min(len(card.ops), len(meta.ops)))
+    if first is not None:
+        print(json.dumps({"phase": f"22{label}", "first_difference": first,
+                          "card": card.ops[first:first + 1], "meta": meta.ops[first:first + 1]}))
+    notes = {side: {k: sum(r.op == k for r in a.ops) for k in kernel_notes}
+             for side, a in (("card", card), ("meta", meta))}
+    pred = meta.peak_bytes
+    terms = rec["roofline"]
+    row = {"phase": f"22{label}", "arch": arch, "shape": rec["shape"], "ops": [len(card.ops),
+                                                                             len(meta.ops)],
+           "flops_by_dtype": [card.flops_by_dtype, meta.flops_by_dtype],
+           "hbm_bytes": [card.hbm_bytes, meta.hbm_bytes], "kernel_notes": notes,
+           "argument_bytes": [card.argument_bytes, meta.argument_bytes],
+           "predicted_bytes": pred, "temp_bytes": rec["memory"]["temp_bytes"],
+           "card_counter_peak_bytes": card.peak_bytes,
+           "card_max_memory_allocated_less_base": card_bytes,
+           "memory_error": pred / card_bytes - 1, "roofline": terms, "step_ms": step_ms,
+           "bound_over_step": terms["bound_s"] * 1e3 / step_ms,
+           "useful_flops_ratio": rec["useful_flops_ratio"],
+           "model_flops_total": rec["model_flops_total"], "meta_pass_s": rec["compile_s"]}
+    print(json.dumps(row))
+    print(f"phase 22{label}: the dry run's top 10 (caller, op) pairs and callers by bytes")
+    top = contributors(meta, top=10)
+    print(json.dumps({"phase": f"22{label}", "top_bytes": [[f"{c} :: {o}", v, n]
+                                                          for (c, o), v, n in top["bytes"]],
+                      "top_callers": top["callers"]}))
+    check(first is None, f"phase 22{label}: op {first} differs between the card and meta")
+    check(card.flops_by_dtype == meta.flops_by_dtype and card.hbm_bytes == meta.hbm_bytes,
+          f"phase 22{label}: FLOPs or bytes differ between the card and meta")
+    check(notes["card"] == notes["meta"] == kernel_notes,
+          f"phase 22{label}: kernel traffic reports {notes}, not {kernel_notes}")
+    check(abs(pred - card_bytes) <= 0.05 * card_bytes,
+          f"phase 22{label}: the dry run's {pred} bytes are not within 5% of the card's "
+          f"{card_bytes}")
+    check(terms["bound_s"] <= 1.05 * step_ms / 1e3,
+          f"phase 22{label}: bound {terms['bound_s'] * 1e3:.2f} ms above 1.05 × the measured "
+          f"{step_ms:.2f} ms")
+    row["seconds"] = time.perf_counter() - t0
+    print(f"phase 22{label}: {len(card.ops)} ops, FLOPs and bytes equal on the card and meta; "
+          f"memory {pred / 1e9:.2f} GB predicted, {card_bytes / 1e9:.2f} GB on the card; bound "
+          f"{terms['bound_s'] * 1e3:.1f} ms ({terms['dominant']}) of a {step_ms:.1f} ms step; "
+          f"{row['seconds']:.1f} s")
+    return row
+
+
+def dryrun_cells(torch) -> float:
+    """Phase 22 (c): the dry run's records of two cells at the reference's
+    shapes, on meta. Returns its seconds."""
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.zoo import active_params, get_config
+
+    t0 = time.perf_counter()
+    keys = {"arch", "shape", "mesh", "devices", "compile_s", "memory", "cost_raw", "cost",
+            "collectives", "roofline", "model_flops_total", "model_flops_per_device",
+            "useful_flops_ratio", "params_total", "params_active", "fits_one_card"}
+    # (arch, kernel 7's reports: one a routed layer of deepseek's decode)
+    for arch, k7_want in (("xlstm-1.3b", 0), ("deepseek-v2-lite-16b", 26)):
+        rec, _ = lower_cell(arch, "decode_32k")
+        print(json.dumps({"phase": "22c", **rec}))
+        want = 2.0 * active_params(get_config(arch)) * SHAPES["decode_32k"].global_batch
+        check(keys <= rec.keys() and rec["devices"] == 1, f"phase 22c {arch}: record keys")
+        check(rec["cost"]["flops_per_device"] > 0 and rec["model_flops_total"] == want,
+              f"phase 22c {arch}: FLOPs {rec['cost']} or model_flops {rec['model_flops_total']}")
+        k7 = rec["kernels"].get("moe_dispatch_gather", {}).get("launches", 0)
+        check(k7 == k7_want, f"phase 22c {arch}: kernel 7 reported {k7} times, not {k7_want}")
+    seconds = time.perf_counter() - t0
+    print(f"phase 22c: xlstm-1.3b and deepseek-v2-lite-16b × decode_32k dry-run records "
+          f"complete; {seconds:.1f} s")
+    return seconds
 
 
 def local_inserts(g, k: int, rng):
@@ -3920,6 +4072,7 @@ def main() -> int:
     summary["moe_dispatch_gather"] = row
     launches["moe_dispatch_gather"] = row["launches"]
     worst["moe_dispatch_gather"] = row["max_abs_err"]
+    phase22b_s = row.pop("phase22b_s")
 
     # ---------------------------------------------------------------- 14, 15
     t0 = time.perf_counter()
@@ -3960,6 +4113,10 @@ def main() -> int:
                                                 + row["launches"])
     worst["moe_dispatch_gather_backward"] = row["max_abs_err"]
     launches["moe_dispatch_gather"] += rows["moe_dispatch_gather_launches"]
+
+    # ---------------------------------------------------------------- 22
+    dry_s = phase22b_s + rows["phase22a_s"] + dryrun_cells(torch)
+    print(f"phase 22: {dry_s:.1f} s")
 
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
                                         "src/repro/kernels/semiring_spmv.py:56"),

@@ -17,7 +17,13 @@ exactly. A hint that does not split S into B·E·C and T into B rows
 raises.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream or
-raises; on a CPU tensor it runs the plain version from ``kernels/ref.py``.
+raises; on a CPU tensor it runs the plain version from ``kernels/ref.py``;
+on a meta tensor (the dry run of ``launch/dryrun.py``) it checks the
+operands as on the card and returns an empty output of the right shape
+and dtype, launching nothing. On the card and on meta alike it reports
+the bytes its kernel moves to an active counting mode
+(``launch/op_analysis.py``), since a ctypes launch is no aten op that a
+dispatch mode could see.
 ``.launches`` counts its kernel launches, and ``.paths`` counts them by
 the path the kernel took (``elementwise``, ``flat``, ``window``).
 
@@ -38,6 +44,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.kernels import _build, ref
 
@@ -46,6 +53,17 @@ Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
 # the path codes the C entry reports (0: nothing launched)
 PATHS = (None, "elementwise", "flat", "window")
+
+
+def _note_traffic(name: str, nbytes: int) -> None:
+    """Report one launch's bytes to each active dispatch mode that counts
+    kernel traffic (``launch/op_analysis.py``'s ``kernel_traffic``); with
+    no mode active this is one test of the mode stack's length."""
+    if torch._C._len_torch_dispatch_stack():
+        for mode in _get_current_dispatch_mode_stack():
+            note = getattr(mode, "kernel_traffic", None)
+            if note is not None:
+                note(name, nbytes)
 
 
 def _check_operands(name: str, x: Tensor, slot_tok: Tensor) -> torch.device:
@@ -95,11 +113,16 @@ def moe_dispatch_gather(x: Tensor, slot_tok: Tensor, *, group: int | None = None
         _check_hint(name, x.shape[0], slot_tok.shape[0], group, experts)
     if dev.type == "cpu":
         return ref.moe_dispatch_gather_ref(x, slot_tok)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: no kernel for device {dev}")
     t, d = x.shape
     s = slot_tok.shape[0]
     out = torch.empty((s, d), dtype=x.dtype, device=dev)
+    # gather_bound's count for a plan without drops: each token row read
+    # once, every slot row written, the index read
+    _note_traffic(name, (min(t, s) + s) * d * x.element_size() + 4 * s)
+    if dev.type == "meta":
+        return out
     # the C side makes x's device current for the launch if it is not
     path = ctypes.c_int(0)
     err = _build.moe_dispatch_kernel()(
@@ -130,11 +153,16 @@ def moe_dispatch_gather_backward(grad_out: Tensor, tok_slots: Tensor) -> Tensor:
     dev = _check_operands(name, grad_out, tok_slots.view(-1))
     if dev.type == "cpu":
         return ref.moe_dispatch_gather_backward_ref(grad_out, tok_slots)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: no kernel for device {dev}")
     s, d = grad_out.shape
     t, k = tok_slots.shape
     grad_x = torch.empty((t, d), dtype=grad_out.dtype, device=dev)
+    # for a plan without drops: each kept slot row read, every token row
+    # written, the index read
+    _note_traffic(name, (min(t * k, s) + t) * d * grad_out.element_size() + 4 * t * k)
+    if dev.type == "meta":
+        return grad_x
     err = _build.moe_dispatch_backward_kernel()(
         grad_out.data_ptr(), tok_slots.data_ptr(), grad_x.data_ptr(), t, k, s, d,
         grad_out.element_size(), dev.index, torch.cuda.current_stream(dev).cuda_stream)

@@ -1,1 +1,3 @@
-"""Launchers (``repro.launch``): the training CLI on one device."""
+"""Launchers (``repro.launch``): the training CLI on one device, the
+meshes of virtual devices, and the dry run on the meta device with its
+op-level roofline and profile."""

@@ -80,12 +80,15 @@ def load_balance_loss(x: Tensor, w_router: Tensor, cfg: MoEConfig) -> Tensor:
     """Switch-style auxiliary loss, f32: E·⟨f, p⟩ with f the fraction of
     tokens whose top-1 expert (the first of equal maxima) is each expert
     and p the mean router probability; 1 at uniform routing. f is a count
-    and carries no gradient."""
+    and carries no gradient: the reference's ``bincount``, taken as a sum
+    of one-hot rows so that its size does not depend on the data (no host
+    sync, and it runs on the meta device)."""
     logits = (x @ w_router).float()
     probs = torch.softmax(logits, dim=-1)
     p_mean = probs.reshape(-1, cfg.n_experts).mean(dim=0)
     top1 = probs.argmax(dim=-1).reshape(-1)
-    f = torch.bincount(top1, minlength=cfg.n_experts).float()
+    experts = torch.arange(cfg.n_experts, device=top1.device)
+    f = (top1[:, None] == experts).sum(dim=0).float()
     f = f / torch.clamp_min(f.sum(), 1.0)
     return cfg.n_experts * torch.sum(f * p_mean)
 

@@ -23,11 +23,12 @@ from repro_torch.models.transformer import Model
 
 
 def make_prefill_step(model: Model):
-    """(tokens [B, T], cache, [image_embeds]) -> (last-token logits [B, V],
-    cache)."""
+    """(tokens [B, T], cache, [image_embeds], [frames]) -> (last-token
+    logits [B, V], cache); an encoder takes ``frames`` [B, T, frontend_dim]
+    and returns its full logits and ``{}``."""
 
-    def prefill_step(tokens, cache, image_embeds=None):
-        return model.prefill(tokens, cache, image_embeds=image_embeds)
+    def prefill_step(tokens, cache, image_embeds=None, frames=None):
+        return model.prefill(tokens, cache, frames=frames, image_embeds=image_embeds)
 
     return prefill_step
 

@@ -188,6 +188,8 @@ def _top_level_names(path: pathlib.Path) -> set[str]:
 
 @pytest.mark.parametrize("module,scope", [("core/delta.py", "all"), ("obs/trace.py", "all"),
                                           ("train/data.py", "all"),
+                                          ("launch/dryrun.py", "all"),
+                                          ("launch/mesh.py", "all"),
                                           ("core/pipeline.py", "subset"),
                                           ("graphs/multi.py", "subset"),
                                           ("graphs/dynamic.py", "subset"),
@@ -196,8 +198,8 @@ def _top_level_names(path: pathlib.Path) -> set[str]:
                                           ("distributed/fault_tolerance.py", "subset")])
 def test_ported_modules_keep_the_reference_names(module, scope):
     """The port's own copies of the JAX package's pure-Python modules
-    (delta, trace, the data pipeline) define every function and class the
-    reference does; the ported multi-source, pipeline, dynamic, optimizer,
+    (delta, trace, the data pipeline) and its dry run and meshes define
+    every function and class the reference does; the ported multi-source, pipeline, dynamic, optimizer,
     checkpoint and fault-tolerance modules define only names the reference
     has (``_np``/``_block``/``_synchronize``/``_check_semiring``/``_traces``,
     the optimizer's ``_clip_scale`` and the checkpoint's ``_is_namedtuple``/
