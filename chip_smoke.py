@@ -310,6 +310,43 @@ Phases:
      decode_32k and deepseek-v2-lite-16b × decode_32k (kernel 7 on
      meta): every key of the reference's record, FLOPs > 0, and
      ``model_flops`` = 2 · N_active · batch. Seconds of each part.
+ 23. The LM sharding layer and the mesh train steps on virtual devices
+     of the card (``distributed/sharding.py``, ``train/train_loop.py``'s
+     ``make_train_step`` and ``make_compressed_train_step``). (a)
+     deepseek-v2-lite-16b as phase 21c (4 of 27 layers, 4 × 2,048 tokens
+     in 2 microbatches, remat, AdamW lr 3e-4, warmup 2) on
+     ``small_mesh(data=2, model=2)`` for 8 steps: every loss and grad norm
+     finite, step 8's loss below step 1's, every parameter, master, mu
+     and nu block of the shape ``spec_for`` and ZeRO-1 give, kernels 7
+     and 7ᵀ launched as often as the code predicts (every MoE layer of
+     every microbatch: forward, recompute and backward); each device's
+     bytes of each state, peak memory, the median step ms of steps 2–8
+     beside phase 21c's; kernel 7 timed on the training plan (2 × 2,048
+     tokens) against its bound and ``index_select``. (b) A 2-layer f32
+     cut, TF32 off, matrices redrawn, one mesh step on the card and on
+     the host: loss and grad norm within rtol 1e-4, master within rtol
+     1e-5, atol 1e-6·max|leaf| where |mu| clears 1e-2·max|mu|, mu and nu
+     within the gradient's tolerance (rtol 1e-3, atol 1e-5·max|leaf|:
+     they are the gradient scaled and squared, and each side computes
+     its own), their worst relative error printed. (c) 2 layers on (pod
+     2, data 2, model 2) with the int8 error-feedback pod step for 8
+     steps: the codes gathered over pod int8, every loss finite, and by
+     leaf and step the share of zero codes and the error-feedback norm.
+     Against the uncompressed step on the same mesh and batches: the
+     loss within 5%; the loss of step 1's batch, read again after step 8,
+     fallen by at least a quarter of the uncompressed drop; and, leaf by
+     leaf, ``tests/test_launch.py``'s mean |Δ| / (|p| + 1e-3) below 0.05
+     over the entries that some step's codes carried (AdamW's nu > 0),
+     while the entries no step carried must hold AdamW's zero-gradient
+     value (the weight decay alone) bit for bit. The whole-leaf mean is
+     printed: on lm_head it is above 0.05 (its 102,400 columns' small
+     gradients stay below half an int8 step, and the uncompressed AdamW
+     step moves them by ~lr). The bytes that cross
+     the pod axis against a bf16 ring all-reduce. (d) A checkpoint of
+     ``scaled_config(deepseek-v2-lite-16b, 0.05)`` at top-2 written from
+     (data 2, model 2) restored onto (4, 1) and (1, 4), every leaf equal
+     bit for bit; then ``launch.train.main`` with ``--data 2 --model 2
+     --pod 2 --compress-pod`` for 12 steps, its loss falling.
 
 Launch counters: all eight are set to 0 before phase 3 and kernels 1–2
 read after phase 4. In phases 6–8 every call of the fused path, in phase
@@ -317,7 +354,7 @@ read after phase 4. In phases 6–8 every call of the fused path, in phase
 serving run, in phases 14–15 every multi-source and incremental
 traversal, in phase 16 every distributed call and in phase 17 the served
 path (capacity run) and each bsr batched run, in phase 18 each
-serving run, phase 20 whole, and in phase 21 each train step, runs
+serving run, phase 20 whole, and in phases 21 and 23 each train step, runs
 with the counters set to 0 just before it and read just after; the
 comparisons and timings in between are not counted. The run fails unless kernels 1–2 launched in
 phases 3–4 and the block launches did not, kernels 3–5 in phases 6–8,
@@ -329,7 +366,7 @@ in phases 14–15 (kernel 2's on r-TX), kernels 1, 2, 3, 5, 1b, 2b, 6
 and 6b through the mesh in phase 16, and 1b and 2b in phase 17's bsr
 cross-check (the served path itself runs csr/csc engines and launches
 none; the count is printed), none of the eleven in phase 20, and kernels
-7 and 7ᵀ in every train step of phase 21. Any
+7 and 7ᵀ in every train step of phases 21 and 23. Any
 mismatch raises, so the run
 exits non-zero without the final ``{"ok": true, ...}`` line.
 """
@@ -394,6 +431,11 @@ TRAIN_MICRO_BATCH = TRAIN_BATCH // TRAIN_MICRO
 TRAIN_STEPS = 8
 TRAIN_CUT_TOKENS = 128         # phase 21b: 1 × 128 tokens through the f32 cut
 FT_STEPS = 12                  # phase 21d: TrainDriver's and the launcher's runs
+MESH_TRAIN_SHAPE = (2, 2)      # phase 23a: (data, model) virtual devices
+MESH_POD_SHAPE = (2, 2, 2)     # phase 23c: (pod, data, model)
+MESH_POD_LAYERS = 2            # phase 23c: the dense layer and one MoE layer
+MESH_CUT_ROWS = 2              # phase 23b: 2 × 64 tokens, one row per data group
+MESH_CUT_TOKENS = 64
 # phase 21c's device time by kind of kernel, by words of the kernel's name
 TRAIN_KERNEL_KINDS = (("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
                       ("moe_dispatch", ("moe_dispatch",)),
@@ -1238,6 +1280,35 @@ def ssm_phases(torch, dev, prompt_lens, max_new: int, max_seq: int, all_kernels)
     return rows
 
 
+def profile_step(torch, run) -> tuple:
+    """``run()`` once under ``torch.profiler`` (CPU and CUDA), its loss read
+    and the card synchronised: (its result, {window ms on the host clock,
+    device busy ms, idle share, kernel launches, device ms by kind of
+    kernel, the top 8 kernels' ms})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        float(out[-1]["loss"])
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    by_kind = {}
+    for e in events:
+        kind = next((k for k, words in TRAIN_KERNEL_KINDS if any(w in e.key for w in words)),
+                    "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    return out, {"window_ms": window_ms, "device_busy_ms": busy_ms,
+                 "device_idle_share": 1 - busy_ms / window_ms,
+                 "launches": sum(e.count for e in events), "device_ms_by_kind": by_kind,
+                 "top_device_ops_ms": {e.key[:90]: e.self_device_time_total / 1e3 for e in top}}
+
+
 def train_phases(torch, dev) -> dict:
     """Phase 21: train mode on the card. (a) kernel 7ᵀ against its plain
     version on three plans, (b) an f32 cut against the host, (c)
@@ -1269,6 +1340,12 @@ def train_phases(torch, dev) -> dict:
     )
 
     t_phase = time.perf_counter()
+    laps, t_lap = {}, [t_phase]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        laps[part], t_lap[0] = now - t_lap[0], now
+
     full = get_config("deepseek-v2-lite-16b")
     kernels = (moe_dispatch_gather, moe_dispatch_gather_backward)
 
@@ -1433,25 +1510,8 @@ def train_phases(torch, dev) -> dict:
                       "grad_norm": gnorm, "launches": [k.launches for k in kernels]})
         print(json.dumps({"phase": "21c", **steps[-1]}))
     peak = torch.cuda.max_memory_allocated()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     batch = device_batch(src.batch(TRAIN_STEPS, 0, 1), dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, opt, met = step(params, opt, batch)
-        float(met["loss"])
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    by_kind = {}
-    for e in events:
-        kind = next((k for k, words in TRAIN_KERNEL_KINDS if any(w in e.key for w in words)),
-                    "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    (params, opt, met), profiled = profile_step(torch, lambda: step(params, opt, batch))
     # the step's two halves apart: the microbatches' forward and backward, then AdamW
     t0 = time.perf_counter()
     grads, _, _ = _grads_and_loss(model, params, batch, tcfg)
@@ -1474,7 +1534,7 @@ def train_phases(torch, dev) -> dict:
                       {"moe_dispatch_gather": 2 * TRAIN_MICRO * n_moe,
                        "moe_dispatch_gather_backward": TRAIN_MICRO * n_moe})
     print(json.dumps({"phase": "22a", "phase_21c_profiler_top_ops_ms":
-                      {e.key[:90]: e.self_device_time_total / 1e3 for e in top}}))
+                      profiled["top_device_ops_ms"]}))
     numel = n_params
     row = {"phase": "21c", "arch": cfg.arch_id, "layers": cfg.n_layers, "params": n_params,
            "weight_bytes": sum(p.numel() * p.element_size() for p in params.values()),
@@ -1487,12 +1547,7 @@ def train_phases(torch, dev) -> dict:
            "loss": [s["loss"] for s in steps], "grad_norm": [s["grad_norm"] for s in steps],
            "launches_per_step": {k.__name__: steps[-1]["launches"][i]
                                  for i, k in enumerate(kernels)},
-           "profiled_step": {"window_ms": window_ms, "device_busy_ms": busy_ms,
-                             "device_idle_share": 1 - busy_ms / window_ms,
-                             "launches": sum(e.count for e in events),
-                             "device_ms_by_kind": by_kind,
-                             "top_device_ops_ms": {e.key[:90]: e.self_device_time_total / 1e3
-                                                   for e in top}},
+           "profiled_step": profiled,
            "split_ms": {"forward_backward": grads_ms, "adamw": adamw_ms}}
     print(json.dumps(row))
     check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps),
@@ -1508,7 +1563,7 @@ def train_phases(torch, dev) -> dict:
               f"phase 21c step {s['step']}: kernels 7 and 7ᵀ launched {s['launches']} times, "
               f"not {2 * TRAIN_MICRO * n_moe} and {TRAIN_MICRO * n_moe}")
     launches = [sum(s["launches"][i] for s in steps) for i in range(2)]
-    del model, params, opt, met, batch, step, prof
+    del model, params, opt, met, batch, step
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 21c: {cfg.arch_id} at full width, {cfg.n_layers} layers, "
@@ -1565,7 +1620,407 @@ def train_phases(torch, dev) -> dict:
           f"bit for bit; the launcher trained {FT_STEPS} steps, loss {h[0]:.3f} → {h[-1]:.3f}")
     summary = dict(summary, launches=launches[1])
     return {"moe_dispatch_gather_backward": summary, "moe_dispatch_gather_launches": launches[0],
-            "phase22a_s": dry["seconds"]}
+            "phase22a_s": dry["seconds"], "step_ms": med_ms}
+
+
+def mesh_train_phases(torch, dev, single_step_ms: float, time_ms) -> dict:
+    """Phase 23: the LM sharding layer and the mesh train steps on virtual
+    devices of the card. (a) ``make_train_step`` on ``small_mesh(2, 2)``
+    at phase 21c's cell, (b) the same step on an f32 cut against the
+    host, (c) ``make_compressed_train_step`` on (pod 2, data 2, model 2)
+    against (a)'s step on that mesh, (d) the elastic restore and the
+    launcher's mesh flags. Returns kernel 7's and 7ᵀ's launches in (a)–(c)
+    and kernel 7's rows on the training plans."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.distributed.sharding import (
+        Sharded, param_shardings, set_activation_mesh, unshard_state, zero1_shardings,
+    )
+    from repro_torch.kernels.moe_dispatch import (
+        moe_dispatch_gather, moe_dispatch_gather_backward,
+    )
+    from repro_torch.launch.mesh import small_mesh
+    from repro_torch.launch.train import main as train_main, scaled_config
+    from repro_torch.models.transformer import build_model, model_specs
+    from repro_torch.models.zoo import count_params, get_config
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import train_loop
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.convert import param_layout
+    from repro_torch.train.optimizer import OptConfig, OptState, cosine_lr
+    from repro_torch.train.train_loop import (
+        TrainConfig, _MeshPlan, device_batch, init_mesh_ef, init_mesh_state,
+        make_compressed_train_step, make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    laps, t_lap = {}, [t_phase]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        laps[part], t_lap[0] = now - t_lap[0], now
+
+    full = get_config("deepseek-v2-lite-16b")
+    kernels = (moe_dispatch_gather, moe_dispatch_gather_backward)
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    src = SyntheticLM(DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=full.vocab,
+                                 seed=SEED))
+    totals = [0, 0]
+
+    def predicted(cfg, tcfg, pods: int = 1) -> list:
+        """Kernel 7's and 7ᵀ's launches a step, from the code: every MoE
+        layer of every microbatch (of every pod) runs kernel 7 in its
+        forward and again in remat's recompute, and 7ᵀ in its backward."""
+        once = pods * max(tcfg.microbatches, 1) * (cfg.n_layers - cfg.moe.first_dense_layers)
+        return [(2 if tcfg.remat else 1) * once, once]
+
+    def run_steps(label, step, state, batches, want):
+        """Each step with the launch counts set to 0 just before it and read
+        just after; every count must equal ``want``."""
+        rows = []
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            out = step(*state, batch)
+            state, met = out[:-1], out[-1]
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            torch.cuda.synchronize()
+            rows.append({"step": i + 1, "ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                         "grad_norm": gnorm, "launches": [k.launches for k in kernels],
+                         "predicted": want})
+            print(json.dumps({"phase": label, **rows[-1]}))
+            check(rows[-1]["launches"] == want, f"phase {label} step {i + 1}: kernels 7 and 7ᵀ "
+                  f"launched {rows[-1]['launches']} times, the code predicts {want}")
+            totals[0] += rows[-1]["launches"][0]
+            totals[1] += rows[-1]["launches"][1]
+        check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
+              f"phase {label}: a loss or grad norm is not finite")
+        return state, rows
+
+    def blocks_of(tree):
+        return [(k, v) for k, v in ckpt._flatten(tree).items() if isinstance(v, Sharded)]
+
+    def check_shapes(label, tree, shardings):
+        want = ckpt._flatten(shardings)
+        for k, leaf in blocks_of(tree):
+            check(leaf.block_shape == want[k].shard_shape(leaf.shape) and leaf.sharding.spec ==
+                  want[k].spec, f"phase {label}: {k}'s blocks {leaf.block_shape} are not "
+                  f"{want[k].spec}'s shard shape")
+
+    def free():
+        set_activation_mesh(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 23a
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    mesh = small_mesh(*MESH_TRAIN_SHAPE, device=dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev).init(seed=SEED)
+    params, opt = init_mesh_state(model, mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    specs = model_specs(cfg)
+    p_sh, z_sh = param_shardings(mesh, specs), zero1_shardings(mesh, specs)
+    check_shapes("23a", params, p_sh)
+    for f in ("master", "mu", "nu"):
+        check_shapes("23a", getattr(opt, f), z_sh)
+    tcfg = TrainConfig(opt=ocfg, microbatches=TRAIN_MICRO, remat=True)
+    want = predicted(cfg, tcfg)
+    step = make_train_step(model, mesh, tcfg)
+    batches = [device_batch(src.batch(i, 0, 1), dev) for i in range(TRAIN_STEPS)]
+    (params, opt), steps = run_steps("23a", step, (params, opt), batches, want)
+    peak = torch.cuda.max_memory_allocated()
+    batch = device_batch(src.batch(TRAIN_STEPS, 0, 1), dev)
+    (params, opt, _), profiled = profile_step(torch, lambda: step(params, opt, batch))
+    per_device = {f: [sum(v.blocks[d].numel() * v.blocks.element_size()
+                          for _, v in blocks_of(tree)) for d in range(mesh.n_devices)]
+                  for f, tree in (("params", params), ("master", opt.master), ("mu", opt.mu),
+                                  ("nu", opt.nu))}
+    med_ms = statistics.median(s["ms"] for s in steps[1:])
+    row_a = {"phase": "23a", "arch": cfg.arch_id, "layers": cfg.n_layers,
+             "params": count_params(cfg), "mesh": mesh.shape, "init_s": init_s,
+             "bytes_per_device": per_device,
+             "bytes_max": {f: max(v) for f, v in per_device.items()},
+             "bytes_sum": {f: sum(v) for f, v in per_device.items()},
+             "max_memory_allocated": peak, "median_step_ms_2_to_8": med_ms,
+             "single_device_step_ms_phase_21c": single_step_ms,
+             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med_ms * 1e3,
+             "loss": [s["loss"] for s in steps], "grad_norm": [s["grad_norm"] for s in steps],
+             "launches_per_step": steps[-1]["launches"], "predicted_per_step": want,
+             "profiled_step": profiled}
+    print(json.dumps(row_a))
+    check(steps[-1]["loss"] < steps[0]["loss"], f"phase 23a: step {TRAIN_STEPS}'s loss "
+          f"{steps[-1]['loss']} is not below step 1's {steps[0]['loss']}")
+    del model, params, opt, step, batches, batch
+    free()
+    # kernel 7 on the training plan: a microbatch of 2 × 2,048 tokens, as in phase 21c
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    tok, hint = random_plan(torch, dev, TRAIN_MICRO_BATCH, TRAIN_SEQ, full.moe, gen)
+    x = torch.randn((TRAIN_MICRO_BATCH * TRAIN_SEQ, full.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    gather_rows = [gather_row(torch, dev, x, tok, hint,
+                              f"training {TRAIN_MICRO_BATCH} x {TRAIN_SEQ}", time_ms)]
+    print(json.dumps({"phase": "23a", **gather_rows[0]}))
+    del x, tok
+    print(f"phase 23a: {cfg.arch_id} at full width, {cfg.n_layers} layers, on "
+          f"{mesh.n_devices} virtual devices {mesh.shape}: {TRAIN_STEPS} finite steps, loss "
+          f"{steps[0]['loss']:.3f} → {steps[-1]['loss']:.3f}, {med_ms:.1f} ms a step "
+          f"({single_step_ms:.1f} on one device), peak {peak / 1e9:.1f} GB")
+
+    lap("23a")
+    # ---------------------------------------------------------------- 23b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cut = dataclasses.replace(full, n_layers=2, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    card = build_model(cut, device=dev).init(g)
+    redraw_matrices(torch, card, g)
+    host = build_model(cut, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = np.random.default_rng(SEED + 3).integers(0, cut.vocab,
+                                                    (MESH_CUT_ROWS, MESH_CUT_TOKENS + 1))
+    batch = {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32)}
+    ctcfg = TrainConfig(opt=ocfg, microbatches=1, remat=True)
+    res = {}
+    for where, mdl in (("card", card), ("host", host)):
+        m = small_mesh(*MESH_TRAIN_SHAPE, device=mdl.device)
+        p, o = init_mesh_state(mdl, m)
+        want = predicted(cut, ctcfg)
+        t0 = time.perf_counter()
+        if where == "card":
+            (p, o), rows = run_steps("23b", make_train_step(mdl, m, ctcfg), (p, o),
+                                     [device_batch(batch, dev)], want)
+            met = rows[0]
+        else:
+            p, o, met = make_train_step(mdl, m, ctcfg)(p, o, device_batch(batch, "cpu"))
+            met = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])}
+        res[where] = (met, {f: {k: v.cpu() for k, v in
+                                ckpt._flatten(unshard_state(getattr(o, f))).items()}
+                            for f in ("master", "mu", "nu")}, (time.perf_counter() - t0) * 1e3)
+        del p, o
+        set_activation_mesh(None)
+    (mc, sc, card_ms), (mh, sh, host_ms) = res["card"], res["host"]
+    for name in ("loss", "grad_norm"):
+        np.testing.assert_allclose(mc[name], mh[name], rtol=1e-4,
+                                   err_msg=f"phase 23b {name}: card against host")
+    worst = {"mu": 0.0, "nu": 0.0}        # max |card − host| / |host| where |mu| clears 1e-2·max
+    for k, mu in sh["mu"].items():
+        ok = mu.abs() > 1e-2 * mu.abs().max()
+        for f, rtol, atol in (("master", 1e-5, 1e-6), ("mu", 1e-3, 1e-5), ("nu", 1e-3, 1e-5)):
+            want = sh[f][k]
+            got = sc[f][k]
+            sel = ok if f == "master" else torch.ones_like(ok)
+            torch.testing.assert_close(got[sel], want[sel], rtol=rtol,
+                                       atol=atol * float(want.abs().max()),
+                                       msg=lambda msg: f"phase 23b {f} {k}: {msg}")
+            if f in worst and bool(ok.any()):
+                worst[f] = max(worst[f], float(((got[ok] - want[ok]).abs()
+                                                / want[ok].abs()).max()))
+    print(json.dumps({"phase": "23b", "cut": "deepseek-v2-lite-16b, 2 layers, f32, TF32 off",
+                      "params": count_params(cut), "mesh": MESH_TRAIN_SHAPE,
+                      "tokens": [MESH_CUT_ROWS, MESH_CUT_TOKENS],
+                      "loss": [mc["loss"], mh["loss"]],
+                      "grad_norm": [mc["grad_norm"], mh["grad_norm"]],
+                      "worst_rel_err_where_mu_clears_1e-2_max": worst,
+                      "card_ms": card_ms, "host_ms": host_ms}))
+    del card, host, res, sc, sh
+    free()
+    print(f"phase 23b: one mesh step of the f32 cut on the card matches the host: loss, grad "
+          f"norm, master (rtol 1e-5), mu and nu (the gradient's rtol 1e-3; worst "
+          f"{worst['mu']:.2e} and {worst['nu']:.2e} where |mu| clears 1e-2·max)")
+
+    lap("23b")
+    # ---------------------------------------------------------------- 23c
+    cfg = dataclasses.replace(full, n_layers=MESH_POD_LAYERS)
+    mesh = small_mesh(*MESH_POD_SHAPE[1:], pod=MESH_POD_SHAPE[0], device=dev)
+    ptcfg = TrainConfig(opt=ocfg, microbatches=1, remat=True, grad_compress_pod=True)
+    batches = [device_batch(src.batch(i, 0, 1), dev) for i in range(TRAIN_STEPS)]
+    # the loss of step 1's batch and of a batch no step trains, read before and after
+    fixed = {"trained": batches[0], "untrained": device_batch(src.batch(TRAIN_STEPS, 0, 1), dev)}
+    names = [name for name, _, _ in param_layout(cfg)]
+    n_pod = mesh.shape["pod"]
+
+    def fixed_losses(model, params) -> dict:
+        _MeshPlan(model, mesh).load_weights(params)
+        with torch.no_grad():
+            return {k: float(model.loss(b, remat=False)[0]) for k, b in fixed.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev).init(seed=SEED)
+    params, opt = init_mesh_state(model, mesh)
+    ef = init_mesh_ef(model, mesh)
+    start = {k: v.full() for k, v in blocks_of(params)}            # bf16, the masters' start
+    loss_before = fixed_losses(model, params)
+    step = make_compressed_train_step(model, mesh, ptcfg)
+    want = predicted(cfg, ptcfg, pods=n_pod)
+    wire, per_leaf = [], []       # gathered dtypes; per leaf a step: zero codes, mean, ef norms
+    real_psum = train_loop.compressed_psum_mean
+
+    def spy(x, e, axis, pod_mesh):
+        """compressed_psum_mean, noting the dtype of what crosses the pod
+        axis, the share of zero codes over the pods, the share of the
+        mean's entries that are 0, and each pod's error-feedback norm."""
+        gather, zero = pod_mesh.all_gather, []
+
+        def noted(t, ax, dim=1):
+            wire.append(t.dtype)
+            if t.dtype == torch.int8:
+                zero.append(t.numel() - torch.count_nonzero(t))
+            return gather(t, ax, dim)
+        pod_mesh.all_gather = noted
+        try:
+            mean, new_ef = real_psum(x, e, axis, pod_mesh)
+        finally:
+            del pod_mesh.all_gather
+        per_leaf.append((zero[0], mean[0].numel() - torch.count_nonzero(mean[0]),
+                         mean[0].numel(), torch.linalg.vector_norm(new_ef.flatten(1), dim=1)))
+        return mean, new_ef
+
+    train_loop.compressed_psum_mean = spy
+    try:
+        (params, opt, ef), csteps = run_steps("23c", step, (params, opt, ef), batches, want)
+    finally:
+        train_loop.compressed_psum_mean = real_psum
+    peak_c = torch.cuda.max_memory_allocated()
+    code_types = {str(t) for t in wire[0::2]}           # codes, then scales, a leaf
+    check(code_types == {"torch.int8"}, f"phase 23c: the codes gathered over pod are {code_types}")
+    # by leaf, a step each: the share of zero codes over both pods, of zero entries in the
+    # mean, and the error-feedback norm (the pods' mean)
+    codes = {}
+    for i, name in enumerate(names):
+        rows = per_leaf[i::len(names)]
+        codes[name] = {"zero_codes": [round(float(z) / (n_pod * n), 4) for z, _, n, _ in rows],
+                       "zero_mean": [round(float(m) / n, 4) for _, m, n, _ in rows],
+                       "ef_norm": [round(float(e.mean()), 4) for _, _, _, e in rows]}
+    del per_leaf
+    print(json.dumps({"phase": "23c", "compressed_codes": codes["lm_head"], "others": {
+        "zero_codes_max": max(max(v["zero_codes"]) for k, v in codes.items()
+                              if k not in ("lm_head", "embed")),
+        "embed_zero_codes": codes["embed"]["zero_codes"]}}))
+    loss_c = fixed_losses(model, params)
+    numel = count_params(cfg)
+    leaves = len(blocks_of(params))
+    wire_bytes = {"int8_codes_and_scales_per_pod_step": (n_pod - 1) * (numel + 4 * leaves),
+                  "bf16_ring_all_reduce_per_pod_step": 2 * (n_pod - 1) / n_pod * numel * 2}
+    c_params = {k: v.full() for k, v in blocks_of(params)}
+    c_master = {k: v.full() for k, v in blocks_of(opt.master)}
+    # entries no step carried a gradient to: AdamW's nu is still 0 there
+    never = {k: v.full() == 0 for k, v in blocks_of(opt.nu)}
+    ef_bytes = sum(v.blocks.numel() * 4 for _, v in blocks_of(ef))
+    del model, params, opt, ef, step
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev).init(seed=SEED)
+    params, opt = init_mesh_state(model, mesh)
+    step = make_train_step(model, mesh, ptcfg)
+    (params, opt), psteps = run_steps("23c", step, (params, opt), batches, predicted(cfg, ptcfg))
+    loss_p = fixed_losses(model, params)
+    p_params = {k: v.full() for k, v in blocks_of(params)}
+    del model, opt, step
+    # the reference's measure (tests/test_launch.py:126-130), leaf by leaf: the mean of
+    # |Δ| / (|p| + 1e-3) against the uncompressed step. Held on the entries the int8 wire
+    # carried; the entries it never carried must hold AdamW's zero-gradient value (the
+    # decay alone) bit for bit, and their share and reading are printed beside it.
+    lrs = [cosine_lr(torch.tensor(i + 1, dtype=torch.int32, device=dev), ocfg)
+           for i in range(TRAIN_STEPS)]
+    by_leaf = {}
+    for k, pp in p_params.items():
+        pp = pp.float()
+        cp = c_params.pop(k).float()
+        nv = never.pop(k)
+        r = (cp - pp).abs() / (pp.abs() + 1e-3)
+        del cp
+        m = start.pop(k).float()
+        for lr in lrs:
+            m = m - (m * ocfg.weight_decay) * lr
+        decayed = torch.equal(c_master.pop(k)[nv], m[nv])
+        n_never = int(nv.sum())
+        by_leaf[k] = {"whole": float(r.mean()), "carried": float(r[~nv].mean()) if
+                      n_never < r.numel() else 0.0, "never_carried_share": n_never / r.numel(),
+                      "never_carried": float(r[nv].mean()) if n_never else 0.0,
+                      "never_carried_is_decay_only": decayed}
+        del pp, nv, r, m
+    del params, p_params
+    free()
+    lc, lp = csteps[-1]["loss"], psteps[-1]["loss"]
+    drop = {"compressed": loss_before["trained"] - loss_c["trained"],
+            "plain": loss_before["trained"] - loss_p["trained"]}
+    print(json.dumps({"phase": "23c", "arch": cfg.arch_id, "layers": cfg.n_layers,
+                      "params": numel, "mesh": mesh.shape,
+                      "compressed_loss": [s["loss"] for s in csteps],
+                      "plain_loss": [s["loss"] for s in psteps],
+                      "fixed_batch_loss": {"before": loss_before, "compressed": loss_c,
+                                           "plain": loss_p},
+                      "compressed_step_ms": statistics.median(s["ms"] for s in csteps[1:]),
+                      "plain_step_ms": statistics.median(s["ms"] for s in psteps[1:]),
+                      "rel_param_diff_by_leaf": by_leaf, "ef_bytes": ef_bytes,
+                      "max_memory_allocated_compressed": peak_c,
+                      "max_memory_allocated_plain": torch.cuda.max_memory_allocated(),
+                      "pod_wire_bytes": wire_bytes}))
+    for k, v in by_leaf.items():
+        check(v["carried"] < 0.05, f"phase 23c: {k}'s mean relative difference from the plain "
+              f"step over the entries the int8 wire carried is {v['carried']}")
+        check(v["never_carried_is_decay_only"], f"phase 23c: {k}'s entries that no step carried "
+              f"do not hold AdamW's zero-gradient value")
+    check(drop["plain"] > 0 and drop["compressed"] > 0.25 * drop["plain"],
+          f"phase 23c: the loss of step 1's batch fell by {drop['compressed']} compressed, "
+          f"{drop['plain']} uncompressed")
+    check(abs(lc - lp) < 0.05 * abs(lp), f"phase 23c: loss {lc} not within 5% of {lp}")
+    del batches, fixed
+    worst_leaf = max(by_leaf, key=lambda k: by_leaf[k]["whole"])
+    print(f"phase 23c: int8 error-feedback pod compression on {mesh.shape}: step 1's batch "
+          f"{loss_before['trained']:.4f} → {loss_c['trained']:.4f} against "
+          f"{loss_p['trained']:.4f} uncompressed; the reference's per-leaf reading, over the "
+          f"entries the wire carried, at most {max(v['carried'] for v in by_leaf.values()):.4f};"
+          f" whole leaves at most {by_leaf[worst_leaf]['whole']:.4f} ({worst_leaf}, "
+          f"{by_leaf[worst_leaf]['never_carried_share']:.1%} of it never carried, decay only)")
+
+    lap("23c")
+    # ---------------------------------------------------------------- 23d
+    small = scaled_config(full, 0.05)
+    small = dataclasses.replace(small, moe=dataclasses.replace(small.moe, top_k=2))
+    model = build_model(small, device=dev).init(seed=SEED)
+    mesh = small_mesh(2, 2, device=dev)
+    params, opt = init_mesh_state(model, mesh)
+    specs = model_specs(small)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save(tmp, 1, {"params": params, "opt": opt})
+        saved = {k: v.full() for k, v in blocks_of({"params": params, "opt": opt})}
+        for shape in ((4, 1), (1, 4)):
+            mesh_b = small_mesh(*shape, device=dev)
+            z = zero1_shardings(mesh_b, specs)
+            got, _ = ckpt.restore(tmp, 1, {"params": params, "opt": opt},
+                                  {"params": param_shardings(mesh_b, specs),
+                                   "opt": OptState(None, z, z, z)})
+            back = blocks_of(got)
+            check(len(back) == len(saved) and all(
+                v.sharding.mesh is mesh_b and torch.equal(v.full(), saved[k]) for k, v in back),
+                f"phase 23d: a leaf restored onto {shape} differs from the saved one")
+        t0 = time.perf_counter()
+        out = train_main(["--data", "2", "--model", "2", "--pod", "2", "--compress-pod",
+                          "--steps", str(FT_STEPS), "--ckpt-dir", os.path.join(tmp, "cli")])
+        cli_s = time.perf_counter() - t0
+    h = [x["loss"] for x in out["history"]]
+    check(out["final_step"] == FT_STEPS and h[-1] < h[0],
+          f"phase 23d: the launcher's losses {h} do not fall")
+    del model, params, opt, out
+    free()
+    lap("23d")
+    print(json.dumps({"phase": "23d", "config": "scaled_config(deepseek-v2-lite-16b, 0.05), "
+                      "top-2", "restored_onto": [[4, 1], [1, 4]], "leaves": len(saved),
+                      "cli_losses": h, "cli_s": cli_s,
+                      "seconds": time.perf_counter() - t_phase, "seconds_by_part": laps}))
+    print(f"phase 23d: a (2, 2) checkpoint restored onto (4, 1) and (1, 4) bit for bit; the "
+          f"launcher's compressed pod step trained {FT_STEPS} steps, loss {h[0]:.3f} → "
+          f"{h[-1]:.3f}")
+    return {"launches": totals, "gather_rows": gather_rows}
 
 
 def hold_dryrun(torch, label: str, card_step, resident, base_bytes: int, step_ms: float,
@@ -4113,6 +4568,13 @@ def main() -> int:
                                                 + row["launches"])
     worst["moe_dispatch_gather_backward"] = row["max_abs_err"]
     launches["moe_dispatch_gather"] += rows["moe_dispatch_gather_launches"]
+
+    # ---------------------------------------------------------------- 23
+    t0 = time.perf_counter()
+    mesh_rows = mesh_train_phases(torch, dev, rows["step_ms"], time_ms)
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    launches["moe_dispatch_gather"] += mesh_rows["launches"][0]
+    launches["moe_dispatch_gather_backward"] += mesh_rows["launches"][1]
 
     # ---------------------------------------------------------------- 22
     dry_s = phase22b_s + rows["phase22a_s"] + dryrun_cells(torch)

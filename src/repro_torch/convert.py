@@ -152,7 +152,8 @@ def _float_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def _leaf(tree: dict, dotted: str):
+def leaf_at(tree: dict, dotted: str):
+    """The leaf of a nested dict at a dotted path."""
     for k in dotted.split("."):
         tree = tree[k]
     return tree
@@ -174,7 +175,7 @@ def model_params_from_numpy(cfg: ModelConfig, params_np: dict, device=None,
     device = resolve_device(device)
     state = {}
     for name, spec in spec_leaves(model_specs(cfg)):
-        a = np.asarray(_leaf(params_np, name))
+        a = np.asarray(leaf_at(params_np, name))
         if tuple(a.shape) != tuple(spec.shape):
             raise ValueError(f"{name}: shape {a.shape}, the spec has {spec.shape}")
         seg, _, rest = name.partition(".")
@@ -215,6 +216,44 @@ def model_params_to_numpy(cfg: ModelConfig, state) -> dict:
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = a
+    return tree
+
+
+def param_layout(cfg: ModelConfig) -> list:
+    """(dotted path in the JAX params tree, its spec, [(the port's parameter
+    name, its index in the stacked leaf)]) for every leaf, in the spec
+    tree's order: a top-level leaf or zamba2's shared block is one
+    parameter at index (); a segment's stacked leaf [L, ...] holds layer i
+    at (i,); the VLM's self layers and xLSTM's mLSTM blocks [g, per, ...]
+    hold block i at (i // per, i % per)."""
+    out = []
+    for name, spec in spec_leaves(model_specs(cfg)):
+        seg, _, rest = name.partition(".")
+        lead = _LAYER_DIMS.get(seg, 1)
+        if not rest or lead == 0:
+            out.append((name, spec, [(name, ())]))
+            continue
+        dims = spec.shape[:lead]
+        n = int(np.prod(dims))
+        out.append((name, spec, [(f"{seg}.{i}.{rest}", tuple(int(v) for v in np.unravel_index(i, dims)))
+                                 for i in range(n)]))
+    return out
+
+
+def stack_model_params(cfg: ModelConfig, state, dtype: torch.dtype | None = None) -> dict:
+    """The JAX params tree as tensors on their device (no host copy) from a
+    port state keyed as ``Model.named_parameters()``: each segment's layers
+    stacked into its leaf, in ``dtype`` when given."""
+    tree: dict = {}
+    for name, spec, parts in param_layout(cfg):
+        leaf = torch.stack([state[p].detach() for p, _ in parts]) if parts[0][1] else \
+            state[parts[0][0]].detach()
+        leaf = leaf.reshape(spec.shape).to(dtype or leaf.dtype)
+        node = tree
+        keys = name.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
     return tree
 
 

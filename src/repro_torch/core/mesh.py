@@ -1,21 +1,33 @@
 """A device mesh of D virtual devices on one card, and the collectives that
 ``shard_map`` bodies issue in the JAX package.
 
-``Mesh(shape=(R, C))`` stands in for ``jax.sharding.Mesh`` with axes
-``("dr", "dc")``: flat device g is ``r*C + c``, as in JAX. Every sharded
-array is one tensor with a leading device axis ``[D, ...]``, the outer
-view that the callers of ``shard_map`` in ``core/distributed.py`` use; a
-device's block is its slice ``x[g]``. A collective is an explicit data
-movement over that axis (one indexing copy), and a per-device body runs
-once per device on its slice. The index tables of a collective are built
-on the host at its first use and kept on the device, so later calls copy
-nothing from the host and never wait for the card.
+``Mesh(shape, axis_names)`` stands in for ``jax.sharding.Mesh`` with one
+to three named axes: the graph layer's ``("dr", "dc")`` grid, and the LM
+train meshes ``("data", "model")`` and ``("pod", "data", "model")``. Flat
+device ids are row-major over the axes, as in JAX (on an (R, C) mesh
+device g is ``r*C + c``). Every sharded array is one tensor with a
+leading device axis ``[D, ...]``, the outer view that the callers of
+``shard_map`` in ``core/distributed.py`` use; a device's block is its
+slice ``x[g]``. A collective is an explicit data movement over that axis
+(one indexing copy), and a per-device body runs once per device on its
+slice. The index tables of a collective are built on the host at its
+first use and kept on the device, so later calls copy nothing from the
+host and never wait for the card.
 
-An axis argument names one mesh axis (``"dr"``, ``"dc"``) or both
-(``("dr", "dc")``, the flat axis over all D devices). Along an axis the
-devices fall into groups that share their other coordinate; a device's
-position in its group is its ``axis_index``. ``perm`` pairs and
-``all_gather``'s order are in those positions, as in JAX.
+An axis argument names one mesh axis (``"dr"``) or an ordered tuple of
+them (``("pod", "data")``; all of them in mesh order is the flat axis
+over all D devices). Along an axis the devices fall into groups that
+share their other coordinates; a device's position in its group is its
+``axis_index``, row-major over the named axes in the order given, as in
+JAX; ``all_gather``'s order is in those positions. ``ppermute``'s pairs
+number the positions over the named axes in mesh order, as JAX's does.
+
+``gather_full`` and ``scatter_full`` are the layout moves of a
+``NamedSharding``: the full tensor an all-gather of the blocks over every
+axis of a spec leaves on each device, and each device's block of a full
+tensor (``jax.device_put``, or what a reduce-scatter leaves of one
+contribution). Every device's gather result is the same tensor, so on one
+card the devices share one copy of it.
 
 No primitive reduces over the device axis. A ⊕ across devices is the
 caller's, with ``sr.add`` in an order it states (``core/collectives.py``
@@ -26,6 +38,7 @@ implement the same primitives.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -38,16 +51,17 @@ Axis = Union[str, Tuple[str, ...]]
 
 
 class Mesh:
-    """An (R, C) grid of virtual devices on one card."""
+    """A grid of virtual devices on one card, one to three named axes."""
 
-    def __init__(self, shape: Tuple[int, int] = (1, 1),
+    def __init__(self, shape: Tuple[int, ...] = (1, 1),
                  axis_names: Sequence[str] = ("dr", "dc"), device=None):
-        r, c = (int(v) for v in shape)
-        if r < 1 or c < 1:
-            raise ValueError(f"mesh shape must be positive, got {shape}")
-        if len(axis_names) != 2 or axis_names[0] == axis_names[1]:
-            raise ValueError(f"a mesh has two distinct axis names, got {axis_names}")
-        self.grid = (r, c)
+        grid = tuple(int(v) for v in shape)
+        if not 1 <= len(grid) <= 3 or min(grid) < 1:
+            raise ValueError(f"mesh shape must be one to three positive sizes, got {shape}")
+        if len(axis_names) != len(grid) or len(set(axis_names)) != len(grid):
+            raise ValueError(f"a mesh of shape {grid} has {len(grid)} distinct axis names, "
+                             f"got {axis_names}")
+        self.grid = grid
         self.axis_names = tuple(axis_names)
         self.device = resolve_device(device)
         self._index: dict = {}
@@ -60,23 +74,27 @@ class Mesh:
 
     @property
     def n_devices(self) -> int:
-        return self.grid[0] * self.grid[1]
+        return math.prod(self.grid)
+
+    def _names(self, axis: Axis) -> Tuple[str, ...]:
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        if not names or len(set(names)) != len(names) or any(
+                a not in self.axis_names for a in names):
+            raise ValueError(f"unknown mesh axis {axis!r}; expected one of {self.axis_names} "
+                             f"or an ordered tuple of them")
+        return names
 
     def _members(self, axis: Axis) -> np.ndarray:
         """[groups, size] flat device ids of each group along ``axis``, in
-        position order."""
-        ar, ac = self.axis_names
-        r, c = self.grid
-        g = np.arange(r * c, dtype=np.int64).reshape(r, c)
-        names = (axis,) if isinstance(axis, str) else tuple(axis)
-        if names == (ar,):
-            return g.T.copy()
-        if names == (ac,):
-            return g
-        if names == (ar, ac):
-            return g.reshape(1, -1)
-        raise ValueError(f"unknown mesh axis {axis!r}; expected {ar!r}, {ac!r} or "
-                         f"({ar!r}, {ac!r})")
+        position order: the other axes index the groups (row-major, in
+        mesh order), the named axes the positions (row-major, in the
+        order given)."""
+        names = self._names(axis)
+        g = np.arange(self.n_devices, dtype=np.int64).reshape(self.grid)
+        rest = [i for i, a in enumerate(self.axis_names) if a not in names]
+        order = rest + [self.axis_names.index(a) for a in names]
+        size = math.prod(self.grid[self.axis_names.index(a)] for a in names)
+        return g.transpose(order).reshape(-1, size).copy()
 
     def _tables(self, axis: Axis):
         """(members [D, size] and position [D] on the device, members
@@ -128,7 +146,10 @@ class Mesh:
         key = (axis if isinstance(axis, str) else tuple(axis),
                tuple((int(s), int(t)) for s, t in perm))
         if key not in self._perms:
-            members = self._tables(axis)[2]
+            # JAX numbers a ppermute's positions over a tuple of axes in mesh
+            # order, whatever order the tuple gives
+            names = self._names(axis)
+            members = self._tables(tuple(a for a in self.axis_names if a in names))[2]
             src_of = np.full(self.n_devices, -1, np.int64)
             for s, t in key[1]:
                 src_of[members[:, t]] = members[:, s]
@@ -166,12 +187,92 @@ class Mesh:
         return x[torch.arange(self.n_devices, device=x.device), idx]
 
     def grid_view(self, x: Tensor) -> Tensor:
-        """[D, ...] as [R, C, ...] (same memory)."""
+        """[D, ...] as [*grid, ...] (same memory)."""
         self._check(x)
         return x.view(*self.grid, *x.shape[1:])
 
     def flat_view(self, x: Tensor) -> Tensor:
-        """[R, C, ...] as [D, ...] (same memory)."""
-        if tuple(x.shape[:2]) != self.grid:
+        """[*grid, ...] as [D, ...] (same memory)."""
+        k = len(self.grid)
+        if tuple(x.shape[:k]) != self.grid:
             raise ValueError(f"expected a leading {self.grid} grid, got {tuple(x.shape)}")
-        return x.reshape(self.n_devices, *x.shape[2:])
+        return x.reshape(self.n_devices, *x.shape[k:])
+
+    # ---- the layout moves of a sharding ---------------------------------
+
+    def _entries(self, entries, ndim: int, keep: Axis) -> Tuple[list, Tuple[str, ...]]:
+        """(per-dim axis tuples, padded to ``ndim``; the kept axes), checked:
+        every axis named once at most."""
+        ents = [() if e is None else ((e,) if isinstance(e, str) else tuple(e))
+                for e in entries]
+        if len(ents) > ndim:
+            raise ValueError(f"{len(ents)} spec entries for {ndim} dims")
+        ents += [()] * (ndim - len(ents))
+        kept = self._names(keep) if keep else ()
+        named = [a for e in ents for a in e] + list(kept)
+        if len(set(named)) != len(named) or any(a not in self.axis_names for a in named):
+            raise ValueError(f"spec {entries} (keeping {kept}) names an axis twice or an axis "
+                             f"not in {self.axis_names}")
+        return ents, kept
+
+    def _sizes(self, names) -> list:
+        return [self.shape[a] for a in names]
+
+    def gather_full(self, x: Tensor, entries, keep: Axis = ()) -> Tensor:
+        """The full tensor that an all-gather of ``x``'s blocks [D, *block]
+        over every axis of ``entries`` (one entry per block dim: None, an
+        axis or a tuple of axes, major first) leaves on each device. A dim
+        sharded over axes A is the blocks of the devices at positions
+        0..|A|-1 along A, concatenated; an axis no entry names holds
+        copies, and the copy at position 0 is read. ``keep`` names axes
+        (the manual axes of a ``shard_map``) whose devices hold different
+        tensors: the result is then [|keep|, *full], one per position."""
+        self._check(x)
+        block = tuple(x.shape[1:])
+        ents, kept = self._entries(entries, len(block), keep)
+        live = {a for e in ents for a in e} | set(kept)
+        xv = x.view(*self.grid, *block)
+        xv = xv[tuple(slice(None) if a in live else 0 for a in self.axis_names)]
+        rem = [a for a in self.axis_names if a in live]
+        order = [rem.index(a) for a in kept]
+        for j, e in enumerate(ents):
+            order += [rem.index(a) for a in e] + [len(rem) + j]
+        xv = xv.permute(order)
+        lead = [math.prod(self._sizes(kept))] if kept else []
+        full = [b * math.prod(self._sizes(e)) for b, e in zip(block, ents)]
+        out = torch.empty(lead + full, dtype=x.dtype, device=x.device)
+        out.view(xv.shape).copy_(xv)
+        return out
+
+    def scatter_full(self, full: Tensor, entries, keep: Axis = ()) -> Tensor:
+        """Each device's block of ``full``, as [D, *block]: the inverse of
+        ``gather_full`` (with ``keep``, ``full`` is [|keep|, *full] and a
+        device takes the tensor of its position along the kept axes).
+        Devices that differ only along an axis no entry names get copies."""
+        ents, kept = self._entries(entries, full.dim() - (1 if keep else 0), keep)
+        shape = list(full.shape[1:] if kept else full.shape)
+        block = []
+        for f, e in zip(shape, ents):
+            n = math.prod(self._sizes(e))
+            if f % n:
+                raise ValueError(f"a dim of {f} does not split over {e} ({n} ways)")
+            block.append(f // n)
+        split, labels = [], []
+        if kept:
+            if full.shape[0] != math.prod(self._sizes(kept)):
+                raise ValueError(f"expected {math.prod(self._sizes(kept))} tensors along "
+                                 f"{kept}, got {full.shape[0]}")
+            split += self._sizes(kept)
+            labels += list(kept)
+        for j, (b, e) in enumerate(zip(block, ents)):
+            split += self._sizes(e) + [b]
+            labels += list(e) + [j]
+        v = full.reshape(split)
+        live = [a for a in self.axis_names if a in labels]
+        v = v.permute([labels.index(t) for t in live + list(range(len(block)))])
+        for i, a in enumerate(self.axis_names):
+            if a not in live:
+                v = v.unsqueeze(i)
+        out = torch.empty((self.n_devices, *block), dtype=full.dtype, device=full.device)
+        out.view(*self.grid, *block).copy_(v.expand(*self.grid, *block))
+        return out

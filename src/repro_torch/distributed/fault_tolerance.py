@@ -13,8 +13,12 @@ checkpoint-restart driver and straggler monitoring, on one device.
   On one device this is step-time anomaly detection; the policy itself is
   unit-tested.
 
-The reference's elastic rescale restores onto another mesh; it waits for
-the port's process-group mesh (ROADMAP.md §1 item 3).
+``TrainDriver`` takes the single-device step or a mesh step
+(``train.train_loop.make_train_step``, or the compressed step with its
+error-feedback buffer closed over) as ``step_fn``; a mesh state's blocks
+are saved as full leaves, so a checkpoint restores onto another mesh
+(``train.checkpoint.restore(..., shardings=)``, the reference's elastic
+rescale).
 """
 from __future__ import annotations
 

@@ -37,7 +37,8 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh card
 
 ``--mesh single`` and ``multi`` (the reference's 256- and 512-chip meshes)
-need the process-group mesh (ROADMAP.md §1 item 3) and raise.
+raise: a dry run over them would count each virtual device's ops on meta
+(ROADMAP.md §1 item 3c).
 """
 from __future__ import annotations
 
@@ -53,7 +54,6 @@ import traceback
 import torch
 
 from repro_torch.launch import op_analysis
-from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.config import SHAPES, ShapeConfig
 from repro_torch.models.transformer import Model
 from repro_torch.models.zoo import (
@@ -62,6 +62,10 @@ from repro_torch.models.zoo import (
 from repro_torch.serve.engine import make_prefill_step, make_serve_step
 from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.train_loop import TrainConfig, train_params, train_step_fn
+
+# what the reference's 256- and 512-chip dry runs wait for in the port
+_MESH_WAITS = ("needs per-device op counts on meta (ROADMAP.md §1 item 3c); "
+               "the port's dry run is one card")
 
 
 def model_flops(cfg, shape) -> float:
@@ -107,8 +111,7 @@ def lower_cell(arch_id: str, shape_name, mesh=None, tcfg: TrainConfig | None = N
     mesh = dict(mesh or {"card": 1})
     n_dev = math.prod(mesh.values())
     if n_dev != 1:
-        raise NotImplementedError(f"a dry run over {mesh} needs the process-group mesh "
-                                  "(ROADMAP.md §1 item 3); the port's dry run is one card")
+        raise NotImplementedError(f"a dry run over {mesh} {_MESH_WAITS}")
     shape = shape_name if isinstance(shape_name, ShapeConfig) else SHAPES[shape_name]
     cfg_obj = cfg or get_config(arch_id)
     cfg = cfg or serving_config(cfg_obj, shape)
@@ -193,7 +196,7 @@ def lower_cell(arch_id: str, shape_name, mesh=None, tcfg: TrainConfig | None = N
 def run_cell(arch_id: str, shape_name: str, mesh_kind: str, out_dir: str,
              tcfg: TrainConfig) -> dict:
     if mesh_kind != "card":
-        make_production_mesh(multi_pod=(mesh_kind == "multi"))     # raises
+        raise NotImplementedError(f"a dry run over the {mesh_kind} mesh {_MESH_WAITS}")
     record, ana = lower_cell(arch_id, shape_name, {"card": 1}, tcfg)
     os.makedirs(out_dir, exist_ok=True)
     fname = f"{arch_id}__{shape_name}__{mesh_kind}.json".replace("/", "_")
@@ -216,7 +219,7 @@ def main(argv=None):
 
     tcfg = TrainConfig(microbatches=args.microbatches, remat=True)
     if args.mesh != "card":
-        make_production_mesh(multi_pod=(args.mesh == "multi"))   # raises
+        raise NotImplementedError(f"a dry run over the {args.mesh} mesh {_MESH_WAITS}")
 
     cells = []
     if args.all:

@@ -1,38 +1,37 @@
 """Meshes (``repro.launch.mesh``) as ``core/mesh.py``'s grid of virtual
 devices on one card.
 
-``make_mesh`` and ``small_mesh`` build the two-axis ``Mesh``: every sharded
-tensor is one tensor ``[D, ...]`` on the card (the CUDA card unless
-``device=`` names another). The reference's three-axis pod mesh and its
-production meshes of 256 and 512 chips span cards; they wait for the
-process-group mesh (ROADMAP.md §1 item 3) and raise.
+``make_mesh``, ``small_mesh`` and ``make_production_mesh`` build a
+``Mesh`` of one to three named axes, the reference's ``("data", "model")``
+and ``("pod", "data", "model")`` among them: every sharded tensor is one
+tensor ``[D, ...]`` on the card (the CUDA card unless ``device=`` names
+another). The LM sharding layer, the mesh train steps and the elastic
+restore run on it (``distributed/sharding.py``, ``train/train_loop.py``,
+``train/checkpoint.py``). The production meshes of 256 and 512 virtual
+devices are built like any other; what runs on them is bounded by the
+card's memory, since every device's blocks live on the one card. A mesh
+of one rank per card waits for the process-group backend (ROADMAP.md §1,
+item 3d).
 """
 from __future__ import annotations
 
 from repro_torch.core.mesh import Mesh
 
-_NEEDS_PROCESS_GROUP = ("the process-group mesh (ROADMAP.md §1 item 3), which the port does "
-                        "not have yet; the port's mesh is two axes of virtual devices on one card")
 
-
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16x16 pod (256 chips) or 2x16x16 pods (512 chips):
-    raises, since both span cards."""
-    chips = 512 if multi_pod else 256
-    raise NotImplementedError(f"make_production_mesh ({chips} chips) needs {_NEEDS_PROCESS_GROUP}")
-
-
-def make_mesh(shape, axes, device=None) -> Mesh:
-    """A mesh of ``shape`` (two sizes) named ``axes`` (two names)."""
-    shape, axes = tuple(shape), tuple(axes)
-    if len(shape) != 2 or len(axes) != 2:
-        raise NotImplementedError(f"a mesh of shape {shape} over {axes} needs "
-                                  f"{_NEEDS_PROCESS_GROUP}")
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The reference's 16x16 pod (256 devices) or 2x16x16 pods (512)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return Mesh(shape, axes, device=device)
 
 
+def make_mesh(shape, axes, device=None) -> Mesh:
+    """A mesh of ``shape`` named ``axes`` (one to three of each)."""
+    return Mesh(tuple(shape), tuple(axes), device=device)
+
+
 def small_mesh(data: int = 2, model: int = 2, pod: int = 0, device=None) -> Mesh:
-    """The test mesh (data, model); a ``pod`` axis raises."""
+    """The test mesh (data, model), or (pod, data, model) when ``pod`` is set."""
     if pod:
-        raise NotImplementedError(f"small_mesh(pod={pod}) needs {_NEEDS_PROCESS_GROUP}")
+        return make_mesh((pod, data, model), ("pod", "data", "model"), device=device)
     return make_mesh((data, model), ("data", "model"), device=device)

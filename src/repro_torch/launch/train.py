@@ -1,14 +1,17 @@
-"""Training launcher on one device (``repro.launch.train``).
+"""Training launcher (``repro.launch.train``).
 
 Example:
-    PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \\
-        --scale 0.05 --steps 50
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \
+        --scale 0.05 --steps 50 --data 2 --model 2
 
 trains a width/depth-scaled variant of the arch config through the port's
 train step, checkpoints and fault-tolerance driver, on the CUDA card
-unless ``--device`` names another. The reference's mesh flags (``--data``,
-``--model`` or ``--pod`` above 1, ``--compress-pod``) need the process-group
-mesh, which the port does not have yet (ROADMAP.md §1 item 3): they raise.
+unless ``--device`` names another. With ``--data``, ``--model`` or
+``--pod`` above 1 it runs the mesh step (``make_train_step``) on a mesh of
+that many virtual devices of the one device; ``--compress-pod`` with a pod
+axis runs the int8 error-feedback step (``make_compressed_train_step``).
+One rank per card waits for the process-group backend (ROADMAP.md §1,
+item 3d).
 """
 from __future__ import annotations
 
@@ -81,37 +84,49 @@ def main(argv=None) -> dict:
                     help="torch device to train on (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    if args.data > 1 or args.model > 1 or args.pod > 1 or args.compress_pod:
-        raise NotImplementedError(
-            "--data, --model, --pod above 1 and --compress-pod need the process-group mesh "
-            "(ROADMAP.md §1 item 3), which the port does not have yet; this launcher "
-            "trains on one device")
-
     from repro_torch.core.device import resolve_device
     from repro_torch.distributed.fault_tolerance import FTConfig, TrainDriver
+    from repro_torch.launch.mesh import small_mesh
     from repro_torch.models.transformer import build_model
     from repro_torch.models.zoo import count_params, get_config
     from repro_torch.train.data import DataConfig, make_source
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_loop import (
-        TrainConfig, device_batch, init_train_state, train_step_fn,
+        TrainConfig, device_batch, init_mesh_ef, init_mesh_state, init_train_state,
+        make_compressed_train_step, make_train_step, train_step_fn,
     )
 
     device = resolve_device(args.device)
     cfg = scaled_config(get_config(args.arch), args.scale)
     model = build_model(cfg, device)
-    print(f"arch={args.arch} scaled params={count_params(cfg) / 1e6:.1f}M device={device}")
+    on_mesh = args.data > 1 or args.model > 1 or args.pod > 1 or args.compress_pod
+    mesh = small_mesh(args.data, args.model, args.pod, device=device) if on_mesh else None
+    print(f"arch={args.arch} scaled params={count_params(cfg) / 1e6:.1f}M device={device}"
+          + (f" mesh={mesh.shape}" if mesh else ""))
 
     tcfg = TrainConfig(
         opt=OptConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps),
-        microbatches=args.microbatches, remat=True)
+        microbatches=args.microbatches, remat=True, grad_compress_pod=args.compress_pod)
     params, opt_state = init_train_state(model, seed=0)
 
     dcfg = DataConfig(global_batch=args.global_batch, seq_len=args.seq,
                       vocab=cfg.vocab,
                       frontend=cfg.frontend, frontend_dim=cfg.frontend_dim)
     source = make_source(dcfg)
-    step_fn = train_step_fn(model, tcfg)
+    if mesh is None:
+        step_fn = train_step_fn(model, tcfg)
+    elif args.compress_pod and args.pod:
+        params, opt_state = init_mesh_state(model, mesh)
+        step = make_compressed_train_step(model, mesh, tcfg)
+        ef = init_mesh_ef(model, mesh)
+
+        def step_fn(p, o, batch):
+            nonlocal ef
+            p, o, ef, m = step(p, o, ef, batch)
+            return p, o, m
+    else:
+        params, opt_state = init_mesh_state(model, mesh)
+        step_fn = make_train_step(model, mesh, tcfg)
 
     def batch_fn(step_idx):
         return device_batch(source.batch(step_idx, 0, 1), device)

@@ -19,7 +19,7 @@ from repro_torch.models.layers import (
     AnyKVCache, KVCache, QuantKVCache, cache_update, decode_attention, flash_attention,
     quant_cache_update, rms_norm, rope,
 )
-from repro_torch.models.params import P_
+from repro_torch.models.params import P_, layer_names
 
 Tensor = torch.Tensor
 
@@ -45,17 +45,17 @@ def _positions(start: int, t: int, device) -> Tensor:
 def gqa_specs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> dict:
     hd = cfg.resolved_head_dim
     d = cfg.d_model
-    ld = layer_dim
+    ld, ln = layer_dim, layer_names(layer_dim)
     specs = {
-        "wq": P_(ld + (d, cfg.n_heads * hd), dtype=cfg.dtype),
-        "wk": P_(ld + (d, cfg.n_kv_heads * hd), dtype=cfg.dtype),
-        "wv": P_(ld + (d, cfg.n_kv_heads * hd), dtype=cfg.dtype),
-        "wo": P_(ld + (cfg.n_heads * hd, d), dtype=cfg.dtype),
+        "wq": P_(ld + (d, cfg.n_heads * hd), ln + ("embed", "qk_fused"), dtype=cfg.dtype),
+        "wk": P_(ld + (d, cfg.n_kv_heads * hd), ln + ("embed", "qk_fused"), dtype=cfg.dtype),
+        "wv": P_(ld + (d, cfg.n_kv_heads * hd), ln + ("embed", "qk_fused"), dtype=cfg.dtype),
+        "wo": P_(ld + (cfg.n_heads * hd, d), ln + ("qk_fused", "embed"), dtype=cfg.dtype),
     }
     if cfg.qkv_bias:
-        specs["bq"] = P_(ld + (cfg.n_heads * hd,), init="zeros", dtype=cfg.dtype)
-        specs["bk"] = P_(ld + (cfg.n_kv_heads * hd,), init="zeros", dtype=cfg.dtype)
-        specs["bv"] = P_(ld + (cfg.n_kv_heads * hd,), init="zeros", dtype=cfg.dtype)
+        specs["bq"] = P_(ld + (cfg.n_heads * hd,), ln + ("qk_fused",), init="zeros", dtype=cfg.dtype)
+        specs["bk"] = P_(ld + (cfg.n_kv_heads * hd,), ln + ("qk_fused",), init="zeros", dtype=cfg.dtype)
+        specs["bv"] = P_(ld + (cfg.n_kv_heads * hd,), ln + ("qk_fused",), init="zeros", dtype=cfg.dtype)
     return specs
 
 
@@ -135,14 +135,14 @@ def mla_specs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> dict:
     m = cfg.mla
     d, h = cfg.d_model, cfg.n_heads
     qd = m.nope_head_dim + m.rope_head_dim
-    ld = layer_dim
+    ld, ln = layer_dim, layer_names(layer_dim)
     return {
-        "wq": P_(ld + (d, h * qd), dtype=cfg.dtype),
-        "wkv_a": P_(ld + (d, m.kv_lora_rank + m.rope_head_dim), dtype=cfg.dtype),
-        "kv_norm": P_(ld + (m.kv_lora_rank,), init="ones", dtype=cfg.dtype),
-        "wk_b": P_(ld + (m.kv_lora_rank, h * m.nope_head_dim), dtype=cfg.dtype),
-        "wv_b": P_(ld + (m.kv_lora_rank, h * m.v_head_dim), dtype=cfg.dtype),
-        "wo": P_(ld + (h * m.v_head_dim, d), dtype=cfg.dtype),
+        "wq": P_(ld + (d, h * qd), ln + ("embed", "qk_fused"), dtype=cfg.dtype),
+        "wkv_a": P_(ld + (d, m.kv_lora_rank + m.rope_head_dim), ln + ("embed", "kv_lora"), dtype=cfg.dtype),
+        "kv_norm": P_(ld + (m.kv_lora_rank,), ln + ("kv_lora",), init="ones", dtype=cfg.dtype),
+        "wk_b": P_(ld + (m.kv_lora_rank, h * m.nope_head_dim), ln + ("kv_lora", "qk_fused"), dtype=cfg.dtype),
+        "wv_b": P_(ld + (m.kv_lora_rank, h * m.v_head_dim), ln + ("kv_lora", "qk_fused"), dtype=cfg.dtype),
+        "wo": P_(ld + (h * m.v_head_dim, d), ln + ("qk_fused", "embed"), dtype=cfg.dtype),
     }
 
 
@@ -237,13 +237,13 @@ def mla_cache_spec(cfg: ModelConfig, batch: int, max_seq: int,
 def cross_attn_specs(cfg: ModelConfig, layer_dim: Tuple[int, ...] = ()) -> dict:
     hd = cfg.resolved_head_dim
     d = cfg.d_model
-    ld = layer_dim
+    ld, ln = layer_dim, layer_names(layer_dim)
     return {
-        "wq": P_(ld + (d, cfg.n_heads * hd), dtype=cfg.dtype),
-        "wk": P_(ld + (d, cfg.n_kv_heads * hd), dtype=cfg.dtype),
-        "wv": P_(ld + (d, cfg.n_kv_heads * hd), dtype=cfg.dtype),
-        "wo": P_(ld + (cfg.n_heads * hd, d), dtype=cfg.dtype),
-        "gate": P_(ld + (1,), init="zeros", dtype=cfg.dtype),
+        "wq": P_(ld + (d, cfg.n_heads * hd), ln + ("embed", "qk_fused"), dtype=cfg.dtype),
+        "wk": P_(ld + (d, cfg.n_kv_heads * hd), ln + ("embed", "qk_fused"), dtype=cfg.dtype),
+        "wv": P_(ld + (d, cfg.n_kv_heads * hd), ln + ("embed", "qk_fused"), dtype=cfg.dtype),
+        "wo": P_(ld + (cfg.n_heads * hd, d), ln + ("qk_fused", "embed"), dtype=cfg.dtype),
+        "gate": P_(ld + (1,), ln + (None,), init="zeros", dtype=cfg.dtype),
     }
 
 

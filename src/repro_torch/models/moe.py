@@ -25,6 +25,12 @@ token's k contributions in ascending expert order, the order of the
 reference's serial scatter. Top-k takes a stable descending sort, so
 among equal router probabilities the lower expert id comes first, as
 ``lax.top_k`` puts it.
+
+On a mesh the reference picks its routing form from the activation mesh
+(``_ep_regime``): row by row when the experts divide the model axis
+(expert parallelism), natively batched otherwise. Both give each batch
+row its own capacity, so the numbers are the same and ``moe_ffn`` runs
+the one form on the virtual mesh, where every device shares one card.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import activation_mesh
 from repro_torch.kernels import ops
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.layers import swiglu
@@ -182,6 +189,16 @@ def uses_dense(cfg: MoEConfig) -> bool:
     density = cfg.top_k / cfg.n_experts
     return cfg.dispatch == "dense" or (cfg.dispatch == "adaptive"
                                        and density > DENSE_DISPATCH_THRESHOLD)
+
+
+def _ep_regime(cfg: MoEConfig) -> bool:
+    """True when the activation mesh's model axis divides the experts: the
+    reference's expert-parallel regime, where each model-axis device holds
+    and runs its own E / model experts."""
+    mesh = activation_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return False
+    return cfg.n_experts % mesh.shape["model"] == 0
 
 
 def moe_ffn(x: Tensor, moe_params, cfg: MoEConfig, with_aux: bool = False):

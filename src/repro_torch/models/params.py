@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,13 +24,26 @@ from torch import nn
 
 @dataclasses.dataclass(frozen=True)
 class P_:
-    """Parameter spec: shape (stacked for a segment's layers), init rule
-    (normal | zeros | ones | embed), scale and dtype."""
+    """Parameter spec: shape (stacked for a segment's layers), the logical
+    name of each dim (the keys of ``distributed.sharding.RULES``; None for
+    a dim no rule shards), init rule (normal | zeros | ones | embed),
+    scale and dtype."""
 
     shape: Tuple[int, ...]
+    dims: Tuple[Optional[str], ...]
     init: str = "normal"
     scale: float = 1.0
     dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.dims):
+            raise ValueError(f"spec of shape {self.shape} names {len(self.dims)} dims: {self.dims}")
+
+
+def layer_names(layer_dim: Tuple[int, ...]) -> Tuple[str, ...]:
+    """The logical names of a segment's stacking dims, as the reference
+    names them: ``("layers",)`` or ``("layers", "layers2")``."""
+    return ("layers", "layers2")[:len(layer_dim)]
 
 
 def init_std(spec: P_) -> float:

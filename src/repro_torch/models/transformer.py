@@ -43,7 +43,7 @@ from repro_torch.models.attention import TensorSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm, swiglu
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.params import P_, ParamTree, init_param_
+from repro_torch.models.params import P_, ParamTree, init_param_, layer_names
 from repro_torch.models.ssm import (
     GLAState, causal_conv1d, gla_chunked, gla_step, slstm_scan, slstm_step,
 )
@@ -56,32 +56,34 @@ _TOP_LEVEL = ("final_norm", "frontend", "embed", "lm_head", "w_vision")
 
 
 def _norm_spec(cfg: ModelConfig, ld):
-    return P_(ld + (cfg.d_model,), init="ones", dtype=cfg.dtype)
+    return P_(ld + (cfg.d_model,), layer_names(ld) + ("embed",), init="ones", dtype=cfg.dtype)
 
 
 def _mlp_specs(cfg: ModelConfig, ld, d_ff: int = 0) -> dict:
+    ln = layer_names(ld)
     d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
-        "w1": P_(ld + (d, f), dtype=cfg.dtype),
-        "w3": P_(ld + (d, f), dtype=cfg.dtype),
-        "w2": P_(ld + (f, d), dtype=cfg.dtype),
+        "w1": P_(ld + (d, f), ln + ("embed", "mlp"), dtype=cfg.dtype),
+        "w3": P_(ld + (d, f), ln + ("embed", "mlp"), dtype=cfg.dtype),
+        "w2": P_(ld + (f, d), ln + ("mlp", "embed"), dtype=cfg.dtype),
     }
 
 
 def _moe_specs(cfg: ModelConfig, ld) -> dict:
+    ln = layer_names(ld)
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff_expert, m.n_experts
     specs = {
-        "router": P_(ld + (d, e), dtype=cfg.dtype),
-        "w1": P_(ld + (e, d, f), dtype=cfg.dtype),
-        "w3": P_(ld + (e, d, f), dtype=cfg.dtype),
-        "w2": P_(ld + (e, f, d), dtype=cfg.dtype),
+        "router": P_(ld + (d, e), ln + ("embed", "experts"), dtype=cfg.dtype),
+        "w1": P_(ld + (e, d, f), ln + ("experts", "embed", "expert_mlp"), dtype=cfg.dtype),
+        "w3": P_(ld + (e, d, f), ln + ("experts", "embed", "expert_mlp"), dtype=cfg.dtype),
+        "w2": P_(ld + (e, f, d), ln + ("experts", "expert_mlp", "embed"), dtype=cfg.dtype),
     }
     if m.n_shared:
         fs = m.n_shared * f
-        specs["shared_w1"] = P_(ld + (d, fs), dtype=cfg.dtype)
-        specs["shared_w3"] = P_(ld + (d, fs), dtype=cfg.dtype)
-        specs["shared_w2"] = P_(ld + (fs, d), dtype=cfg.dtype)
+        specs["shared_w1"] = P_(ld + (d, fs), ln + ("embed", "mlp"), dtype=cfg.dtype)
+        specs["shared_w3"] = P_(ld + (d, fs), ln + ("embed", "mlp"), dtype=cfg.dtype)
+        specs["shared_w2"] = P_(ld + (fs, d), ln + ("mlp", "embed"), dtype=cfg.dtype)
     return specs
 
 
@@ -174,17 +176,17 @@ def model_specs(cfg: ModelConfig) -> dict:
     [groups, per]; zamba2's Mamba2 blocks over [layers] and its shared
     block unstacked)."""
     d = cfg.d_model
-    s: dict = {"final_norm": P_((d,), init="ones", dtype=cfg.dtype)}
+    s: dict = {"final_norm": P_((d,), ("embed",), init="ones", dtype=cfg.dtype)}
     if cfg.frontend == "frames":
-        s["frontend"] = P_((cfg.frontend_dim, d), dtype=cfg.dtype)
-    s["embed"] = P_((cfg.vocab, d), init="embed", dtype=cfg.dtype)
+        s["frontend"] = P_((cfg.frontend_dim, d), ("vision", "embed"), dtype=cfg.dtype)
+    s["embed"] = P_((cfg.vocab, d), ("vocab", "embed"), init="embed", dtype=cfg.dtype)
     if not cfg.tie_embeddings and not cfg.encoder_only:
-        s["lm_head"] = P_((d, cfg.vocab), dtype=cfg.dtype)
+        s["lm_head"] = P_((d, cfg.vocab), ("embed", "vocab"), dtype=cfg.dtype)
     if cfg.family == "vlm":
         g, per = vlm_groups(cfg)
         s["self_layers"] = attn_mlp_specs(cfg, "gqa_mlp", (g, per))
         s["cross_layers"] = cross_specs(cfg, (g,))
-        s["w_vision"] = P_((cfg.vlm.vision_dim, d), dtype=cfg.dtype)
+        s["w_vision"] = P_((cfg.vlm.vision_dim, d), ("vision", "embed"), dtype=cfg.dtype)
         return s
     if cfg.family == "ssm":
         g, per = xlstm_groups(cfg)
@@ -296,6 +298,7 @@ class SLSTMState(NamedTuple):
 
 
 def mlstm_specs(cfg: ModelConfig, ld=()) -> dict:
+    ln = layer_names(ld)
     s = cfg.ssm
     d = cfg.d_model
     di = s.expand * d
@@ -303,14 +306,14 @@ def mlstm_specs(cfg: ModelConfig, ld=()) -> dict:
     dk = di // h
     return {
         "norm": _norm_spec(cfg, ld),
-        "w_in": P_(ld + (d, 2 * di), dtype=cfg.dtype),
-        "conv_w": P_(ld + (s.d_conv, di), scale=0.5, dtype=cfg.dtype),
+        "w_in": P_(ld + (d, 2 * di), ln + ("embed", "mlp"), dtype=cfg.dtype),
+        "conv_w": P_(ld + (s.d_conv, di), ln + ("conv", "mlp"), scale=0.5, dtype=cfg.dtype),
         # block-diagonal per-head q/k projections (xLSTM style)
-        "wq": P_(ld + (h, dk, dk), dtype=cfg.dtype),
-        "wk": P_(ld + (h, dk, dk), dtype=cfg.dtype),
-        "w_gate": P_(ld + (d, 2 * h), init="zeros", dtype=cfg.dtype),
-        "f_bias": P_(ld + (h,), init="ones", dtype=cfg.dtype),
-        "w_down": P_(ld + (di, d), dtype=cfg.dtype),
+        "wq": P_(ld + (h, dk, dk), ln + ("heads", None, None), dtype=cfg.dtype),
+        "wk": P_(ld + (h, dk, dk), ln + ("heads", None, None), dtype=cfg.dtype),
+        "w_gate": P_(ld + (d, 2 * h), ln + ("embed", None), init="zeros", dtype=cfg.dtype),
+        "f_bias": P_(ld + (h,), ln + (None,), init="ones", dtype=cfg.dtype),
+        "w_down": P_(ld + (di, d), ln + ("mlp", "embed"), dtype=cfg.dtype),
     }
 
 
@@ -325,11 +328,12 @@ def mlstm_cache_spec(cfg: ModelConfig, batch: int, ld=()) -> SSMCache:
 
 
 def slstm_specs(cfg: ModelConfig, ld=()) -> dict:
+    ln = layer_names(ld)
     d = cfg.d_model
     return {
         "norm": _norm_spec(cfg, ld),
-        "w_gates": P_(ld + (d, 4 * d), dtype=cfg.dtype),
-        "w_out": P_(ld + (d, d), dtype=cfg.dtype),
+        "w_gates": P_(ld + (d, 4 * d), ln + ("embed", "mlp"), dtype=cfg.dtype),
+        "w_out": P_(ld + (d, d), ln + ("embed", "embed_out"), dtype=cfg.dtype),
     }
 
 
@@ -339,21 +343,22 @@ def slstm_cache_spec(cfg: ModelConfig, batch: int, ld=()) -> SLSTMState:
 
 
 def mamba2_specs(cfg: ModelConfig, ld=()) -> dict:
+    ln = layer_names(ld)
     s = cfg.ssm
     d = cfg.d_model
     di = s.expand * d
     h = di // s.head_dim
     return {
         "norm": _norm_spec(cfg, ld),
-        "w_in": P_(ld + (d, 2 * di), dtype=cfg.dtype),
-        "conv_w": P_(ld + (s.d_conv, di), scale=0.5, dtype=cfg.dtype),
-        "w_B": P_(ld + (d, s.d_state), dtype=cfg.dtype),
-        "w_C": P_(ld + (d, s.d_state), dtype=cfg.dtype),
-        "w_dt": P_(ld + (d, h), dtype=cfg.dtype),
-        "dt_bias": P_(ld + (h,), init="zeros", dtype=cfg.dtype),
-        "A_log": P_(ld + (h,), init="zeros", dtype=torch.float32),
-        "D": P_(ld + (h,), init="ones", dtype=torch.float32),
-        "w_down": P_(ld + (di, d), dtype=cfg.dtype),
+        "w_in": P_(ld + (d, 2 * di), ln + ("embed", "mlp"), dtype=cfg.dtype),
+        "conv_w": P_(ld + (s.d_conv, di), ln + ("conv", "mlp"), scale=0.5, dtype=cfg.dtype),
+        "w_B": P_(ld + (d, s.d_state), ln + ("embed", "state"), dtype=cfg.dtype),
+        "w_C": P_(ld + (d, s.d_state), ln + ("embed", "state"), dtype=cfg.dtype),
+        "w_dt": P_(ld + (d, h), ln + ("embed", "heads"), dtype=cfg.dtype),
+        "dt_bias": P_(ld + (h,), ln + ("heads",), init="zeros", dtype=cfg.dtype),
+        "A_log": P_(ld + (h,), ln + ("heads",), init="zeros", dtype=torch.float32),
+        "D": P_(ld + (h,), ln + ("heads",), init="ones", dtype=torch.float32),
+        "w_down": P_(ld + (di, d), ln + ("mlp", "embed"), dtype=cfg.dtype),
     }
 
 

@@ -8,7 +8,9 @@ its token budget or hit EOS. It takes one host sync per decode step, to
 read the new tokens. Its requests are token prompts only, as the
 reference's are: a VLM serves them with no vision sequence (its cross
 layers pass through); ``make_prefill_step`` and ``make_serve_step`` take
-``image_embeds`` and ``vision_kv``.
+``image_embeds`` and ``vision_kv``. ``serve_shardings`` gives the
+parameter, cache and token shardings of the reference's jitted steps on
+a mesh; the engine itself takes no mesh, as the reference's takes none.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.models.transformer import Model
+from repro_torch.distributed.sharding import NamedSharding, batch_axes, param_shardings
+from repro_torch.models.transformer import Model, model_specs
+from repro_torch.serve.kv_cache import cache_shardings
 
 
 def make_prefill_step(model: Model):
@@ -43,6 +47,13 @@ def make_serve_step(model: Model):
         return next_tok, logits, cache
 
     return serve_step
+
+
+def serve_shardings(mesh, model: Model, batch: int, max_seq: int):
+    """(param, cache, token) shardings of the prefill and decode steps."""
+    p_sh = param_shardings(mesh, model_specs(model.cfg))
+    c_sh = cache_shardings(mesh, model.cfg, batch, max_seq)
+    return p_sh, c_sh, NamedSharding(mesh, (batch_axes(mesh) or None, None))
 
 
 @dataclasses.dataclass

@@ -252,8 +252,8 @@ class GraphQueryServer:
                  device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "row-sharding the [B, n] traversal block over a mesh needs the "
-                "process-group mesh of ROADMAP.md §1 item 4; pass mesh=None")
+                "row-sharding the [B, n] traversal block over a mesh is ROADMAP.md §1 "
+                "item 3b (graphs/multi.py's mesh rows on the virtual mesh); pass mesh=None")
         # Every engine of this server lives here. Not in engine_key: the
         # device moves no answer.
         self.device = _pinned(device)

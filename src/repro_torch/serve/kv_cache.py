@@ -1,6 +1,7 @@
 """Cache planning for serving (``repro.serve.kv_cache``): per-arch cache
-byte accounting and whether parameters plus caches fit the devices. The
-mesh shardings wait for the mesh layer (ROADMAP §1)."""
+byte accounting, whether parameters plus caches fit the devices, and the
+caches' shardings on a mesh (``cache_shardings``, spec trees held leaf for
+leaf to the reference's)."""
 from __future__ import annotations
 
 import math
@@ -8,6 +9,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.sharding import NamedSharding, batch_axes
 from repro_torch.models.attention import MLACache, TensorSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import KVCache, QuantKVCache
@@ -55,3 +57,51 @@ def plan(cfg: ModelConfig, batch: int, max_seq: int, chips: int = 1,
         "per_chip_bytes": per_chip,
         "fits": per_chip < 0.9 * bytes_per_chip,
     }
+
+
+def _map_specs(fn, tree, key: str = ""):
+    """``fn(key path, spec)`` over a cache spec tree, keys joined by "/"."""
+    if isinstance(tree, TensorSpec):
+        return fn(key, tree)
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, f"{key}/{k}" if key else k) for k, v in tree.items()}
+    return type(tree)(*(_map_specs(fn, v, f"{key}/{f}") for f, v in zip(tree._fields, tree)))
+
+
+def cache_shardings(mesh, cfg: ModelConfig, batch: int, max_seq: int):
+    """Shard caches: batch over data(+pod); the first remaining dim the
+    model axis divides takes it, per kind of leaf.
+
+    Per leaf: dim 0 is layers (replicated); the batch dim (the first dim
+    after it equal to ``batch``) takes the data axes if they divide it.
+    On the model axis: a recurrent state [.., B, H, Dk, Dv] tries H, Dv,
+    then Dk; MLA's latent cache (c_kv, k_rope) only its sequence; any
+    other leaf (attention k/v [.., B, S, KH, HD], conv [.., B, K-1, C]) the
+    dims after the sequence slot."""
+    data_axes = batch_axes(mesh)
+    dsize = math.prod(mesh.shape[a] for a in data_axes)
+    msize = mesh.shape["model"] if "model" in mesh.axis_names else 1
+
+    def one(key: str, leaf: TensorSpec):
+        key = key.lower()
+        nd = len(leaf.shape)
+        entries = [None] * nd
+        bidx = next((i for i, s in enumerate(leaf.shape) if s == batch and i >= 1), None)
+        if bidx is not None and data_axes and batch % dsize == 0:
+            entries[bidx] = data_axes
+        if msize > 1 and bidx is not None:
+            if "gla" in key:
+                order = [bidx + 1, nd - 1] + list(range(nd - 2, bidx + 1, -1))
+            elif "c_kv" in key or "k_rope" in key:
+                order = [bidx + 1]
+            else:
+                order = list(range(bidx + 2, nd))
+            for i in order:
+                if entries[i] is None and leaf.shape[i] % msize == 0 and leaf.shape[i] >= msize:
+                    entries[i] = "model"
+                    break
+        while entries and entries[-1] is None:
+            entries.pop()
+        return NamedSharding(mesh, tuple(entries))
+
+    return _map_specs(one, cache_specs(cfg, batch, max_seq))

@@ -14,7 +14,12 @@ with the manifest dtype ``"bfloat16"``, and restored bit for bit.
 
 ``restore`` copies each array into the matching tensor of ``like``, which
 keeps its storage, device and dtype: a model's parameters stay the
-parameters the model holds.
+parameters the model holds. A ``distributed.sharding.Sharded`` leaf (a
+tensor held as per-device blocks on a mesh) is written as its full
+tensor and restored into its blocks. With ``shardings`` (a tree of
+``NamedSharding`` leaves, as ``like``) each full leaf is cut into the
+blocks of that sharding instead: a checkpoint written on one mesh
+restores onto another, the reference's elastic re-shard.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import NamedSharding, Sharded
 
 _SENTINEL = "COMMITTED"
 
@@ -51,7 +58,10 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A leaf as a numpy array of its own (bf16 as uint16 bits)."""
+    """A leaf as a numpy array of its own (bf16 as uint16 bits; a
+    ``Sharded`` leaf as its full tensor)."""
+    if isinstance(leaf, Sharded):
+        leaf = leaf.full()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -67,8 +77,9 @@ def save(ckpt_dir: str, step: int, tree, metadata: Optional[dict] = None,
     the step's critical path) and returns it."""
     flat = _flatten(tree)
     host = {key: _to_host(leaf) for key, leaf in flat.items()}
-    dtypes = {key: ("bfloat16" if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
-                    else str(host[key].dtype)) for key, leaf in flat.items()}
+    dtypes = {key: ("bfloat16" if isinstance(leaf, (torch.Tensor, Sharded))
+                    and leaf.dtype == torch.bfloat16 else str(host[key].dtype))
+              for key, leaf in flat.items()}
 
     def write():
         tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
@@ -116,34 +127,44 @@ def _load(path: str, entry: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _rebuild(like, loaded: Dict[str, torch.Tensor], prefix: str = ""):
+def _rebuild(like, loaded: Dict[str, torch.Tensor], prefix: str = "", shardings=None):
     """``like``'s structure with each tensor leaf overwritten in place by its
-    loaded array (shape and dtype checked) and any other leaf replaced."""
+    loaded array (shape and dtype checked) and any other leaf replaced; a
+    leaf whose ``shardings`` entry is a ``NamedSharding`` comes back as a
+    new ``Sharded`` in that sharding, in ``like``'s dtype."""
+    def sub(key):   # the shardings of a child: keyed as ``like``'s (positions for tuples)
+        return None if shardings is None else shardings[key]
     if isinstance(like, dict):
-        return {k: _rebuild(v, loaded, f"{prefix}/{k}" if prefix else str(k))
+        return {k: _rebuild(v, loaded, f"{prefix}/{k}" if prefix else str(k), sub(k))
                 for k, v in like.items()}
     if _is_namedtuple(like):
-        return type(like)(*(_rebuild(v, loaded, f"{prefix}/{k}" if prefix else k)
-                            for k, v in zip(like._fields, like)))
+        return type(like)(*(_rebuild(v, loaded, f"{prefix}/{k}" if prefix else k, sub(i))
+                            for i, (k, v) in enumerate(zip(like._fields, like))))
     if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(v, loaded, f"{prefix}/{i}" if prefix else str(i))
+        return type(like)(_rebuild(v, loaded, f"{prefix}/{i}" if prefix else str(i), sub(i))
                           for i, v in enumerate(like))
     src = loaded[prefix]
-    if not isinstance(like, torch.Tensor):
+    if not isinstance(like, (torch.Tensor, Sharded)):
         return src.numpy()
     if tuple(src.shape) != tuple(like.shape) or src.dtype != like.dtype:
         raise ValueError(f"checkpoint leaf {prefix}: {src.dtype} {tuple(src.shape)}, "
                          f"expected {like.dtype} {tuple(like.shape)}")
+    if isinstance(shardings, NamedSharding):
+        return Sharded.of(src, shardings)
     with torch.no_grad():
-        like.copy_(src)
+        if isinstance(like, Sharded):
+            like.blocks.copy_(like.sharding.shard(src))
+        else:
+            like.copy_(src)
     return like
 
 
-def restore(ckpt_dir: str, step: int, like):
-    """Load checkpoint ``step`` into ``like``'s tensors (in place); returns
-    (the tree, the saved metadata)."""
+def restore(ckpt_dir: str, step: int, like, shardings=None):
+    """Load checkpoint ``step`` into ``like``'s tensors (in place), or, with
+    ``shardings``, into new blocks of those shardings; returns (the tree,
+    the saved metadata)."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     loaded = {key: _load(path, manifest["arrays"][key]) for key in _flatten(like)}
-    return _rebuild(like, loaded), manifest["metadata"]
+    return _rebuild(like, loaded, shardings=shardings), manifest["metadata"]

@@ -87,13 +87,16 @@ def clip_by_global_norm(tree: Dict[str, Tensor], max_norm: float):
 
 
 def adamw_apply(params: Dict[str, Tensor], grads: Dict[str, Tensor], state: OptState,
-                cfg: OptConfig):
+                cfg: OptConfig, *, norm: Tensor | None = None, write=None):
     """One AdamW step on clipped gradients. master, mu and nu are updated in
     place and each parameter takes ``master`` in its own dtype, in its own
     storage. Returns (params, the new state, {"lr", "grad_norm"}). Each
     leaf is clipped as it is updated, so no f32 copy of every gradient
-    exists at once."""
-    norm = global_norm(grads)
+    exists at once. The update is elementwise, so a mesh step runs it on
+    its per-device blocks: it passes the gradient's ``norm`` (each element
+    counted once) and ``write(name, master)``, which rewrites the
+    parameter ``name`` from its updated master blocks."""
+    norm = global_norm(grads) if norm is None else norm
     scale = _clip_scale(norm, cfg.clip_norm)
     step = state.step + 1
     lr = cosine_lr(step, cfg)
@@ -108,5 +111,8 @@ def adamw_apply(params: Dict[str, Tensor], grads: Dict[str, Tensor], state: OptS
             nu.mul_(cfg.b2).add_(torch.square(g).mul_(1 - cfg.b2))
             upd = (mu / b1c).div_(torch.sqrt(nu / b2c).add_(cfg.eps)).add_(m * cfg.weight_decay)
             m.sub_(upd.mul_(lr))
-            p.copy_(m)
+            if write is None:
+                p.copy_(m)
+            else:
+                write(k, m)
     return params, OptState(step, state.master, state.mu, state.nu), {"lr": lr, "grad_norm": norm}

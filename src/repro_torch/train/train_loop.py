@@ -1,25 +1,58 @@
-"""The single-device train step (``repro.train.train_loop``): the loss and
-its gradients with remat and microbatches, then AdamW.
+"""The train steps (``repro.train.train_loop``): the single-device step
+body, and the mesh steps on ``core/mesh.py``'s virtual devices.
 
-The reference also builds pjit and shard_map steps over a mesh; those wait
-for the port's process-group mesh (ROADMAP.md §1 item 3). ``TrainConfig``
-keeps ``grad_compress_pod`` for them, and ``train_step_fn`` is the step
-body both wrap.
+``train_step_fn`` is the step body: the loss and its gradients with remat
+and microbatches, then AdamW. Microbatches: the global batch is split into
+``microbatches`` slices run one after another; their gradients accumulate
+in f32 and are divided by the count, and the loss reported is the mean of
+the slices' total objectives (NLL + 0.01·aux), as the reference reports it.
 
-Microbatches: the global batch is split into ``microbatches`` slices run
-one after another; their gradients accumulate in f32 and are divided by
-the count, and the loss reported is the mean of the slices' total
-objectives (NLL + 0.01·aux), as the reference reports it.
+``make_train_step`` and ``make_compressed_train_step`` are the reference's
+pjit and pod-manual steps on a mesh. The state is the reference's layout
+in real per-device blocks (``distributed.sharding.Sharded``): parameters
+by ``param_shardings``; master, mu, nu and the error-feedback tree by
+``zero1_shardings``; ``step`` replicated. Where XLA decides the reference's
+placement, the port decides it FSDP-style:
+  * each step gathers every leaf from its blocks (``Mesh.gather_full``)
+    into the model's parameters, the one copy that the devices of every
+    (pod, data) group share on one card;
+  * each microbatch runs whole, its forward and backward as in
+    ``train_step_fn``: the batch axes' devices share the one working copy
+    on the card, so splitting the rows over them would change only the
+    order of the sums. Its gradient is cut into the ZeRO-1 blocks
+    (``Mesh.scatter_full``) and folded into them microbatch by microbatch;
+  * AdamW runs on every device's own blocks, with the gradient norm
+    counting each element once (one holder of every set of copies) and
+    folding the per-block partials in a fixed order; each parameter's bf16
+    blocks are then rewritten from its master blocks, gathered over the
+    data axis (``Mesh.all_gather``) where ZeRO-1 split them finer.
+The compressed step runs the pod axis manually
+(``partial_shard_map``): each pod's gradient comes from its contiguous
+share of the global batch, cut into microbatches inside the pod, and the
+pods' gradients are averaged by ``compressed_tree_psum_mean`` over the
+pod axis, each pod keeping its own error-feedback buffer.
+
+A process-group mesh (one rank per card, ROADMAP.md §1 item 3d) would
+implement the same mesh primitives on each rank's own blocks, and each
+rank would run its own rows of a microbatch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import Model
+from repro_torch.convert import leaf_at, param_layout, stack_model_params
+from repro_torch.core.mesh import Mesh
+from repro_torch.distributed.sharding import (
+    NamedSharding, Sharded, batch_axes, entry_axes, param_shardings, set_activation_mesh,
+    shard_state, tree_map, zero1_shardings,
+)
+from repro_torch.models.params import P_
+from repro_torch.models.transformer import Model, model_specs
+from repro_torch.train.grad_compress import compressed_psum_mean
 from repro_torch.train.optimizer import OptConfig, OptState, adamw_apply, adamw_init
 
 Tensor = torch.Tensor
@@ -30,7 +63,7 @@ class TrainConfig:
     opt: OptConfig = OptConfig()
     microbatches: int = 1
     remat: bool = True
-    grad_compress_pod: bool = False   # int8 EF compression on the pod axis (a mesh step's)
+    grad_compress_pod: bool = False   # int8 EF compression on the pod axis
 
 
 def device_batch(host: Dict[str, np.ndarray], device) -> Dict[str, Tensor]:
@@ -111,3 +144,252 @@ def init_train_state(model: Model, generator: torch.Generator | None = None, *,
     model.init(generator, seed=seed)
     params = train_params(model)
     return params, adamw_init(params)
+
+
+# ------------------------------------------------------------- mesh steps
+
+
+def batch_sharding(mesh: Mesh, batch_specs) -> Dict[str, NamedSharding]:
+    """Every batch leaf's leading (global-batch) dim over (pod, data)."""
+    axes = batch_axes(mesh)
+    return {k: NamedSharding(mesh, (axes or None,) + (None,) * (len(v.shape) - 1))
+            for k, v in batch_specs.items()}
+
+
+def partial_shard_map(body: Callable, mesh: Mesh, manual_axes, in_specs, out_specs):
+    """``shard_map`` manual over ``manual_axes`` only. The result runs
+    ``body(position, *args)`` once per position along those axes (row-major
+    in mesh order), an argument whose spec names them on its leading dim
+    cut into its contiguous chunk for that position (every leaf of a dict),
+    any other argument whole. An output whose spec names the manual axes
+    comes back as the list of every position's value; any other output is
+    the same at every position, and position 0's is returned."""
+    axes = tuple(a for a in mesh.axis_names if a in set(manual_axes))
+    n = mesh.axis_size(axes)
+
+    def manual(spec) -> bool:
+        return bool(spec) and bool(set(entry_axes(spec[0])) & set(axes))
+
+    def cut(arg, spec, i):
+        if not manual(spec):
+            return arg
+        one = lambda x: x[i * (x.shape[0] // n):(i + 1) * (x.shape[0] // n)]
+        return {k: one(v) for k, v in arg.items()} if isinstance(arg, dict) else one(arg)
+
+    def run(*args):
+        outs = [body(i, *(cut(a, sp, i) for a, sp in zip(args, in_specs))) for i in range(n)]
+        return tuple([o[j] for o in outs] if manual(sp) else outs[0][j]
+                     for j, sp in enumerate(out_specs))
+    return run
+
+
+def _fold(values: List[torch.Tensor]) -> torch.Tensor:
+    """The ⊕ of per-position values, left to right in position order."""
+    total = values[0]
+    for v in values[1:]:
+        total = total + v
+    return total
+
+
+class _MeshPlan:
+    """A model on a mesh: per leaf of the JAX params tree, its port
+    parameters, its parameter and ZeRO-1 shardings."""
+
+    def __init__(self, model: Model, mesh: Mesh):
+        self.mesh = mesh
+        specs = model_specs(model.cfg)
+        self.layout = param_layout(model.cfg)
+        p_sh, z_sh = param_shardings(mesh, specs), zero1_shardings(mesh, specs)
+        self.p_sh = {name: leaf_at(p_sh, name) for name, _, _ in self.layout}
+        self.z_sh = {name: leaf_at(z_sh, name) for name, _, _ in self.layout}
+        self.params = train_params(model)
+        # the gradient norm's partial sums in the single-device step's order
+        index = {p: (name, idx) for name, _, parts in self.layout for p, idx in parts}
+        self.norm_order = [index[p] for p in self.params]
+
+    def load_weights(self, params: dict) -> None:
+        """Gather every leaf from its blocks into the model's parameters."""
+        with torch.no_grad():
+            for name, _, parts in self.layout:
+                full = leaf_at(params, name).full()
+                for p, idx in parts:
+                    self.params[p].copy_(full[idx] if idx else full)
+                del full
+
+    @staticmethod
+    def stacked(grads: Dict[str, torch.Tensor], spec, parts) -> torch.Tensor:
+        """One leaf of the JAX tree from the port's per-parameter tensors."""
+        if not parts[0][1]:
+            return grads[parts[0][0]]
+        return torch.stack([grads[p] for p, _ in parts]).reshape(spec.shape)
+
+    def zero1_zeros(self) -> Dict[str, torch.Tensor]:
+        n = self.mesh.n_devices
+        return {name: torch.zeros((n,) + self.z_sh[name].shard_shape(spec.shape),
+                                  dtype=torch.float32, device=self.mesh.device)
+                for name, spec, _ in self.layout}
+
+    def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """√Σ g² over the ZeRO-1 gradient blocks, each element once: per
+        port parameter (per leaf where ZeRO-1 split the layers), the
+        partial of each distinct block folded in device order, then the
+        partials summed as the single-device ``global_norm`` sums its
+        leaves."""
+        terms: dict = {}
+        for name, spec, parts in self.layout:
+            sh, blocks = self.z_sh[name], grads[name]
+            lead = len(parts[0][1])
+            devs = sh.primary_devices()
+            if any(entry_axes(e) for e in sh.spec[:lead]):
+                terms[(name, parts[0][1])] = _fold(
+                    [torch.sum(torch.square(blocks[d].float())) for d in devs])
+                continue
+            for _, idx in parts:
+                terms[(name, idx)] = _fold(
+                    [torch.sum(torch.square(blocks[d][idx].float())) for d in devs])
+        return torch.sqrt(torch.sum(torch.stack([terms[k] for k in self.norm_order
+                                                 if k in terms])))
+
+    def write_params(self, params: dict) -> Callable:
+        """``adamw_apply``'s ``write``: a parameter's blocks from its master
+        blocks, gathered over the data axis on the dim ZeRO-1 added it to."""
+        def write(name: str, master: torch.Tensor) -> None:
+            pspec, zspec = self.p_sh[name].spec, self.z_sh[name].spec
+            target = leaf_at(params, name).blocks
+            for j, e in enumerate(zspec):
+                if e is not None and (j >= len(pspec) or pspec[j] is None):
+                    master = self.mesh.all_gather(master, e, dim=1 + j)
+            target.copy_(master)
+        return write
+
+    def adamw(self, params: dict, opt_state: OptState, grads: Dict[str, torch.Tensor],
+              cfg: OptConfig):
+        flat = {f: {name: leaf_at(getattr(opt_state, f), name).blocks
+                    for name, _, _ in self.layout} for f in ("master", "mu", "nu")}
+        state = OptState(opt_state.step, flat["master"], flat["mu"], flat["nu"])
+        _, new, om = adamw_apply({name: None for name, _, _ in self.layout}, grads, state, cfg,
+                                 norm=self.grad_norm(grads), write=self.write_params(params))
+        return OptState(new.step, opt_state.master, opt_state.mu, opt_state.nu), om
+
+
+def _grads_into(model: Model, plan: _MeshPlan, batch: Dict[str, torch.Tensor], cfg: TrainConfig,
+                acc: Dict[str, torch.Tensor], cut: Callable) -> torch.Tensor:
+    """The microbatches of ``batch``, each run whole on the model's one
+    working copy, their gradients folded into ``acc`` (f32, leaf name →
+    ``cut(full gradient, name)``) and divided by the count, as
+    ``_grads_and_loss`` does; returns the loss."""
+    k = cfg.microbatches
+    micro = ([batch] if k <= 1 else
+             [{key: v[i] for key, v in _split_micro(batch, k).items()} for i in range(k)])
+    losses = []
+    for mb in micro:
+        grads, loss, _ = _backward(model, plan.params, mb, cfg)
+        for name, spec, parts in plan.layout:
+            acc[name].add_(cut(plan.stacked(grads, spec, parts), name))
+        del grads
+        losses.append(loss)
+    if k <= 1:
+        return losses[0]
+    for g in acc.values():
+        g.div_(k)
+    return _fold(losses) / k
+
+
+def init_mesh_state(model: Model, mesh: Mesh):
+    """(params, AdamW state) on ``mesh`` from the model's parameters: the
+    JAX-layout tree (``convert.stack_model_params``) cut into parameter
+    blocks by ``param_shardings`` and into f32 master blocks by
+    ``zero1_shardings``, zero moments beside them, step 0 on the mesh's
+    device."""
+    specs = model_specs(model.cfg)
+    tree = stack_model_params(model.cfg, dict(model.named_parameters()))
+    params = shard_state(tree, param_shardings(mesh, specs))
+    master = shard_state(tree, zero1_shardings(mesh, specs), torch.float32)
+    del tree
+
+    def zeros(s: Sharded) -> Sharded:
+        return Sharded(torch.zeros_like(s.blocks), s.sharding, s.shape)
+
+    mu, nu = (tree_map(zeros, master, is_leaf=_is_sharded) for _ in range(2))
+    step = torch.zeros((), dtype=torch.int32, device=mesh.device)
+    return params, OptState(step, master, mu, nu)
+
+
+def init_mesh_ef(model: Model, mesh: Mesh) -> dict:
+    """Zero f32 error-feedback buffers in the ZeRO-1 blocks."""
+    specs = model_specs(model.cfg)
+
+    def zeros(spec, sh: NamedSharding) -> Sharded:
+        return Sharded(torch.zeros((mesh.n_devices,) + sh.shard_shape(spec.shape),
+                                   dtype=torch.float32, device=mesh.device), sh, spec.shape)
+
+    return tree_map(zeros, specs, zero1_shardings(mesh, specs), is_leaf=lambda x: isinstance(x, P_))
+
+
+def _is_sharded(x) -> bool:
+    return isinstance(x, Sharded)
+
+
+def make_train_step(model: Model, mesh: Mesh, cfg: TrainConfig):
+    """The mesh step ``(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` on ``init_mesh_state``'s blocks, updated in place (the
+    reference's ``donate``). ``batch`` holds the global batch's tensors,
+    cut into microbatches as the reference cuts them before sharding each
+    over (pod, data).
+    Sets the activation mesh, which stays set after the call, as in the
+    reference."""
+    set_activation_mesh(mesh)
+    plan = _MeshPlan(model, mesh)
+
+    def step(params: dict, opt_state: OptState, batch: Dict[str, torch.Tensor]):
+        plan.load_weights(params)
+        acc = plan.zero1_zeros()
+        loss = _grads_into(model, plan, batch, cfg, acc,
+                           lambda full, name: mesh.scatter_full(full, plan.z_sh[name].spec))
+        opt_state, om = plan.adamw(params, opt_state, acc, cfg.opt)
+        return params, opt_state, {"loss": loss, **om}
+
+    return step
+
+
+def make_compressed_train_step(model: Model, mesh: Mesh, cfg: TrainConfig):
+    """The pod-manual mesh step ``(params, opt_state, ef, batch) -> (params,
+    opt_state, ef, metrics)``: pod p computes the gradient of rows
+    [p·GB/P, (p+1)·GB/P), cut into microbatches inside the pod; the pods'
+    gradients are averaged in int8 with error feedback
+    (``compressed_psum_mean`` over the pod axis; each pod keeps its own
+    buffer, in the ZeRO-1 blocks of its devices), and every pod takes the
+    same AdamW step. The loss is the pods' mean."""
+    if "pod" not in mesh.axis_names:
+        raise ValueError("the compressed step needs a mesh with a pod axis")
+    set_activation_mesh(mesh)
+    plan = _MeshPlan(model, mesh)
+    n_pod = mesh.shape["pod"]
+    pod_mesh = Mesh((n_pod,), ("pod",), device=mesh.device)
+
+    def pod_body(pod: int, batch: Dict[str, torch.Tensor]):
+        acc = {name: torch.zeros(spec.shape, dtype=torch.float32, device=mesh.device)
+               for name, spec, _ in plan.layout}
+        loss = _grads_into(model, plan, batch, cfg, acc, lambda full, name: full)
+        return acc, loss
+
+    per_pod = partial_shard_map(pod_body, mesh, {"pod"}, in_specs=(("pod",),),
+                                out_specs=(("pod",), ("pod",)))
+
+    def step(params: dict, opt_state: OptState, ef: dict, batch: Dict[str, torch.Tensor]):
+        plan.load_weights(params)
+        accs, losses = per_pod(batch)
+        grads = {}
+        for name, _, _ in plan.layout:
+            zspec, e = plan.z_sh[name].spec, leaf_at(ef, name)
+            x = torch.stack([a.pop(name) for a in accs])                 # [P, *leaf]
+            mean, new_ef = compressed_psum_mean(
+                x, mesh.gather_full(e.blocks, zspec, keep="pod"), "pod", pod_mesh)
+            del x
+            e.blocks.copy_(mesh.scatter_full(new_ef, zspec, keep="pod"))
+            grads[name] = mesh.scatter_full(mean, zspec, keep="pod")
+        loss = _fold(losses) / n_pod
+        opt_state, om = plan.adamw(params, opt_state, grads, cfg.opt)
+        return params, opt_state, ef, {"loss": loss, **om}
+
+    return step

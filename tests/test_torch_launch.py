@@ -390,13 +390,18 @@ def test_meshes_of_virtual_devices():
 
 
 def test_pod_and_production_meshes_raise():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3"):
-        lmesh.small_mesh(data=2, model=2, pod=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3"):
-        lmesh.make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
-    for multi in (False, True):
+    """The pod and production meshes build as virtual meshes; a dry run
+    over a production mesh still raises (ROADMAP.md §1 item 3c)."""
+    s = lmesh.small_mesh(data=2, model=2, pod=2, device="cpu")
+    assert s.shape == {"pod": 2, "data": 2, "model": 2} and s.n_devices == 8
+    m = lmesh.make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    assert m.axis_names == ("pod", "data", "model")
+    for multi, shape in ((False, {"data": 16, "model": 16}),
+                         (True, {"pod": 2, "data": 16, "model": 16})):
+        big = lmesh.make_production_mesh(multi_pod=multi, device="cpu")
+        assert big.shape == shape and big.n_devices == (512 if multi else 256)
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3"):
-            lmesh.make_production_mesh(multi_pod=multi)
+            dryrun.lower_cell("xlstm-1.3b", "decode_32k", big.shape)
 
 
 def test_the_card_constants_are_the_h100s():

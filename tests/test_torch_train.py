@@ -6,8 +6,9 @@ reference's, microbatch ≡ full batch, the loss falling, the data sources
 equal to the reference's, the checkpoint format (a bf16 leaf bit for bit,
 found by the reference's ``latest_step``), a restarted run equal to an
 uninterrupted one bit for bit, the straggler policy, ``scaled_config``
-field by field, and the launcher. The int8 error-feedback compression and
-the elastic rescale wait for the process-group mesh."""
+field by field, and the launcher. The int8 error-feedback compression,
+the mesh steps and the elastic rescale are held in
+``test_torch_grad_compress.py`` and ``test_torch_mesh_train*.py``."""
 import dataclasses
 import json
 import os
@@ -357,6 +358,9 @@ def test_launcher_trains_on_the_named_device(tmp_path, capsys):
     assert out["final_step"] == 6 and len(out["history"]) == 6
     assert ckpt.latest_step(str(tmp_path)) == 6
     assert "loss[0]=" in capsys.readouterr().out
+    # the mesh flags train on virtual devices of the named device
     for flags in (["--data", "2"], ["--model", "2"], ["--pod", "2"], ["--compress-pod"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            main(["--device", "cpu", *flags])
+        out = main(["--device", "cpu", "--steps", "2", "--seq", "16", "--global-batch", "4",
+                    "--ckpt-dir", str(tmp_path / flags[0][2:]), *flags])
+        assert out["final_step"] == 2 and all(np.isfinite(h["loss"]) for h in out["history"])
+        assert "mesh=" in capsys.readouterr().out
