@@ -324,7 +324,7 @@ Phases:
      beside phase 21c's; kernel 7 timed on the training plan (2 × 2,048
      tokens) against its bound and ``index_select``. (b) A 2-layer f32
      cut, TF32 off, matrices redrawn, one mesh step on the card and on
-     the host: loss and grad norm within rtol 1e-4, master within rtol
+     the host (compared on the card): loss and grad norm within rtol 1e-4, master within rtol
      1e-5, atol 1e-6·max|leaf| where |mu| clears 1e-2·max|mu|, mu and nu
      within the gradient's tolerance (rtol 1e-3, atol 1e-5·max|leaf|:
      they are the gradient scaled and squared, and each side computes
@@ -347,6 +347,35 @@ Phases:
      (data 2, model 2) restored onto (4, 1) and (1, 4), every leaf equal
      bit for bit; then ``launch.train.main`` with ``--data 2 --model 2
      --pod 2 --compress-pod`` for 12 steps, its loss falling.
+ 24. The multi-source traversals row-sharded over ``("batch",)`` meshes
+     of virtual devices (``graphs/multi.py``'s ``mesh``/``axis_name``).
+     On full cit-HP's 128×128 bsr engines: ``bfs_multi``,
+     ``sssp_multi`` (weighted) and ``ppr_multi`` at B = 32 on D = 4 and
+     8, every field of every row ``torch.equal`` to phase 14's
+     single-device batched run (PPR included: the tile route folds each
+     row alone, in slot order); kernels 1b and 2b launched on the main
+     path; wall ms beside the single-device run's, launches and host
+     syncs per level, peak memory. On one BFS level of cit-HP (and a
+     ⟨+,×⟩ block of the same frontier), each device's launch of 1b and
+     2b on its rows (2b with the union operands of its rows alone) held
+     to its plain version and ``torch.equal`` to those rows of the
+     whole block's launch. On full r-TX: ``bfs_multi`` at B = 8 on D =
+     8, one row a device, equal to phase 14's run, two rows held to the
+     clipped oracle; each app's single-device batch is rerun in the phase
+     for the wall beside it. ``GraphQueryServer(mesh=...)`` on cit-HP (D = 8)
+     serves 256 queries with answers equal to the mesh-less server's
+     (its csr/csc engines: PPR within rtol 1e-3, atol 1e-6, for the
+     atomic ``scatter_reduce``). (b) The dry run on a production mesh,
+     on meta: xlstm-1.3b × decode_32k on the 16x16 mesh and
+     deepseek-v2-lite-16b × train_4k on the 16x16 and 2x16x16 meshes
+     (one microbatch: the clamp of the CLI's 16 takes minutes on meta),
+     each record's per-device memory, FLOPs, wire bytes inside and
+     between NVLink nodes and roofline printed, with every key of the
+     reference's record and non-zero collectives (and ``dcn_bytes`` on
+     the 2x16x16 train cell); and the dry run of phase 23a's cell on its
+     (2, 2) mesh, whose per-device argument bytes must equal what device
+     0's blocks hold on the card (parameters, master, mu, nu, the step,
+     its rows of the batch).
 
 Launch counters: all eight are set to 0 before phase 3 and kernels 1–2
 read after phase 4. In phases 6–8 every call of the fused path, in phase
@@ -354,7 +383,8 @@ read after phase 4. In phases 6–8 every call of the fused path, in phase
 serving run, in phases 14–15 every multi-source and incremental
 traversal, in phase 16 every distributed call and in phase 17 the served
 path (capacity run) and each bsr batched run, in phase 18 each
-serving run, phase 20 whole, and in phases 21 and 23 each train step, runs
+serving run, phase 20 whole, in phases 21 and 23 each train step, and in
+phase 24 each traversal on a mesh or one device, runs
 with the counters set to 0 just before it and read just after; the
 comparisons and timings in between are not counted. The run fails unless kernels 1–2 launched in
 phases 3–4 and the block launches did not, kernels 3–5 in phases 6–8,
@@ -365,8 +395,9 @@ phase 12 and mixtral's phase 18), kernels 1 and 2 over a block
 in phases 14–15 (kernel 2's on r-TX), kernels 1, 2, 3, 5, 1b, 2b, 6
 and 6b through the mesh in phase 16, and 1b and 2b in phase 17's bsr
 cross-check (the served path itself runs csr/csc engines and launches
-none; the count is printed), none of the eleven in phase 20, and kernels
-7 and 7ᵀ in every train step of phases 21 and 23. Any
+none; the count is printed), none of the eleven in phase 20, kernels
+7 and 7ᵀ in every train step of phases 21 and 23, and 1b or 2b in every
+traversal of phase 24 on a mesh. Any
 mismatch raises, so the run
 exits non-zero without the final ``{"ok": true, ...}`` line.
 """
@@ -436,6 +467,8 @@ MESH_POD_SHAPE = (2, 2, 2)     # phase 23c: (pod, data, model)
 MESH_POD_LAYERS = 2            # phase 23c: the dense layer and one MoE layer
 MESH_CUT_ROWS = 2              # phase 23b: 2 × 64 tokens, one row per data group
 MESH_CUT_TOKENS = 64
+MESH_ROW_DEVICES = (4, 8)      # phase 24: ("batch",) meshes for B = 32 on cit-HP
+MESH_ROW_RTX = 8               # and for B = 8 on r-TX, one row a device
 # phase 21c's device time by kind of kernel, by words of the kernel's name
 TRAIN_KERNEL_KINDS = (("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
                       ("moe_dispatch", ("moe_dispatch",)),
@@ -1451,12 +1484,13 @@ def train_phases(torch, dev) -> dict:
         torch.testing.assert_close(a, b_, rtol=1e-4, atol=0.0,
                                    msg=lambda msg: f"phase 21b {name}: {msg}")
     grad_err = 0.0
-    for k in gh:
-        scale = float(gh[k].abs().max())
+    for k in gh:      # compared on the card (on the host they took tens of seconds)
+        want = gh[k].to(dev)
+        scale = float(want.abs().max())
         check(scale > 0, f"phase 21b: the host gradient of {k} is zero")
-        torch.testing.assert_close(gc_[k].cpu(), gh[k], rtol=1e-3, atol=1e-5 * scale,
+        torch.testing.assert_close(gc_[k], want, rtol=1e-3, atol=1e-5 * scale,
                                    msg=lambda msg: f"phase 21b grad {k}: {msg}")
-        grad_err = max(grad_err, float((gc_[k].cpu() - gh[k]).abs().max()) / scale)
+        grad_err = max(grad_err, float((gc_[k] - want).abs().max()) / scale)
     # one AdamW step on each side from the card's gradients
     pc, ph = train_params(card), train_params(host)
     sc, sh = adamw_init(pc), adamw_init(ph)
@@ -1465,7 +1499,8 @@ def train_phases(torch, dev) -> dict:
     torch.testing.assert_close(mc["grad_norm"].cpu(), mh["grad_norm"], rtol=1e-5, atol=0.0)
     for f in ("master", "mu", "nu"):
         for k, want in getattr(sh, f).items():
-            torch.testing.assert_close(getattr(sc, f)[k].cpu(), want, rtol=1e-5,
+            want = want.to(dev)
+            torch.testing.assert_close(getattr(sc, f)[k], want, rtol=1e-5,
                                        atol=1e-6 * float(want.abs().max()),
                                        msg=lambda msg: f"phase 21b adamw {f} {k}: {msg}")
     print(json.dumps({"phase": "21b", "cut": "deepseek-v2-lite-16b, 2 layers, f32, TF32 off",
@@ -1744,6 +1779,13 @@ def mesh_train_phases(torch, dev, single_step_ms: float, time_ms) -> dict:
                   for f, tree in (("params", params), ("master", opt.master), ("mu", opt.mu),
                                   ("nu", opt.nu))}
     med_ms = statistics.median(s["ms"] for s in steps[1:])
+    # device 0's arguments of a step, for phase 24b: its blocks, the step,
+    # its data group's rows of the batch
+    rows0 = TRAIN_BATCH // mesh.shape["data"]
+    bytes_23a = {"cfg": cfg, "tcfg": tcfg, "mesh": mesh.shape,
+                 "blocks": {f: v[0] for f, v in per_device.items()},
+                 "step": opt.step.numel() * opt.step.element_size(),
+                 "batch_rows": sum(v[:rows0].numel() * v.element_size() for v in batch.values())}
     row_a = {"phase": "23a", "arch": cfg.arch_id, "layers": cfg.n_layers,
              "params": count_params(cfg), "mesh": mesh.shape, "init_s": init_s,
              "bytes_per_device": per_device,
@@ -1801,8 +1843,9 @@ def mesh_train_phases(torch, dev, single_step_ms: float, time_ms) -> dict:
         else:
             p, o, met = make_train_step(mdl, m, ctcfg)(p, o, device_batch(batch, "cpu"))
             met = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])}
-        res[where] = (met, {f: {k: v.cpu() for k, v in
-                                ckpt._flatten(unshard_state(getattr(o, f))).items()}
+        # each side's state stays where it was computed; the comparisons
+        # below run on the card (on the host they took most of the phase)
+        res[where] = (met, {f: dict(ckpt._flatten(unshard_state(getattr(o, f))))
                             for f in ("master", "mu", "nu")}, (time.perf_counter() - t0) * 1e3)
         del p, o
         set_activation_mesh(None)
@@ -1811,10 +1854,11 @@ def mesh_train_phases(torch, dev, single_step_ms: float, time_ms) -> dict:
         np.testing.assert_allclose(mc[name], mh[name], rtol=1e-4,
                                    err_msg=f"phase 23b {name}: card against host")
     worst = {"mu": 0.0, "nu": 0.0}        # max |card − host| / |host| where |mu| clears 1e-2·max
-    for k, mu in sh["mu"].items():
+    for k in sh["mu"]:
+        mu = sh["mu"][k].to(dev)
         ok = mu.abs() > 1e-2 * mu.abs().max()
         for f, rtol, atol in (("master", 1e-5, 1e-6), ("mu", 1e-3, 1e-5), ("nu", 1e-3, 1e-5)):
-            want = sh[f][k]
+            want = sh[f][k].to(dev)
             got = sc[f][k]
             sel = ok if f == "master" else torch.ones_like(ok)
             torch.testing.assert_close(got[sel], want[sel], rtol=rtol,
@@ -1823,7 +1867,8 @@ def mesh_train_phases(torch, dev, single_step_ms: float, time_ms) -> dict:
             if f in worst and bool(ok.any()):
                 worst[f] = max(worst[f], float(((got[ok] - want[ok]).abs()
                                                 / want[ok].abs()).max()))
-    print(json.dumps({"phase": "23b", "cut": "deepseek-v2-lite-16b, 2 layers, f32, TF32 off",
+    print(json.dumps({"phase": "23b",
+                      "cut": f"deepseek-v2-lite-16b, {cut.n_layers} layers, f32, TF32 off",
                       "params": count_params(cut), "mesh": MESH_TRAIN_SHAPE,
                       "tokens": [MESH_CUT_ROWS, MESH_CUT_TOKENS],
                       "loss": [mc["loss"], mh["loss"]],
@@ -2020,7 +2065,7 @@ def mesh_train_phases(torch, dev, single_step_ms: float, time_ms) -> dict:
     print(f"phase 23d: a (2, 2) checkpoint restored onto (4, 1) and (1, 4) bit for bit; the "
           f"launcher's compressed pod step trained {FT_STEPS} steps, loss {h[0]:.3f} → "
           f"{h[-1]:.3f}")
-    return {"launches": totals, "gather_rows": gather_rows}
+    return {"launches": totals, "gather_rows": gather_rows, "bytes_23a": bytes_23a}
 
 
 def hold_dryrun(torch, label: str, card_step, resident, base_bytes: int, step_ms: float,
@@ -2121,6 +2166,296 @@ def dryrun_cells(torch) -> float:
     return seconds
 
 
+def mesh_rows_phases(torch, dev, cit, rtx, stump, compare, all_kernels, phase14: dict,
+                     devices=MESH_ROW_DEVICES, d_rtx: int = MESH_ROW_RTX,
+                     rtx_iters: int = RTX_MAX_ITERS, n_queries: int = SERVE_QUERIES
+                     ) -> tuple[dict, dict]:
+    """Phase 24: the multi-source traversals row-sharded over ("batch",)
+    meshes of virtual devices, against phase 14's single-device batched
+    runs (``phase14``: "app graph" → (sources, result, wall ms)); each
+    device's launch of kernels 1b and 2b on one level's rows against its
+    plain version; ``GraphQueryServer(mesh=...)`` against the mesh-less
+    server. Returns the block kernels' main-path launches and worst
+    differences from their plain versions."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.core import build_bsr_padded
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, PLUS_TIMES
+    from repro_torch.graphs import bfs_multi, bfs_reference, build_engine, ppr_multi, sssp_multi
+    from repro_torch.graphs.engine import edge_values
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.semiring_spmv import semiring_spmv_padded_batch
+    from repro_torch.kernels.spmspv_tiles import semiring_spmspv_padded_batch
+    from repro_torch.serve.graph_engine import GraphQueryServer
+
+    t_phase = time.perf_counter()
+    laps, t_lap = {}, [t_phase]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        laps[part], t_lap[0] = now - t_lap[0], now
+
+    blocks = (semiring_spmv_padded_batch, semiring_spmspv_padded_batch)
+    tally = {k.__name__: 0 for k in blocks}
+    worst = {k.__name__: 0.0 for k in blocks}
+    tiles = {"fmt_spmv": "bsr", "fmt_spmspv": "bsr"}
+
+    def main_path(fn):
+        """fn's result, its wall ms (host clock, ending in a sync) and the
+        block kernels' launches, the counters set to 0 just before it."""
+        for k in all_kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k.__name__: k.launches for k in blocks}
+        for name, n in counts.items():
+            tally[name] += n
+        return out, ms, counts
+
+    def syncs(fn) -> int:
+        """Synchronising CUDA calls in one call of fn, as torch.cuda's sync
+        debug mode reports them (phase 16's count; the profiler's, phase
+        14's, costs ~0.1 s a level at D = 8)."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+    def run_mesh(label, g, eng, multi, srcs, want, single_ms, d, oracle_rows=0, oracle=None,
+                 extra=None):
+        mesh = Mesh((d,), ("batch",), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        res, ms, counts = main_path(lambda: multi(eng, srcs, mesh=mesh))
+        peak = torch.cuda.max_memory_allocated()
+        for field, got, ref_ in zip(res._fields, res, want):
+            check(torch.equal(got, ref_), f"phase 24 {label} {g.name} D={d}: {field} differs "
+                  "from phase 14's single-device batched run")
+        check(sum(counts.values()) > 0, f"phase 24 {label} {g.name} D={d}: no block kernel "
+              f"launched on the mesh: {counts}")
+        for i in range(oracle_rows):
+            check(np.array_equal(res.levels[i].cpu().numpy(), oracle(srcs[i])),
+                  f"phase 24 {label} {g.name} D={d} row {i}: differs from the clipped oracle")
+        levels = int(res.iterations.max())
+        t_sync = time.perf_counter()
+        n_sync = syncs(lambda: multi(eng, srcs, mesh=mesh))
+        laps[f"syncs {label} {g.name} D={d}"] = time.perf_counter() - t_sync
+        row = {"phase": 24, "app": f"{label}_multi", "graph": g.name, "B": len(srcs),
+               "devices": d, "rows_per_device": -(-len(srcs) // d), "wall_ms": ms,
+               "single_device_wall_ms": single_ms, "levels": levels, "launches": counts,
+               "launches_per_level": sum(counts.values()) / max(levels, 1),
+               "host_syncs": n_sync, "host_syncs_per_level": n_sync / max(levels, 1),
+               "rows_held_to_oracle": oracle_rows, "max_memory_allocated": peak, **(extra or {})}
+        print(json.dumps(row))
+        return row
+
+    # ------------------------------------------------- cit-HP, three apps
+    apps = (("bfs", BOOL_OR_AND, bfs_multi, {}), ("sssp", MIN_PLUS, sssp_multi,
+                                                  {"weighted": True, "seed": 5}),
+            ("ppr", PLUS_TIMES, ppr_multi, {"normalize": True}))
+    rows = []
+    for label, sr, multi, kw in apps:
+        srcs, want, phase14_ms = phase14[f"{label} cit-HP"]
+        eng = build_engine(cit, sr, stump, device=dev, **tiles, **kw)
+        # the single-device batched run again, for a wall in this phase
+        one, one_ms, one_counts = main_path(lambda: multi(eng, srcs))
+        for field, got, ref_ in zip(one._fields, one, want):
+            check(torch.equal(got, ref_), f"phase 24 {label} cit-HP: the single-device run's "
+                  f"{field} differs from phase 14's")
+        one_syncs = syncs(lambda: multi(eng, srcs)) / max(int(one.iterations.max()), 1)
+        for d in devices:
+            rows.append(run_mesh(label, cit, eng, multi, srcs, want, one_ms, d, extra={
+                "single_device_launches": one_counts,
+                "single_device_host_syncs_per_level": one_syncs}))
+        del eng, one
+        torch.cuda.empty_cache()
+    lap("cit-HP")
+    print(f"phase 24: cit-HP bfs/sssp/ppr_multi at B = {len(srcs)} on ('batch',) meshes of "
+          f"{list(devices)} virtual devices equal phase 14's single-device batched runs row "
+          "for row (every field, PPR included)")
+
+    # ------------------------- each device's launch on one level's rows
+    src_bfs, res_bfs, _ = phase14["bfs cit-HP"]
+    level = 2
+    live = res_bfs.levels == level
+    held = 0
+    for sr in (BOOL_OR_AND, PLUS_TIMES):
+        vals = edge_values(cit, sr, weighted=False, normalize=sr is PLUS_TIMES)
+        a = build_bsr_padded(cit.cols.astype(np.int32), cit.rows.astype(np.int32), vals,
+                             (cit.n, cit.n), sr, block=(128, 128), device=dev)
+        n_pad = a.shape[1]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+        if sr is BOOL_OR_AND:
+            xs = torch.zeros((live.shape[0], n_pad), dtype=sr.dtype, device=dev)
+            xs[:, : cit.n] = live.to(sr.dtype)
+        else:
+            xs = torch.rand((live.shape[0], n_pad), generator=gen, device=dev) + 0.5
+            xs[:, : cit.n] = torch.where(live, xs[:, : cit.n], 0.0)
+            xs[:, cit.n:] = 0.0
+        xsp = xs[:, : cit.n]
+        whole1 = semiring_spmv_padded_batch(a.tiles, a.tile_cols, xs, sr=sr)
+        keep, xd = ops._frontier_block(a, xsp, sr, None)
+        whole2 = semiring_spmspv_padded_batch(a.tiles, ops._spmspv_meta_batch(a, keep), xd, sr=sr)
+        for d in devices:
+            c = -(-xs.shape[0] // d)
+            for lo in range(0, xs.shape[0], c):
+                hi = min(xs.shape[0], lo + c)
+                blk = xs[lo:hi].contiguous()
+                y1 = semiring_spmv_padded_batch(a.tiles, a.tile_cols, blk, sr=sr)
+                err = compare(y1, ref.spmv_padded_batch_ref(a.tiles, a.tile_cols, blk, sr), sr,
+                              f"phase 24 kernel 1b {sr.name} D={d} rows {lo}:{hi}")
+                worst["semiring_spmv_padded_batch"] = max(worst["semiring_spmv_padded_batch"], err)
+                torch.cuda.synchronize()
+                check(torch.equal(y1, whole1[lo:hi]), f"phase 24 kernel 1b {sr.name} D={d} rows "
+                      f"{lo}:{hi}: not the whole block's rows")
+                keep_d, xd_d = ops._frontier_block(a, xsp[lo:hi], sr, None)
+                meta_d = ops._spmspv_meta_batch(a, keep_d)
+                y2 = semiring_spmspv_padded_batch(a.tiles, meta_d, xd_d, sr=sr)
+                err = compare(y2, ref.spmspv_padded_batch_ref(a.tiles, meta_d, xd_d, sr), sr,
+                              f"phase 24 kernel 2b {sr.name} D={d} rows {lo}:{hi}")
+                worst["semiring_spmspv_padded_batch"] = max(
+                    worst["semiring_spmspv_padded_batch"], err)
+                torch.cuda.synchronize()
+                check(torch.equal(y2, whole2[lo:hi]), f"phase 24 kernel 2b {sr.name} D={d} rows "
+                      f"{lo}:{hi}: not the whole block's rows")
+                held += 2
+        del a, xs, xsp, whole1, whole2, keep, xd
+        torch.cuda.empty_cache()
+    lap("hold")
+    print(f"phase 24: on cit-HP's BFS level {level} ({int(live.sum())} frontier entries over "
+          f"{live.shape[0]} rows), {held} per-device launches of kernels 1b and 2b (⟨∨,∧⟩ and "
+          f"⟨+,×⟩, D in {list(devices)}) match their plain versions and equal the whole block's "
+          "rows bit for bit")
+
+    # ------------------------------------------------- r-TX, one row a device
+    src_rtx, want_rtx, _ = phase14["bfs r-TX"]
+    eng = build_engine(rtx, BOOL_OR_AND, stump, device=dev, **tiles)
+
+    def clipped(s):
+        want = bfs_reference(rtx.rows, rtx.cols, rtx.n, s)
+        return np.where(want > rtx_iters, -1, want)
+
+    def rtx_multi(e, s, mesh=None):
+        return bfs_multi(e, s, max_iters=rtx_iters, mesh=mesh)
+
+    # the single-device batched run again, for a wall in this phase
+    one, one_ms, one_counts = main_path(lambda: rtx_multi(eng, src_rtx))
+    for field, got, ref_ in zip(one._fields, one, want_rtx):
+        check(torch.equal(got, ref_), f"phase 24 bfs r-TX: the single-device run's {field} "
+              "differs from phase 14's")
+    one_syncs = syncs(lambda: rtx_multi(eng, src_rtx)) / max(int(one.iterations.max()), 1)
+    rows.append(run_mesh("bfs", rtx, eng, rtx_multi, src_rtx, want_rtx, one_ms, d_rtx,
+                         oracle_rows=2, oracle=clipped, extra={
+                             "single_device_launches": one_counts,
+                             "single_device_host_syncs_per_level": one_syncs}))
+    del eng, one
+    torch.cuda.empty_cache()
+    lap("r-TX")
+    print(f"phase 24: r-TX bfs_multi at B = {len(src_rtx)} on {d_rtx} virtual devices, one row "
+          f"a device, equals phase 14's run; two rows equal the clipped oracle")
+
+    # ------------------------------------------------- the server on a mesh
+    queries = serve_workload(cit, n_queries, SEED + 24)
+    served = {}
+    for name, mesh in (("plain", None), ("mesh", Mesh((max(devices),), ("batch",), device=dev))):
+        srv = GraphQueryServer(cit, stump, batch_size=SERVE_BATCH, mesh=mesh, device=dev)
+        reqs = [srv.submit(a, s) for a, s in queries]
+        t0 = time.perf_counter()
+        srv.flush()
+        served[name] = (reqs, (time.perf_counter() - t0) * 1e3, dict(srv.counters))
+        del srv
+    for p, q in zip(served["plain"][0], served["mesh"][0]):
+        check((p.algorithm, p.source) == (q.algorithm, q.source) and set(p.result) ==
+              set(q.result), f"phase 24 server: request {p.algorithm}/{p.source} differs")
+        # csr/csc PPR: the ⟨+,×⟩ CSR reduce sums with atomics, so ranks
+        # within rtol 1e-3, atol 1e-6 and the stop within one iteration,
+        # as phase 17 holds them
+        same_stop = p.result["iterations"] == q.result["iterations"]
+        for key, want in p.result.items():
+            if p.algorithm == "ppr" and key != "rank" and not same_stop:
+                check(key != "iterations" or abs(q.result[key] - want) <= 1,
+                      f"phase 24 server ppr/{p.source}: iterations {q.result[key]} and {want}")
+            elif p.algorithm == "ppr" and key in ("rank", "residual"):
+                np.testing.assert_allclose(q.result[key], want, rtol=1e-3, atol=1e-6,
+                                           err_msg=f"phase 24 server ppr/{p.source} {key}")
+            else:
+                check(np.array_equal(np.asarray(q.result[key]), np.asarray(want)),
+                      f"phase 24 server {p.algorithm}/{p.source}: {key} differs")
+    check(served["plain"][2] == served["mesh"][2], "phase 24 server: counters differ")
+    lap("server")
+    print(json.dumps({"phase": 24, "seconds_by_part": laps}))
+    print(json.dumps({"phase": 24, "server": "cit-HP", "queries": len(queries),
+                      "devices": max(devices), "flush_ms": served["mesh"][1],
+                      "plain_flush_ms": served["plain"][1], "counters": served["mesh"][2]}))
+    print(f"phase 24: GraphQueryServer(mesh=Mesh(({max(devices)},), ('batch',))) on cit-HP served "
+          f"{len(queries)} queries equal to the mesh-less server's "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    return tally, worst
+
+
+def mesh_dryrun_phase(torch, bytes_23a: dict) -> float:
+    """Phase 24 (b): the dry run on the production meshes, on meta, and on
+    phase 23a's (2, 2) mesh against the bytes device 0's blocks hold on
+    the card. Returns its seconds."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.config import ShapeConfig
+
+    t0 = time.perf_counter()
+    keys = {"arch", "shape", "mesh", "devices", "compile_s", "memory", "cost_raw", "cost",
+            "collectives", "roofline", "model_flops_total", "model_flops_per_device",
+            "useful_flops_ratio", "params_total", "params_active"}
+    for arch, shape, kinds in (("xlstm-1.3b", "decode_32k", ("single",)),
+                               ("deepseek-v2-lite-16b", "train_4k", ("single", "multi"))):
+        for kind in kinds:
+            mesh = make_production_mesh(multi_pod=kind == "multi", device="meta")
+            rec, _ = dryrun.lower_cell(arch, shape, mesh)
+            coll, mem, r = rec["collectives"], rec["memory"], rec["roofline"]
+            print(json.dumps({"phase": "24b", "arch": arch, "shape": shape, "mesh": rec["mesh"],
+                              "devices": rec["devices"], "microbatches": rec["microbatches"],
+                              "memory": mem, "fits_one_card": rec["fits_one_card"],
+                              "flops_per_device": rec["cost"]["flops_per_device"],
+                              "hbm_bytes_per_device": rec["cost"]["hbm_bytes_per_device"],
+                              "wire_bytes_per_device": coll["wire_bytes_per_device"],
+                              "nvlink_bytes": coll["ici_bytes"], "ib_bytes": coll["dcn_bytes"],
+                              "by_kind": coll["by_kind"], "collectives": coll["n_ops"],
+                              "roofline": r, "useful_flops_ratio": rec["useful_flops_ratio"],
+                              "meta_pass_s": rec["compile_s"]}))
+            check(keys <= rec.keys() and rec["devices"] == mesh.n_devices,
+                  f"phase 24b {arch} {kind}: record keys or devices")
+            check(coll["n_ops"] > 0 and coll["wire_bytes_per_device"] > 0 and
+                  coll["wire_bytes_per_device"] == coll["ici_bytes"] + coll["dcn_bytes"],
+                  f"phase 24b {arch} {kind}: collectives {coll}")
+            if kind == "multi":
+                check(coll["dcn_bytes"] > 0, f"phase 24b {arch} multi: no bytes between nodes")
+    b = bytes_23a
+    shape = ShapeConfig("train_23a", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec, _ = dryrun.lower_cell(b["cfg"].arch_id, shape, b["mesh"], b["tcfg"], cfg=b["cfg"])
+    card = sum(b["blocks"].values()) + b["step"] + b["batch_rows"]
+    print(json.dumps({"phase": "24b", "cell": "phase 23a", "mesh": b["mesh"],
+                      "dry_run_argument_bytes": rec["memory"]["argument_bytes"],
+                      "card_device0_bytes": card, "card_blocks": b["blocks"],
+                      "collectives": rec["collectives"]}))
+    check(rec["memory"]["argument_bytes"] == card, f"phase 24b: the dry run's per-device "
+          f"arguments {rec['memory']['argument_bytes']} are not device 0's {card} bytes on "
+          "the card")
+    s = time.perf_counter() - t0
+    print(f"phase 24b: dry-run records on the 16x16 and 2x16x16 meshes on meta; phase 23a's "
+          f"per-device arguments equal device 0's bytes on the card ({s:.1f} s)")
+    return s
+
+
 def local_inserts(g, k: int, rng):
     """Triangle-closing inserts: for k random edges (u, v), a random
     neighbour w of v gives a new edge (u, w); self loops and duplicates are
@@ -2152,12 +2487,14 @@ def graph_deltas(g, edge_delta):
 
 
 def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: int = 32,
-                 b_rtx: int = 8, rtx_iters: int = RTX_MAX_ITERS, max_iters: int = 256) -> dict:
+                 b_rtx: int = 8, rtx_iters: int = RTX_MAX_ITERS, max_iters: int = 256,
+                 results: dict | None = None) -> dict:
     """Phases 14-15: kernels 1 and 2 over a [B, n] block against their plain
     versions and the single-vector kernels; the multi-source traversals on
     cit-HP and r-TX against the single-source runs; incremental recompute
     on cit-HP's grow and churn deltas against cold runs. Returns the two
-    block kernels' rows of the kernels line."""
+    block kernels' rows of the kernels line; ``results``, when given,
+    takes each batched run's (sources, result, wall ms) by "app graph"."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -2391,6 +2728,8 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
         if traced:
             row["trace"] = trace_window(lambda: multi(eng, srcs))
         apps[f"{label} {g.name}"] = row
+        if results is not None:
+            results[f"{label} {g.name}"] = (list(srcs), res, wall_ms)
         print(json.dumps(row))
         return eng, res, row
 
@@ -3702,6 +4041,13 @@ def main() -> int:
     from repro_torch.kernels.semiring_spmv import semiring_spmv_padded_batch
 
     dev = torch.device("cuda")
+    t_main = time.perf_counter()
+
+    def mark(phases: str) -> None:
+        """When each group of phases starts, in seconds of the run (the
+        1,200 s limit covers the whole run)."""
+        print(f"[{time.perf_counter() - t_main:.1f} s] phases {phases}", flush=True)
+
     kernels = (semiring_spmv_padded, semiring_spmspv_padded)
     fused_kernels = (semiring_spmv_fused_padded, semiring_spmv_sell,
                      semiring_spmspv_fused_padded)
@@ -3711,6 +4057,7 @@ def main() -> int:
                                                  moe_dispatch_gather_backward,)
 
     # ---------------------------------------------------------------- 1
+    mark("1")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -3810,6 +4157,7 @@ def main() -> int:
                                        size=a.shape, check_invariants=False)
 
     # ---------------------------------------------------------------- 2
+    mark("2")
     rng = np.random.default_rng(SEED)
     cit = generate("cit-HP", 1.0, SEED)
     worst = {k.__name__: 0.0 for k in kernels}
@@ -3881,6 +4229,7 @@ def main() -> int:
     print(f"phase 2: max |kernel - plain| {json.dumps(worst)}")
 
     # ---------------------------------------------------------------- 3, 4
+    mark("3, 4")
     stump = trained_stump()
     for k in all_kernels:
         k.launches = 0
@@ -3943,6 +4292,7 @@ def main() -> int:
         check(k.launches == 0, f"{k.__name__} was launched by a single-source traversal")
 
     # ---------------------------------------------------------------- 6, 7, 8
+    mark("6, 7, 8")
     tally = {k.__name__: 0 for k in all_kernels}
 
     def main_path(fn):
@@ -4121,6 +4471,7 @@ def main() -> int:
         launches[k.__name__] = tally[k.__name__]
 
     # ---------------------------------------------------------------- 9
+    mark("9")
     spgemm_kernels = (semiring_spgemm_padded, semiring_spgemm_binary)
 
     def spgemm_bounds(a, bp, mk, meta, sr) -> dict:
@@ -4362,6 +4713,7 @@ def main() -> int:
     tally9 = tally
 
     # ---------------------------------------------------------------- 10
+    mark("10")
     torch.backends.cuda.matmul.allow_tf32 = False   # the yardstick matmul in full fp32
     apps = {}
 
@@ -4521,6 +4873,7 @@ def main() -> int:
     launches["semiring_spmv_padded"] += tally["semiring_spmv_padded"]
 
     # ---------------------------------------------------------------- 11, 12, 13
+    mark("11, 12, 13")
     cfg = get_config("deepseek-v2-lite-16b")
     row = lm_phases(torch, dev, cfg, PROMPT_LENS, MAX_NEW_TOKENS, MAX_SEQ, time_ms,
                     dataclasses.replace(cfg, n_layers=2, dtype=torch.float32))
@@ -4530,8 +4883,11 @@ def main() -> int:
     phase22b_s = row.pop("phase22b_s")
 
     # ---------------------------------------------------------------- 14, 15
+    mark("14, 15")
     t0 = time.perf_counter()
-    rows = multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels)
+    phase14 = {}
+    rows = multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels,
+                        results=phase14)
     print(f"phases 14-15: {time.perf_counter() - t0:.1f} s")
     for name, row in rows.items():
         summary[name] = row
@@ -4539,6 +4895,7 @@ def main() -> int:
         worst[name] = row["max_abs_err"]
 
     # ---------------------------------------------------------------- 16
+    mark("16")
     tally, errs = mesh_phases(torch, dev, cit, rtx, caq, time_ms, compare, all_kernels)
     for name, count in tally.items():
         launches[name] = launches.get(name, 0) + count
@@ -4546,19 +4903,23 @@ def main() -> int:
         worst[name] = max(worst[name], err)
 
     # ---------------------------------------------------------------- 17
+    mark("17")
     for name, count in serve_phases(torch, dev, cit, rtx, oracles, all_kernels).items():
         launches[name] = launches.get(name, 0) + count
 
     # ---------------------------------------------------------------- 18, 19
+    mark("18, 19")
     row = gqa_phases(torch, dev, time_ms, PROMPT_LENS, MAX_NEW_TOKENS, MAX_SEQ)
     launches["moe_dispatch_gather"] += row["launches"]
     worst["moe_dispatch_gather"] = max(worst["moe_dispatch_gather"], row["max_abs_err"])
     summary["moe_dispatch_gather"] = row
 
     # ---------------------------------------------------------------- 20
+    mark("20")
     ssm_phases(torch, dev, PROMPT_LENS, MAX_NEW_TOKENS, MAX_SEQ, all_kernels)
 
     # ---------------------------------------------------------------- 21
+    mark("21")
     t0 = time.perf_counter()
     rows = train_phases(torch, dev)
     print(f"phase 21: {time.perf_counter() - t0:.1f} s")
@@ -4570,6 +4931,7 @@ def main() -> int:
     launches["moe_dispatch_gather"] += rows["moe_dispatch_gather_launches"]
 
     # ---------------------------------------------------------------- 23
+    mark("23")
     t0 = time.perf_counter()
     mesh_rows = mesh_train_phases(torch, dev, rows["step_ms"], time_ms)
     print(f"phase 23: {time.perf_counter() - t0:.1f} s")
@@ -4577,8 +4939,23 @@ def main() -> int:
     launches["moe_dispatch_gather_backward"] += mesh_rows["launches"][1]
 
     # ---------------------------------------------------------------- 22
+    mark("22")
     dry_s = phase22b_s + rows["phase22a_s"] + dryrun_cells(torch)
     print(f"phase 22: {dry_s:.1f} s")
+
+    # ---------------------------------------------------------------- 24
+    mark("24")
+    t0 = time.perf_counter()
+    tally, errs = mesh_rows_phases(torch, dev, cit, rtx, stump, compare, all_kernels, phase14)
+    for name, count in tally.items():
+        launches[name] = launches.get(name, 0) + count
+    for name, err in errs.items():
+        worst[name] = max(worst[name], err)
+    del phase14
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    mark("24b")
+    mesh_dryrun_phase(torch, mesh_rows["bytes_23a"])
+    mark("done")
 
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
                                         "src/repro/kernels/semiring_spmv.py:56"),

@@ -76,6 +76,13 @@ class Mesh:
     def n_devices(self) -> int:
         return math.prod(self.grid)
 
+    @property
+    def stack_size(self) -> int:
+        """The leading axis of a stacked tensor on this mesh: one block per
+        device, so ``n_devices``. A view that holds one device's block alone
+        (``launch/device_view.py``) holds 1; its grid is still the mesh's."""
+        return self.n_devices
+
     def _names(self, axis: Axis) -> Tuple[str, ...]:
         names = (axis,) if isinstance(axis, str) else tuple(axis)
         if not names or len(set(names)) != len(names) or any(
@@ -120,8 +127,8 @@ class Mesh:
         return self._tables(axis)[1]
 
     def _check(self, x: Tensor) -> None:
-        if x.dim() < 1 or x.shape[0] != self.n_devices:
-            raise ValueError(f"expected a leading device axis of {self.n_devices}, "
+        if x.dim() < 1 or x.shape[0] != self.stack_size:
+            raise ValueError(f"expected a leading device axis of {self.stack_size}, "
                              f"got {tuple(x.shape)}")
 
     def all_gather(self, x: Tensor, axis: Axis, dim: int = 1) -> Tensor:
@@ -179,6 +186,16 @@ class Mesh:
             raise ValueError(f"all_to_all over {axis!r} needs [D, {members.shape[1]}, ...], "
                              f"got {tuple(x.shape)}")
         return x[members, pos[:, None]]
+
+    def fold_blocks(self, fn, x: Tensor, devices: Sequence[int]) -> Tensor:
+        """``fn(x[d])`` for each flat id d of ``devices``, folded with ``+``
+        left to right in the order given: the fixed-order sum of per-device
+        partials (one holder of each distinct block)."""
+        self._check(x)
+        total = fn(x[devices[0]])
+        for d in devices[1:]:
+            total = total + fn(x[d])
+        return total
 
     def take(self, x: Tensor, idx: Tensor) -> Tensor:
         """Per-device ``dynamic_index_in_dim``: out[g] = x[g, idx[g]] for

@@ -209,7 +209,7 @@ class Sharded:
         self.blocks = blocks
         self.sharding = sharding
         self.shape = tuple(int(s) for s in shape)
-        if tuple(blocks.shape) != (sharding.mesh.n_devices,) + sharding.shard_shape(self.shape):
+        if tuple(blocks.shape) != (sharding.mesh.stack_size,) + sharding.shard_shape(self.shape):
             raise ValueError(f"blocks {tuple(blocks.shape)} do not hold {self.shape} "
                              f"under {sharding}")
 

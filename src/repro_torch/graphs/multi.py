@@ -13,14 +13,29 @@ route the block goes through kernels 1 and 2 over [B, n]
 (kernels/ops.py), row for row bit-identical to the single-vector
 launches.
 
+``mesh``/``axis_name`` row-shard the [B, n] block over a
+``core.mesh.Mesh`` of virtual devices (the JAX package's
+``P(axis_name, None)``): position i along ``axis_name`` (one axis or a
+tuple of them) holds rows [i·c, (i+1)·c) with c = ⌈B / S⌉ for an axis of
+S positions, so when S does not divide B the last positions hold fewer
+rows, or none, as XLA pads an uneven split. The state stays one [B, n]
+tensor per array: its row blocks in position order are the devices'
+blocks (the [S, c, n] stack with its padding rows dropped), and devices
+that differ only along the other axes hold copies, which on one card
+share that tensor. Each level launches the block kernels once per
+position that holds rows, on its rows alone, so the adaptive switch and
+kernel 2's capacity rung decide from one device's rows; since every row
+is computed on its own, no answer moves. The elementwise update runs on
+the whole block (per device it is the same op on its rows), and the level
+loop stays one host loop for the mesh: it stops when every row on every
+device is done, the reference's scalar convergence reduction, one sync a
+level (the adaptive switch's and the capacity rung's counts are read per
+share).
+
 ``traverse_multi_buckets`` drains several source buckets through
 core.pipeline.pipeline_buckets. ``partitioned_matvec`` partitions a
 graph's transposed adjacency over a ``core.mesh.Mesh`` as the cost-model
-planner picks and builds its distributed matvec (the Fig.-3 path). The
-JAX package's ``mesh``/``axis_name`` arguments of the traversal makers,
-which row-shard the [B, n] block over devices, wait for a process-group
-mesh (ROADMAP §1): on the virtual devices of one card they would change
-nothing.
+planner picks and builds its distributed matvec (the Fig.-3 path).
 """
 from __future__ import annotations
 
@@ -87,14 +102,35 @@ def _traces(b: int, max_iters: int, dev) -> tuple[Tensor, Tensor, Tensor]:
             torch.full((b, max_iters), -1, dtype=torch.int32, device=dev))
 
 
+def _constrain_block(engine: GraphEngine, policy: str, batch: int, mesh, axis_name):
+    """The counterpart of the reference's row-sharding constraint:
+    ``engine.batch_step_fn(policy)`` run on each device's rows when a mesh
+    is given, one call (one launch of each block kernel it picks) per
+    position along ``axis_name`` that holds rows, ⌈B / S⌉ rows a position
+    (the last ones fewer), the outputs stacked back into the [B, n]
+    block."""
+    step = engine.batch_step_fn(policy)
+    if mesh is None:
+        return step
+    if mesh.device.type != engine.device.type:
+        raise ValueError(f"the mesh is on {mesh.device}, the engine on {engine.device}")
+    c = -(-batch // mesh.axis_size(axis_name))
+    shares = [(a, min(batch, a + c)) for a in range(0, batch, c)]
+    if len(shares) == 1:
+        return step
+    return lambda xs, d: torch.cat([step(xs[a:b], d[a:b]) for a, b in shares])
+
+
 def make_bfs_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
-                   policy: str = "adaptive") -> Callable[[Tensor], BFSBatchResult]:
+                   policy: str = "adaptive", mesh=None,
+                   axis_name="batch") -> Callable[[Tensor], BFSBatchResult]:
     """Build a runner: sources [B] (int64 on the engine's device) ->
     BFSBatchResult. Like every runner here it holds the engine's batched
-    step and sizes, not the engine (see GraphEngine.batch_step_fn)."""
+    step and sizes, not the engine (see GraphEngine.batch_step_fn); with
+    a ``mesh`` the step runs on each device's rows (see the module)."""
     sr = _check_semiring(engine, BOOL_OR_AND, "bfs_multi")
     n, n_true, threshold, b, dev = engine.n, engine.n_true, engine.threshold, batch, engine.device
-    step = engine.batch_step_fn(policy)
+    step = _constrain_block(engine, policy, b, mesh, axis_name)
 
     def run(sources: Tensor) -> BFSBatchResult:
         rows = torch.arange(b, device=dev)
@@ -160,11 +196,12 @@ def _relax_block(sr: Semiring, n_true: int, threshold: float, step, policy: str,
 
 
 def make_sssp_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
-                    policy: str = "adaptive") -> Callable[[Tensor], SSSPBatchResult]:
+                    policy: str = "adaptive", mesh=None,
+                    axis_name="batch") -> Callable[[Tensor], SSSPBatchResult]:
     """Build a runner: sources [B] -> SSSPBatchResult."""
     sr = _check_semiring(engine, MIN_PLUS, "sssp_multi")
     n, n_true, threshold, b, dev = engine.n, engine.n_true, engine.threshold, batch, engine.device
-    step = engine.batch_step_fn(policy)
+    step = _constrain_block(engine, policy, b, mesh, axis_name)
 
     def run(sources: Tensor) -> SSSPBatchResult:
         rows = torch.arange(b, device=dev)
@@ -176,7 +213,7 @@ def make_sssp_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
 
 
 def make_relax_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
-                     policy: str = "adaptive"
+                     policy: str = "adaptive", mesh=None, axis_name="batch"
                      ) -> Callable[[Tensor, Tensor], SSSPBatchResult]:
     """Build a warm-start runner: (dist0, changed0) [B, n_true] f32 blocks
     -> SSSPBatchResult. Seeding ``dist0`` with the previous distances (stale
@@ -186,7 +223,7 @@ def make_relax_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
     gives :func:`make_sssp_multi`'s result bit for bit: the same loop."""
     sr = _check_semiring(engine, MIN_PLUS, "relax_multi")
     n, n_true, threshold = engine.n, engine.n_true, engine.threshold
-    step = engine.batch_step_fn(policy)
+    step = _constrain_block(engine, policy, batch, mesh, axis_name)
 
     def run(dist0: Tensor, changed0: Tensor) -> SSSPBatchResult:
         pad = (0, n - dist0.shape[1])
@@ -199,14 +236,15 @@ def make_relax_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
 
 def make_ppr_multi(engine: GraphEngine, batch: int, alpha: float = 0.85,
                    max_iters: int = 50, tol: float = 1e-6,
-                   policy: str = "adaptive") -> Callable[[Tensor], PPRBatchResult]:
+                   policy: str = "adaptive", mesh=None,
+                   axis_name="batch") -> Callable[[Tensor], PPRBatchResult]:
     """Build a runner: sources [B] -> PPRBatchResult. Each row's residual
     is summed on its own, as a [n] vector like the single-source run's, so
     a row stops where the single-source run stops: a sum over the [B, n]
     block's rows may round differently and move a stop near ``tol``."""
     sr = _check_semiring(engine, PLUS_TIMES, "ppr_multi")
     n, n_true, threshold, b, dev = engine.n, engine.n_true, engine.threshold, batch, engine.device
-    step = engine.batch_step_fn(policy)
+    step = _constrain_block(engine, policy, b, mesh, axis_name)
     tol_t = torch.tensor(tol, dtype=torch.float32, device=dev)
 
     def run(sources: Tensor) -> PPRBatchResult:
@@ -244,15 +282,20 @@ _MAKERS = {"bfs": make_bfs_multi, "sssp": make_sssp_multi,
 _runner_lock = threading.Lock()
 
 
-def _cached_runner(engine: GraphEngine, alg: str, batch: int, **kwargs):
-    """One runner per (engine, alg, batch, options), kept in the engine
-    instance's __dict__ (GraphEngine is an unhashable dataclass)."""
-    key = (alg, batch, tuple(sorted(kwargs.items())))
+def _cached_runner(engine: GraphEngine, alg: str, batch: int, mesh=None,
+                   axis_name="batch", **kwargs):
+    """One runner per (engine, alg, batch, mesh, axis, options), kept in
+    the engine instance's __dict__ (GraphEngine is an unhashable
+    dataclass). A runner depends on the mesh only through its layout, so
+    the key holds the layout (axis names, shape, device), not the mesh."""
+    layout = None if mesh is None else (mesh.axis_names, mesh.grid, str(mesh.device))
+    axis = axis_name if isinstance(axis_name, str) else tuple(axis_name)
+    key = (alg, batch, layout, axis, tuple(sorted(kwargs.items())))
     cache = engine.__dict__.setdefault("_multi_runners", {})
     if key not in cache:
         with _runner_lock:
             if key not in cache:      # double-checked: a lost race reuses
-                cache[key] = _MAKERS[alg](engine, batch, **kwargs)
+                cache[key] = _MAKERS[alg](engine, batch, mesh=mesh, axis_name=axis, **kwargs)
     return cache[key]
 
 
@@ -271,23 +314,25 @@ def _block(engine: GraphEngine, dist) -> Tensor:
 
 
 def bfs_multi(engine: GraphEngine, sources, max_iters: int = 64,
-              policy: str = "adaptive") -> BFSBatchResult:
+              policy: str = "adaptive", mesh=None, axis_name="batch") -> BFSBatchResult:
     """Multi-source BFS; row b equals bfs(engine, sources[b])."""
     src = _as_sources(sources, engine.device)
-    run = _cached_runner(engine, "bfs", int(src.shape[0]), max_iters=max_iters, policy=policy)
+    run = _cached_runner(engine, "bfs", int(src.shape[0]), mesh, axis_name,
+                         max_iters=max_iters, policy=policy)
     return run(src)
 
 
 def sssp_multi(engine: GraphEngine, sources, max_iters: int = 64,
-               policy: str = "adaptive") -> SSSPBatchResult:
+               policy: str = "adaptive", mesh=None, axis_name="batch") -> SSSPBatchResult:
     """Multi-source SSSP; row b equals sssp(engine, sources[b])."""
     src = _as_sources(sources, engine.device)
-    run = _cached_runner(engine, "sssp", int(src.shape[0]), max_iters=max_iters, policy=policy)
+    run = _cached_runner(engine, "sssp", int(src.shape[0]), mesh, axis_name,
+                         max_iters=max_iters, policy=policy)
     return run(src)
 
 
 def relax_multi(engine: GraphEngine, dist0, changed0, max_iters: int = 64,
-                policy: str = "adaptive") -> SSSPBatchResult:
+                policy: str = "adaptive", mesh=None, axis_name="batch") -> SSSPBatchResult:
     """Warm-start ⟨min,+⟩ re-relaxation from explicit [B, n_true] state
     blocks (the delta-frontier path of graphs/dynamic.py): ``dist0`` holds
     the surviving distances (+inf where stale or unknown), ``changed0`` the
@@ -297,17 +342,18 @@ def relax_multi(engine: GraphEngine, dist0, changed0, max_iters: int = 64,
     if d0.dim() != 2 or d0.shape != c0.shape:
         raise ValueError(f"dist0 and changed0 must be equal [B, n] blocks, got "
                          f"{tuple(d0.shape)} and {tuple(c0.shape)}")
-    run = _cached_runner(engine, "relax", int(d0.shape[0]), max_iters=max_iters, policy=policy)
+    run = _cached_runner(engine, "relax", int(d0.shape[0]), mesh, axis_name,
+                         max_iters=max_iters, policy=policy)
     return run(d0, c0)
 
 
 def ppr_multi(engine: GraphEngine, sources, alpha: float = 0.85,
               max_iters: int = 50, tol: float = 1e-6,
-              policy: str = "adaptive") -> PPRBatchResult:
+              policy: str = "adaptive", mesh=None, axis_name="batch") -> PPRBatchResult:
     """Multi-source PPR; row b equals ppr(engine, sources[b])."""
     src = _as_sources(sources, engine.device)
-    run = _cached_runner(engine, "ppr", int(src.shape[0]), alpha=alpha, max_iters=max_iters,
-                         tol=tol, policy=policy)
+    run = _cached_runner(engine, "ppr", int(src.shape[0]), mesh, axis_name, alpha=alpha,
+                         max_iters=max_iters, tol=tol, policy=policy)
     return run(src)
 
 
@@ -318,8 +364,8 @@ def _synchronize(engine: GraphEngine, result):
 
 
 def traverse_multi_buckets(engine: GraphEngine, alg: str, buckets,
-                           pipeline_depth: int = 2, materialize=None,
-                           pad_to: int | None = None, **kwargs) -> list:
+                           pipeline_depth: int = 2, mesh=None, axis_name="batch",
+                           materialize=None, pad_to: int | None = None, **kwargs) -> list:
     """Run several source buckets through the cached batched runners,
     keeping up to ``pipeline_depth`` buckets in flight
     (core.pipeline.pipeline_buckets).
@@ -330,7 +376,8 @@ def traverse_multi_buckets(engine: GraphEngine, alg: str, buckets,
     that batch size by repeating its last source (one runner for all
     buckets; result rows past the bucket's length are padding).
     ``pipeline_depth=0`` is the strictly sequential drain; the results are
-    the same at any depth. ``kwargs`` are the runner options (max_iters,
+    the same at any depth. ``mesh``/``axis_name`` row-shard each bucket
+    as the runners do. ``kwargs`` are the runner options (max_iters,
     policy, alpha, tol). Returns one value per bucket, in order.
     """
     def issue(bucket):
@@ -338,7 +385,7 @@ def traverse_multi_buckets(engine: GraphEngine, alg: str, buckets,
         if pad_to is not None and len(sources) < pad_to:
             sources = sources + [sources[-1]] * (pad_to - len(sources))
         src = _as_sources(sources, engine.device)
-        run = _cached_runner(engine, alg, int(src.shape[0]), **kwargs)
+        run = _cached_runner(engine, alg, int(src.shape[0]), mesh, axis_name, **kwargs)
         return run(src)
 
     if materialize is None:

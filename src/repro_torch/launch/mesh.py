@@ -11,7 +11,8 @@ restore run on it (``distributed/sharding.py``, ``train/train_loop.py``,
 devices are built like any other; what runs on them is bounded by the
 card's memory, since every device's blocks live on the one card. A mesh
 of one rank per card waits for the process-group backend (ROADMAP.md §1,
-item 3d).
+item 3d); ``launch/device_view.py`` is one device of such a mesh as the
+dry run counts it.
 """
 from __future__ import annotations
 

@@ -28,10 +28,26 @@ dry run to it. One pass counts:
   ``file:function``. An op that the autograd engine runs outside any such
   frame is named for its node, as ``autograd:MmBackward0``.
 
+* Collectives: a mesh primitive that one device's step calls on
+  ``launch/mesh.py``'s ``DeviceView`` reports itself through
+  ``note_collective`` (kind, the bytes the reference's formula reads,
+  the flat ids of its group). Its wire bytes per device are the
+  reference's (``hlo_analysis.py``), n the group size:
+      all-reduce          2 * S * (n-1)/n     (ring RS+AG)
+      all-gather          S_full * (n-1)/n
+      reduce-scatter      S_shard * (n-1)
+      all-to-all          S * (n-1)/n
+      collective-permute  S
+  A group within one NVLink domain (``NODE_SIZE`` consecutive flat ids,
+  one HGX H100 node: the counterpart of the reference's ``pod_size``)
+  adds to ``ici_bytes``, a group that spans nodes to ``dcn_bytes``; the
+  keys keep the reference's names. A collective moves no HBM bytes here,
+  as in the reference.
+
 What has no counterpart: the HLO parser, the multiplication of while
 bodies by their trip counts (eager runs every trip) and
 ``normalize_cost_analysis`` (there is no ``cost_analysis`` to normalise).
-On one card the collective fields are 0 and ``unknown_trip_loops`` is 0.
+On one card the collective fields are 0; ``unknown_trip_loops`` is 0.
 """
 from __future__ import annotations
 
@@ -42,7 +58,7 @@ import weakref
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 from torch.utils.flop_counter import flop_registry
 
 # NVIDIA H100 SXM, data sheet, dense rates: the card that chip_smoke.py runs
@@ -53,6 +69,13 @@ from torch.utils.flop_counter import flop_registry
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 HBM_BW = 3.35e12            # bytes/s
 HBM_BYTES = 80e9            # the data sheet's memory; a present card's own is read
+# The interconnect of a multi-node H100 SXM cluster, data-sheet constants:
+# NVLink 4 gives each H100 SXM 900 GB/s, 450 GB/s a direction, to the
+# other cards of its 8-card HGX node; between nodes each card has one NDR
+# InfiniBand link of 400 Gb/s, 50 GB/s.
+NODE_SIZE = 8
+NVLINK_BW = 450e9           # bytes/s a direction per card, inside a node
+IB_BW = 50e9                # bytes/s per card, between nodes
 
 _PRIM_DEVICE = torch.ops.prim.device.default
 # ops that move no HBM bytes beside the views (``OpOverload.is_view``):
@@ -104,6 +127,42 @@ class Analysis:
     argument_bytes: int             # the resident storages' bytes when the step began
     peak_bytes: int                 # the most live bytes, arguments included
     ops: List[OpRecord]
+    collectives: List["CollectiveRecord"] = dataclasses.field(default_factory=list)
+
+
+class CollectiveRecord(NamedTuple):
+    kind: str               # "all-gather", "reduce-scatter", ...
+    caller: str
+    nbytes: int             # S of the wire-bytes formula
+    group: int              # n, the group size
+    crosses_node: bool
+    wire_bytes: float
+
+
+def wire_bytes(kind: str, size: int, n: int) -> float:
+    """Bytes one device puts on the wire (the reference's formulas)."""
+    frac = (n - 1) / max(n, 1)
+    if kind == "all-reduce":
+        return 2.0 * size * frac
+    if kind == "all-gather":
+        return size * frac                    # size = the full gathered result
+    if kind == "reduce-scatter":
+        return float(size * (n - 1))          # size = the scattered shard
+    if kind == "all-to-all":
+        return size * frac
+    if kind == "collective-permute":
+        return float(size)                    # one hop
+    raise ValueError(f"unknown collective {kind!r}")
+
+
+def note_collective(kind: str, nbytes: int, members) -> None:
+    """Report one collective to each active dispatch mode that counts
+    them (``OpCounter.collective``); with none active this does nothing."""
+    if torch._C._len_torch_dispatch_stack():
+        for mode in _get_current_dispatch_mode_stack():
+            note = getattr(mode, "collective", None)
+            if note is not None:
+                note(kind, nbytes, members)
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -150,11 +209,15 @@ def _op_bytes(name: str, func, args, kwargs, out) -> int:
 class OpCounter(TorchDispatchMode):
     """Counts every op run under it (see the module). ``resident``: the
     tensors alive when the step begins (parameters, optimizer state,
-    inputs, caches); their distinct storages are the argument bytes."""
+    inputs, caches); their distinct storages are the argument bytes.
+    ``held``: tensors alive when it begins that are none of its arguments
+    (a mesh step's working copy of the weights): live bytes, and so
+    temps, but not arguments."""
 
-    def __init__(self, resident=()):
+    def __init__(self, resident=(), held=()):
         super().__init__()
         self.ops: List[OpRecord] = []
+        self.collectives: List[CollectiveRecord] = []
         self.flops_by_dtype: Dict[str, float] = {}
         self.hbm_bytes = 0
         self._live: Dict[int, int] = {}
@@ -162,6 +225,8 @@ class OpCounter(TorchDispatchMode):
         for t in tree_tensors(resident):
             self._track(t)
         self.argument_bytes = self.live_bytes
+        for t in tree_tensors(held):
+            self._track(t)
         self.peak_bytes = self.live_bytes
         self._callers: Dict[object, str] = {}     # code object -> caller name, "" outside
 
@@ -238,30 +303,52 @@ class OpCounter(TorchDispatchMode):
         # the frame that called the kernel's wrapper (through ``_note_traffic``)
         self.ops.append(OpRecord(name, self._caller(4), 0, None, int(nbytes)))
 
+    def collective(self, kind: str, nbytes: int, members) -> None:
+        """One collective of one device: ``members`` are the flat ids of
+        its group; a group of one moves nothing and is not recorded."""
+        ids = [int(m) for m in members]
+        if len(ids) < 2:
+            return
+        crosses = len({m // NODE_SIZE for m in ids}) > 1
+        self.collectives.append(CollectiveRecord(
+            kind, self._caller(4), int(nbytes), len(ids), crosses,
+            wire_bytes(kind, int(nbytes), len(ids))))
+
     def analysis(self) -> Analysis:
+        by_kind: Dict[str, float] = {}
+        ici = dcn = 0.0
+        for c in self.collectives:
+            by_kind[c.kind] = by_kind.get(c.kind, 0.0) + c.wire_bytes
+            if c.crosses_node:
+                dcn += c.wire_bytes
+            else:
+                ici += c.wire_bytes
         return Analysis(
             flops=float(sum(self.flops_by_dtype.values())), hbm_bytes=float(self.hbm_bytes),
-            wire_bytes=0.0, by_kind={}, n_collectives=0, unknown_trip_loops=0,
-            ici_bytes=0.0, dcn_bytes=0.0, flops_by_dtype=dict(self.flops_by_dtype),
-            argument_bytes=self.argument_bytes, peak_bytes=self.peak_bytes, ops=self.ops)
+            wire_bytes=ici + dcn, by_kind=by_kind, n_collectives=len(self.collectives),
+            unknown_trip_loops=0, ici_bytes=ici, dcn_bytes=dcn,
+            flops_by_dtype=dict(self.flops_by_dtype), argument_bytes=self.argument_bytes,
+            peak_bytes=self.peak_bytes, ops=self.ops, collectives=list(self.collectives))
 
 
-def analyze(fn, *args, resident=(), **kwargs):
+def analyze(fn, *args, resident=(), held=(), **kwargs):
     """Run ``fn(*args, **kwargs)`` once under an ``OpCounter``; returns
-    (its result, the ``Analysis``). ``resident`` as ``OpCounter``'s."""
-    with OpCounter(resident) as counter:
+    (its result, the ``Analysis``). ``resident`` and ``held`` as
+    ``OpCounter``'s."""
+    with OpCounter(resident, held) as counter:
         out = fn(*args, **kwargs)
     return out, counter.analysis()
 
 
 def roofline_terms(analysis: Analysis) -> Dict:
     """The step's least time on one card, in seconds, with the reference's
-    keys: FLOPs at the peak of their dtype, bytes at the HBM rate; no
-    collectives on one card."""
+    keys: FLOPs at the peak of their dtype, bytes at the HBM rate, wire
+    bytes inside a node at NVLink's rate and between nodes at
+    InfiniBand's (0 on one card)."""
     compute_s = sum(f / PEAK_FLOPS.get(dt, PEAK_FLOPS["float32"])
                     for dt, f in analysis.flops_by_dtype.items())
     memory_s = analysis.hbm_bytes / HBM_BW
-    collective_s = 0.0
+    collective_s = analysis.ici_bytes / NVLINK_BW + analysis.dcn_bytes / IB_BW
     dominant = max((("compute", compute_s), ("memory", memory_s),
                     ("collective", collective_s)), key=lambda kv: kv[1])[0]
     return {

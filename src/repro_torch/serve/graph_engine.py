@@ -15,9 +15,11 @@ counters, ``stats()`` structure and cache-key strings. Three differences:
   dist/rank/residual, Python-int iterations), so the LRU holds host numpy
   arrays only and ``mutate``'s proofs and every checksum read them there.
   The first pull is the host's wait for the card (``serve/bucket_compute``).
-* **mesh** — row-sharding the [B, n] block over a process-group mesh is
-  not ported yet: ``mesh`` must be None. ``partitioned_matvec`` runs on a
-  ``core.mesh.Mesh`` of virtual devices.
+* **mesh** — ``mesh``/``axis_name`` row-shard each [B, n] traversal
+  block over a ``core.mesh.Mesh`` of virtual devices on the server's card
+  (graphs/multi.py): each device's rows run their own launches of the
+  block kernels, and every answer equals the mesh-less server's.
+  ``partitioned_matvec`` runs on such a mesh too.
 
 The request-batching idiom mirrors serve/engine.py's ServingEngine: callers
 ``submit`` requests, then ``flush`` resolves them. Two request kinds share
@@ -243,20 +245,21 @@ class GraphQueryServer:
                  batch_size: int = 8, cache_capacity: int = 1024,
                  max_iters: int = 64, policy: str = "adaptive",
                  alpha: float = 0.85, weight_seed: int = 5,
-                 mesh=None,
+                 mesh=None, axis_name="batch",
                  cache: LRUCache | None = None,
                  triangle_dense_limit: int = 8192,
                  pipeline_depth: int = 2,
                  strategy: str = "auto",
                  partition_devices: int = 8,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "row-sharding the [B, n] traversal block over a mesh is ROADMAP.md §1 "
-                "item 3b (graphs/multi.py's mesh rows on the virtual mesh); pass mesh=None")
         # Every engine of this server lives here. Not in engine_key: the
         # device moves no answer.
         self.device = _pinned(device)
+        # Row-sharding of each traversal block: moves no answer either.
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device}, the server on {self.device}")
+        self.mesh = mesh
+        self.axis_name = axis_name
         self.graph = graph
         self.stump = stump or trained_stump()
         self.batch_size = batch_size
@@ -589,6 +592,7 @@ class GraphQueryServer:
 
         results = traverse_multi_buckets(
             eng, algorithm, chunks, pipeline_depth=self.pipeline_depth,
+            mesh=self.mesh, axis_name=self.axis_name,
             materialize=to_payloads, pad_to=self.batch_size, **kw)
         out: Dict[int, Dict[str, Any]] = {}
         for payloads in results:
@@ -835,7 +839,8 @@ class AsyncGraphServer:
         """Host ``graph`` under ``name``: builds its GraphQueryServer on
         the shared LRU (pass ``cache=`` to override) and registers its
         window with the scheduler. ``server_kwargs`` are the synchronous
-        server's knobs (batch_size, pipeline_depth, strategy, ...);
+        server's knobs (batch_size, pipeline_depth, strategy, mesh,
+        axis_name, device, ...);
         ``max_wait`` overrides the server-wide latency budget."""
         if name in self._tenants:
             raise ValueError(f"tenant {name!r} already exists")

@@ -224,7 +224,7 @@ class _MeshPlan:
         return torch.stack([grads[p] for p, _ in parts]).reshape(spec.shape)
 
     def zero1_zeros(self) -> Dict[str, torch.Tensor]:
-        n = self.mesh.n_devices
+        n = self.mesh.stack_size
         return {name: torch.zeros((n,) + self.z_sh[name].shard_shape(spec.shape),
                                   dtype=torch.float32, device=self.mesh.device)
                 for name, spec, _ in self.layout}
@@ -236,17 +236,18 @@ class _MeshPlan:
         partials summed as the single-device ``global_norm`` sums its
         leaves."""
         terms: dict = {}
+        fold = self.mesh.fold_blocks
         for name, spec, parts in self.layout:
             sh, blocks = self.z_sh[name], grads[name]
             lead = len(parts[0][1])
             devs = sh.primary_devices()
             if any(entry_axes(e) for e in sh.spec[:lead]):
-                terms[(name, parts[0][1])] = _fold(
-                    [torch.sum(torch.square(blocks[d].float())) for d in devs])
+                terms[(name, parts[0][1])] = fold(
+                    lambda b: torch.sum(torch.square(b.float())), blocks, devs)
                 continue
             for _, idx in parts:
-                terms[(name, idx)] = _fold(
-                    [torch.sum(torch.square(blocks[d][idx].float())) for d in devs])
+                terms[(name, idx)] = fold(
+                    lambda b, idx=idx: torch.sum(torch.square(b[idx].float())), blocks, devs)
         return torch.sqrt(torch.sum(torch.stack([terms[k] for k in self.norm_order
                                                  if k in terms])))
 
@@ -320,7 +321,7 @@ def init_mesh_ef(model: Model, mesh: Mesh) -> dict:
     specs = model_specs(model.cfg)
 
     def zeros(spec, sh: NamedSharding) -> Sharded:
-        return Sharded(torch.zeros((mesh.n_devices,) + sh.shard_shape(spec.shape),
+        return Sharded(torch.zeros((mesh.stack_size,) + sh.shard_shape(spec.shape),
                                    dtype=torch.float32, device=mesh.device), sh, spec.shape)
 
     return tree_map(zeros, specs, zero1_shardings(mesh, specs), is_leaf=lambda x: isinstance(x, P_))

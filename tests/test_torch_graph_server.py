@@ -14,7 +14,8 @@ the CPU, held to the JAX package's server on the same workloads:
 
 The JAX runs happen once per module (fixtures); the port's own behaviour
 (dedup, LRU, fan-out, pipelining, stats copies, mutate semantics, the
-device and mesh arguments) is checked on the port alone.
+device argument, and a mesh's answers equal to the mesh-less server's) is
+checked on the port alone.
 """
 import importlib
 import json
@@ -203,8 +204,19 @@ def test_partitioned_matvec_equals_single_device_engine(face, algorithm, kernel)
 
 def test_mesh_and_device_arguments(face):
     tg, _ = face
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraphQueryServer(tg, mesh=Mesh((2, 4), device="cpu"), device="cpu")
+    # a mesh row-shards each traversal block: the answers do not move
+    plain = GraphQueryServer(tg, batch_size=4, device="cpu")
+    sharded = GraphQueryServer(tg, batch_size=4, mesh=Mesh((2, 4), device="cpu"),
+                               axis_name=("dr", "dc"), device="cpu")
+    queries = [("bfs", 0), ("bfs", 3), ("bfs", 5), ("sssp", 1), ("sssp", 2), ("ppr", 4),
+               ("ppr", 9)]
+    for srv in (plain, sharded):
+        for a, s in queries:
+            srv.submit(a, s)
+    for p, q in zip(plain.flush(), sharded.flush()):
+        assert set(q.result) == set(p.result)
+        for k, v in p.result.items():
+            np.testing.assert_array_equal(q.result[k], v)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             GraphQueryServer(tg)

@@ -5,6 +5,7 @@ record against the reference's, kernel 7's meta path and traffic report,
 and the meshes."""
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -24,7 +25,7 @@ from repro_torch.kernels.moe_dispatch import moe_dispatch_gather, moe_dispatch_g
 from repro_torch.launch import dryrun, mesh as lmesh, op_analysis, op_profile
 from repro_torch.launch.op_analysis import OpCounter, analyze, roofline_terms
 from repro_torch.models import zoo
-from repro_torch.models.config import SHAPES
+from repro_torch.models.config import SHAPES, ShapeConfig
 from repro_torch.models.moe import capacity, dispatch_plan, uses_dense
 from repro_torch.models.transformer import Model
 from repro_torch.train.optimizer import adamw_init
@@ -300,13 +301,200 @@ def test_moe_train_cell_reports_kernels_7_and_7t_on_meta():
 
 
 def test_other_meshes_raise(tmp_path):
-    for mesh in ("single", "multi", "both"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3"):
-            dryrun.main(["--arch", "xlstm-1.3b", "--shape", "decode_32k", "--mesh", mesh,
-                         "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match=r"item 3"):
-        dryrun.lower_cell("xlstm-1.3b", "decode_32k", {"data": 2, "model": 2})
+    """The dry run's meshes are card, single, multi and both; any other
+    mesh (an unknown name, an axis of size 0) raises before a cell runs
+    (single and multi write records: ``test_mesh_records``)."""
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", "xlstm-1.3b", "--shape", "decode_32k", "--mesh", "pod",
+                     "--out", str(tmp_path)])
+    with pytest.raises(ValueError, match="positive sizes"):
+        dryrun.lower_cell("xlstm-1.3b", "decode_32k", {"data": 2, "model": 0})
     assert not list(tmp_path.iterdir())
+
+
+# the reference's record keys (``repro.launch.dryrun.lower_cell``)
+REFERENCE_KEYS = {
+    "arch", "shape", "mesh", "devices", "compile_s", "memory", "cost_raw", "cost",
+    "collectives", "roofline", "model_flops_total", "model_flops_per_device",
+    "useful_flops_ratio", "params_total", "params_active"}
+REFERENCE_SUBKEYS = {
+    "memory": {"argument_bytes", "output_bytes", "temp_bytes", "generated_code_bytes"},
+    "cost_raw": {"flops_per_device", "bytes_per_device"},
+    "cost": {"flops_per_device", "hbm_bytes_per_device"},
+    "collectives": {"wire_bytes_per_device", "ici_bytes", "dcn_bytes", "by_kind", "n_ops",
+                    "unknown_trip_loops"},
+    "roofline": {"compute_s", "memory_s", "collective_s", "ici_bytes", "dcn_bytes",
+                 "dominant", "bound_s"}}
+
+
+@pytest.mark.parametrize("kind,devices", [("single", 256), ("multi", 512)])
+def test_mesh_records(tmp_path, kind, devices):
+    """``--mesh single`` and ``multi`` on the reference's test cell: device
+    0's step on the 16x16 and 2x16x16 meshes, with every key of the
+    reference's record and non-zero collective fields."""
+    dryrun.main(["--arch", "xlstm-1.3b", "--shape", "decode_32k", "--mesh", kind,
+                 "--out", str(tmp_path)])
+    rec = json.load(open(tmp_path / f"xlstm-1.3b__decode_32k__{kind}.json"))
+    assert REFERENCE_KEYS <= set(rec)
+    for key, sub in REFERENCE_SUBKEYS.items():
+        assert sub <= set(rec[key]), key
+    axes = {"data": 16, "model": 16} if kind == "single" else {"pod": 2, "data": 16, "model": 16}
+    assert rec["devices"] == devices and rec["mesh"] == axes
+    coll = rec["collectives"]
+    assert coll["wire_bytes_per_device"] > 0 and coll["n_ops"] > 0
+    assert coll["wire_bytes_per_device"] == coll["ici_bytes"] + coll["dcn_bytes"]
+    assert coll["wire_bytes_per_device"] == pytest.approx(sum(coll["by_kind"].values()))
+    assert coll["unknown_trip_loops"] == 0 and rec["cost_raw"]["flops_per_device"] == \
+        rec["cost"]["flops_per_device"]
+    assert rec["roofline"]["collective_s"] == pytest.approx(
+        coll["ici_bytes"] / op_analysis.NVLINK_BW + coll["dcn_bytes"] / op_analysis.IB_BW)
+    assert rec["model_flops_per_device"] == rec["model_flops_total"] / devices
+    assert rec["fits_one_card"] == (rec["memory"]["argument_bytes"] + rec["memory"]["temp_bytes"]
+                                    <= rec["card_memory"]["bytes"])
+    assert "placement" in rec
+
+
+def test_multi_train_cell_crosses_pods():
+    """A cut train cell on the 2x16x16 mesh: gradients reduced across the
+    pods go between nodes (``dcn_bytes``); every kind the step issues."""
+    cfg = zoo.reduced_config("minitron-4b")
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=16, global_batch=64)
+    mesh = lmesh.make_production_mesh(multi_pod=True, device="meta")
+    rec, ana = dryrun.lower_cell(cfg.arch_id, shape, mesh, TrainConfig(microbatches=16), cfg=cfg)
+    assert rec["devices"] == 512 and rec["microbatches"] == 2    # 64 rows over 32 groups
+    assert rec["collectives"]["dcn_bytes"] > 0
+    assert set(rec["collectives"]["by_kind"]) == {"all-gather", "reduce-scatter", "all-reduce"}
+    pods = [c for c in ana.collectives if c.kind == "all-reduce" and c.group == 2]
+    assert pods and all(c.crosses_node for c in pods)
+
+
+def _block_bytes(specs, shardings, dtype=None):
+    from repro_torch.distributed.sharding import tree_map
+
+    total = []
+    is_leaf = lambda x: hasattr(x, "shape") and hasattr(x, "dtype") and not isinstance(  # noqa: E731
+        x, (dict, torch.Tensor))
+    tree_map(lambda sp, sh: total.append(
+        math.prod(sh.shard_shape(sp.shape)) * torch.empty((), dtype=dtype or sp.dtype)
+        .element_size()), specs, shardings, is_leaf=is_leaf)
+    return sum(total)
+
+
+def test_mesh_argument_bytes_are_the_devices_own_blocks():
+    """Device 0's arguments on a (pod 2, data 2, model 2) mesh: its
+    parameter blocks, its ZeRO-1 master/mu/nu blocks and the step, its
+    rows of the batch; for a decode its cache blocks and its token rows."""
+    from repro_torch.distributed.sharding import param_shardings, zero1_shardings
+    from repro_torch.launch.device_view import DeviceView
+    from repro_torch.models.transformer import cache_specs, model_specs
+    from repro_torch.serve.kv_cache import cache_shardings
+
+    cfg = zoo.reduced_config("deepseek-v2-lite-16b")
+    axes = {"pod": 2, "data": 2, "model": 2}
+    view = DeviceView(lmesh.make_mesh(tuple(axes.values()), tuple(axes), device="meta"))
+    specs = model_specs(cfg)
+    p = _block_bytes(specs, param_shardings(view, specs))
+    z = _block_bytes(specs, zero1_shardings(view, specs), torch.float32)
+    train = dataclasses.replace(SHAPES["train_4k"], seq_len=16, global_batch=8)
+    rec, _ = dryrun.lower_cell(cfg.arch_id, train, axes, TrainConfig(microbatches=2), cfg=cfg)
+    rows = 8 // 4
+    assert rec["memory"]["argument_bytes"] == p + 3 * z + 4 + 2 * rows * 16 * 4
+    dec = dataclasses.replace(SHAPES["decode_32k"], seq_len=16, global_batch=8)
+    rec, _ = dryrun.lower_cell(cfg.arch_id, dec, axes, cfg=cfg)
+    c = _block_bytes(cache_specs(cfg, 8, 16), cache_shardings(view, cfg, 8, 16))
+    assert rec["memory"]["argument_bytes"] == p + c + rows * 4
+
+
+def test_collective_wire_bytes_by_hand():
+    """One device's primitives on a (pod 2, data 4, model 2) view, counted
+    by the reference's formulas: flat id = 8·pod + 2·data + model, so the
+    data and model groups of device 0 stay in its 8-card node and the pod
+    group crosses to the next."""
+    from repro_torch.launch.device_view import DeviceView
+
+    view = DeviceView(lmesh.make_mesh((2, 4, 2), ("pod", "data", "model"), device="meta"))
+    assert view.group(("data",)) == [0, 2, 4, 6] and view.group(("pod",)) == [0, 8]
+
+    def step():
+        full = view.gather_full(meta(1, 4, 8, dtype=torch.bfloat16), ("data", "model"))
+        assert full.shape == (16, 16)                       # 512 bytes over 8: 448
+        blk = view.scatter_full(meta(16, 16), ("data",))    # 256-byte block: RS over data
+        assert blk.shape == (1, 4, 16)                      # 768, AR over pod 256
+        g = view.all_gather(meta(1, 4, 8), "model", dim=1)  # 256 bytes over 2: 128
+        assert g.shape == (1, 8, 8)
+        view.ppermute(meta(1, 10), "pod", [(0, 1), (1, 0)])                 # 40
+        view.all_to_all(meta(1, 4, 3, dtype=torch.int32), "data")          # 48·3/4 = 36
+        view.fold_blocks(lambda b: b.sum(), meta(1, 5), [0, 8])            # 2·4·1/2 = 4
+
+    _, ana = analyze(step)
+    assert ana.by_kind == {"all-gather": 448 + 128, "reduce-scatter": 768,
+                           "all-reduce": 256 + 4, "collective-permute": 40, "all-to-all": 36}
+    assert ana.n_collectives == 7
+    assert ana.ici_bytes == 448 + 768 + 128 + 36 and ana.dcn_bytes == 256 + 40 + 4
+    assert ana.wire_bytes == ana.ici_bytes + ana.dcn_bytes
+    terms = roofline_terms(ana)
+    assert terms["collective_s"] == 1380 / 450e9 + 300 / 50e9
+    assert op_analysis.wire_bytes("all-reduce", 100, 4) == 150.0
+
+
+REFERENCE_MESH_CELLS = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+jax.devices()                     # 8 host devices, before the dry run's module sets 512
+from repro.launch import dryrun
+from repro.models import zoo
+from repro.models.config import ShapeConfig
+
+mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
+                     axis_types=(jax.sharding.AxisType.Auto,) * 3)
+out = {}
+for arch, kinds in json.loads(sys.argv[1]):
+    cfg = zoo.reduced_config(arch)
+    dryrun.get_config = lambda a, cfg=cfg: cfg
+    for kind in kinds:
+        dryrun.SHAPES["cut_" + kind] = ShapeConfig("cut_" + kind, 64, 16, kind)
+        rec, _, _ = dryrun.lower_cell(arch, "cut_" + kind, mesh,
+                                      dryrun.TrainConfig(microbatches=2, remat=True))
+        out[arch + "/" + kind] = {"arg": rec["memory"]["argument_bytes"],
+                                  "flops": rec["cost"]["flops_per_device"],
+                                  "keys": {k: sorted(v) if isinstance(v, dict) else None
+                                           for k, v in rec.items()}}
+print(json.dumps(out))
+"""
+MESH_CELLS = [("minitron-4b", ["train", "prefill", "decode"]),
+              ("deepseek-v2-lite-16b", ["decode"]), ("xlstm-1.3b", ["decode"])]
+
+
+@pytest.fixture(scope="module")
+def reference_mesh_cells():
+    """The reference's ``lower_cell`` on an Auto-axis (2, 2, 2) mesh of 8
+    host devices, each arch's reduced config patched in, at 16 × 64."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", REFERENCE_MESH_CELLS, json.dumps(MESH_CELLS)],
+                         env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch,kind", [(a, k) for a, ks in MESH_CELLS for k in ks])
+def test_mesh_argument_bytes_match_the_reference(arch, kind, reference_mesh_cells):
+    """Per-device argument bytes against XLA's
+    ``memory_analysis().argument_size_in_bytes`` for the same cut cell:
+    equal (tolerance 0). The FLOPs differ by the placement (the port's
+    model axis repeats its group's work), so their ratio is printed."""
+    want = reference_mesh_cells[f"{arch}/{kind}"]
+    cfg = zoo.reduced_config(arch)
+    shape = ShapeConfig(f"cut_{kind}", 64, 16, kind)
+    rec, _ = dryrun.lower_cell(arch, shape, {"pod": 2, "data": 2, "model": 2},
+                               TrainConfig(microbatches=2, remat=True), cfg=cfg)
+    assert rec["memory"]["argument_bytes"] == want["arg"]
+    assert set(want["keys"]) <= set(rec)
+    for key, sub in want["keys"].items():
+        if sub is not None and key != "mesh":
+            assert set(sub) <= set(rec[key]), key
+    print(f"{arch} {kind}: port/reference FLOPs per device "
+          f"{rec['cost']['flops_per_device'] / want['flops']:.3f}")
 
 
 # ------------------------------------------------------ kernel 7 on meta
@@ -391,7 +579,8 @@ def test_meshes_of_virtual_devices():
 
 def test_pod_and_production_meshes_raise():
     """The pod and production meshes build as virtual meshes; a dry run
-    over a production mesh still raises (ROADMAP.md §1 item 3c)."""
+    over a production mesh's axes counts device 0's step on it (the name
+    is kept from when a dry run on these meshes raised)."""
     s = lmesh.small_mesh(data=2, model=2, pod=2, device="cpu")
     assert s.shape == {"pod": 2, "data": 2, "model": 2} and s.n_devices == 8
     m = lmesh.make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
@@ -400,11 +589,13 @@ def test_pod_and_production_meshes_raise():
                          (True, {"pod": 2, "data": 16, "model": 16})):
         big = lmesh.make_production_mesh(multi_pod=multi, device="cpu")
         assert big.shape == shape and big.n_devices == (512 if multi else 256)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3"):
-            dryrun.lower_cell("xlstm-1.3b", "decode_32k", big.shape)
+        rec, _ = dryrun.lower_cell("xlstm-1.3b", "decode_32k", big.shape)
+        assert rec["devices"] == big.n_devices and rec["mesh"] == shape
 
 
 def test_the_card_constants_are_the_h100s():
     assert op_analysis.PEAK_FLOPS == {"bfloat16": 989e12, "float16": 989e12,
                                       "float32": 67e12}
     assert op_analysis.HBM_BW == 3.35e12 and op_analysis.HBM_BYTES == 80e9
+    assert op_analysis.NVLINK_BW == 450e9 and op_analysis.IB_BW == 50e9
+    assert op_analysis.NODE_SIZE == 8

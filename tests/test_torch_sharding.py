@@ -25,7 +25,7 @@ import torch
 from jax.sharding import AbstractMesh
 from repro.distributed import sharding as jsharding
 from repro.models import zoo as jzoo
-from repro.models.transformer import Model as JModel
+from repro.models.transformer import BODY_REGISTRY, Model as JModel
 from repro.serve.engine import serve_shardings as jserve_shardings
 from repro.serve.kv_cache import cache_shardings as jcache_shardings
 
@@ -76,6 +76,15 @@ def _port_flat(tree, prefix=""):
             yield from _port_flat(v, f"{prefix}.{f}")
     else:
         yield prefix, tree
+
+
+@pytest.fixture(autouse=True)
+def fresh_dense_body():
+    """The reference registers its dense-layer body once per process, with
+    the ``d_ff_dense`` of the first config it plans (a reduced one, when
+    another test in this worker planned one first); drop it, so each test
+    plans its own config's width (as ``tests/test_torch_lm.py`` does)."""
+    BODY_REGISTRY.pop("mla_mlp_dense", None)
 
 
 @pytest.mark.parametrize("arch", jzoo.ARCH_IDS)
