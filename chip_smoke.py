@@ -376,6 +376,33 @@ Phases:
      (2, 2) mesh, whose per-device argument bytes must equal what device
      0's blocks hold on the card (parameters, master, mu, nu, the step,
      its rows of the batch).
+ 25. The mesh on a process group, one rank per device
+     (``core/rank_mesh.py``). The card's machine has one H100, so the
+     ranks time-share it over gloo, each collective staged through pinned
+     host buffers (NCCL refuses two ranks on one GPU); their walls are
+     not a multi-card result. (a) 8 ranks on phase 16's (2, 4) mesh,
+     each holding its own parts of cit-HP (bsr 128×128): ⟨+,×⟩ on
+     integer weights, ⟨min,+⟩ and ⟨∨,∧⟩, every strategy, both kernels,
+     the fused form, every Merge topology and the compressed Load;
+     ⟨+,×⟩'s batched calls (B = 8) on 2d; ``iterate_phases`` at depth 0
+     and 2; the masked SpGEMM on ca-Q (2d, 64×64, 0/1 ⟨+,∧⟩ and integer
+     ⟨+,×⟩). Each rank's result ``torch.equal`` to block ``rank`` of the
+     virtual mesh's, each rank's Kernel-phase launches held to their
+     plain versions on its part (phase 16's tolerances), and its Load /
+     Kernel / Retrieve+Merge ms by CUDA events beside the virtual
+     mesh's, with its wire bytes by primitive and peak memory. (b) 4
+     ranks, ``make_train_step`` on (data 2, model 2), DeepSeek-V2-Lite at
+     full width, 2 layers (1,085,287,424 parameters), bf16, 4 × 2,048
+     tokens in 2 microbatches, 3 steps, after the virtual mesh's run of
+     the same steps (freed before the ranks start): each rank's loss and
+     grad norm ``torch.equal`` and every block's digest (two 64-bit
+     position-weighted integer sums of its bytes) equal to the virtual
+     mesh's block ``rank``. (c) On (a)'s 8 ranks, the compressed step on
+     (pod 2, data 2, model 2) at phase 21d's scaled config, 2 steps:
+     every block and each pod's error feedback ``torch.equal``. (d) One
+     NCCL rank (world 1): (a)'s row ⟨+,×⟩ spmv and one train step on
+     1×1 meshes, equal to the virtual mesh's. Every rank is joined and
+     its exit code checked; a rank's failure fails the run.
 
 Launch counters: all eight are set to 0 before phase 3 and kernels 1–2
 read after phase 4. In phases 6–8 every call of the fused path, in phase
@@ -384,7 +411,8 @@ serving run, in phases 14–15 every multi-source and incremental
 traversal, in phase 16 every distributed call and in phase 17 the served
 path (capacity run) and each bsr batched run, in phase 18 each
 serving run, phase 20 whole, in phases 21 and 23 each train step, and in
-phase 24 each traversal on a mesh or one device, runs
+phase 24 each traversal on a mesh or one device, and in phase 25 every
+rank's distributed call and train step (in the ranks' own processes), runs
 with the counters set to 0 just before it and read just after; the
 comparisons and timings in between are not counted. The run fails unless kernels 1–2 launched in
 phases 3–4 and the block launches did not, kernels 3–5 in phases 6–8,
@@ -396,8 +424,9 @@ in phases 14–15 (kernel 2's on r-TX), kernels 1, 2, 3, 5, 1b, 2b, 6
 and 6b through the mesh in phase 16, and 1b and 2b in phase 17's bsr
 cross-check (the served path itself runs csr/csc engines and launches
 none; the count is printed), none of the eleven in phase 20, kernels
-7 and 7ᵀ in every train step of phases 21 and 23, and 1b or 2b in every
-traversal of phase 24 on a mesh. Any
+7 and 7ᵀ in every train step of phases 21 and 23, 1b or 2b in every
+traversal of phase 24 on a mesh, and on every rank of phase 25 kernels
+1, 2, 3, 5, 1b, 2b, 6 and 6b (a) and 7 and 7ᵀ in every step (b, c). Any
 mismatch raises, so the run
 exits non-zero without the final ``{"ok": true, ...}`` line.
 """
@@ -469,6 +498,16 @@ MESH_CUT_ROWS = 2              # phase 23b: 2 × 64 tokens, one row per data gro
 MESH_CUT_TOKENS = 64
 MESH_ROW_DEVICES = (4, 8)      # phase 24: ("batch",) meshes for B = 32 on cit-HP
 MESH_ROW_RTX = 8               # and for B = 8 on r-TX, one row a device
+RANK_GRID = (2, 4)             # phase 25a: 8 gloo ranks sharing the card, phase 16's mesh
+RANK_B = 8                     # 25a: the batched calls' block
+RANK_PIPE_ITERS = 8            # 25a: iterate_phases steps at depth 0 and 2
+RANK_SPGEMM_COLS = 512         # 25a: B's columns in the SpGEMM on ca-Q
+RANK_TRAIN_SHAPE = (2, 2)      # 25b: 4 gloo ranks, (data, model)
+RANK_TRAIN_ROWS = 4            # 25b: phase 23's 4 × 2,048 tokens a step
+RANK_TRAIN_MICRO = 2           # in 2 microbatches
+RANK_TRAIN_STEPS = 3
+RANK_POD_SHAPE = (2, 2, 2)     # 25c: 8 gloo ranks, (pod, data, model)
+RANK_POD_STEPS = 2
 # phase 21c's device time by kind of kernel, by words of the kernel's name
 TRAIN_KERNEL_KINDS = (("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
                       ("moe_dispatch", ("moe_dispatch",)),
@@ -1705,11 +1744,12 @@ def mesh_train_phases(torch, dev, single_step_ms: float, time_ms) -> dict:
                                  seed=SEED))
     totals = [0, 0]
 
-    def predicted(cfg, tcfg, pods: int = 1) -> list:
+    def predicted(cfg, tcfg, positions: int) -> list:
         """Kernel 7's and 7ᵀ's launches a step, from the code: every MoE
-        layer of every microbatch (of every pod) runs kernel 7 in its
-        forward and again in remat's recompute, and 7ᵀ in its backward."""
-        once = pods * max(tcfg.microbatches, 1) * (cfg.n_layers - cfg.moe.first_dense_layers)
+        layer of every microbatch of every (pod, data) position's rows runs
+        kernel 7 in its forward and again in remat's recompute, and 7ᵀ in
+        its backward."""
+        once = positions * max(tcfg.microbatches, 1) * (cfg.n_layers - cfg.moe.first_dense_layers)
         return [(2 if tcfg.remat else 1) * once, once]
 
     def run_steps(label, step, state, batches, want):
@@ -1767,7 +1807,7 @@ def mesh_train_phases(torch, dev, single_step_ms: float, time_ms) -> dict:
     for f in ("master", "mu", "nu"):
         check_shapes("23a", getattr(opt, f), z_sh)
     tcfg = TrainConfig(opt=ocfg, microbatches=TRAIN_MICRO, remat=True)
-    want = predicted(cfg, tcfg)
+    want = predicted(cfg, tcfg, mesh.shape["data"])
     step = make_train_step(model, mesh, tcfg)
     batches = [device_batch(src.batch(i, 0, 1), dev) for i in range(TRAIN_STEPS)]
     (params, opt), steps = run_steps("23a", step, (params, opt), batches, want)
@@ -1834,7 +1874,7 @@ def mesh_train_phases(torch, dev, single_step_ms: float, time_ms) -> dict:
     for where, mdl in (("card", card), ("host", host)):
         m = small_mesh(*MESH_TRAIN_SHAPE, device=mdl.device)
         p, o = init_mesh_state(mdl, m)
-        want = predicted(cut, ctcfg)
+        want = predicted(cut, ctcfg, m.shape["data"])
         t0 = time.perf_counter()
         if where == "card":
             (p, o), rows = run_steps("23b", make_train_step(mdl, m, ctcfg), (p, o),
@@ -1904,7 +1944,7 @@ def mesh_train_phases(torch, dev, single_step_ms: float, time_ms) -> dict:
     start = {k: v.full() for k, v in blocks_of(params)}            # bf16, the masters' start
     loss_before = fixed_losses(model, params)
     step = make_compressed_train_step(model, mesh, ptcfg)
-    want = predicted(cfg, ptcfg, pods=n_pod)
+    want = predicted(cfg, ptcfg, n_pod * mesh.shape["data"])
     wire, per_leaf = [], []       # gathered dtypes; per leaf a step: zero codes, mean, ef norms
     real_psum = train_loop.compressed_psum_mean
 
@@ -1965,7 +2005,8 @@ def mesh_train_phases(torch, dev, single_step_ms: float, time_ms) -> dict:
     model = build_model(cfg, device=dev).init(seed=SEED)
     params, opt = init_mesh_state(model, mesh)
     step = make_train_step(model, mesh, ptcfg)
-    (params, opt), psteps = run_steps("23c", step, (params, opt), batches, predicted(cfg, ptcfg))
+    (params, opt), psteps = run_steps("23c", step, (params, opt), batches,
+                                      predicted(cfg, ptcfg, n_pod * mesh.shape["data"]))
     loss_p = fixed_losses(model, params)
     p_params = {k: v.full() for k, v in blocks_of(params)}
     del model, opt, step
@@ -4001,6 +4042,708 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
     return block_tally
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the mesh on a process group, one rank per device. The card's
+# machine has one H100, so the ranks share it over host-staged gloo; the
+# rank functions below run in processes of their own (``launch.ranks.run_ranks``)
+# and take the device they run on.
+# ---------------------------------------------------------------------------
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _event_ms(torch, dev, fn, reps: int = 5) -> float:
+    """Median ms of ``reps`` single calls after one warm-up: CUDA events
+    around each call on the card (a host clock around it on the host)."""
+    fn()
+    _sync(torch, dev)
+    ts = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def _peak(torch, dev, reset: bool = False) -> int:
+    if dev.type != "cuda":
+        return 0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def _free(torch, dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _held(torch, y, y_plain, sr, what: str) -> float:
+    """Phase 16's tolerances: ⟨+,×⟩ within rtol 1e-5, atol 1e-6, the rest
+    exact; returns max |diff| over entries finite in both."""
+    if sr.name == "plus_times":
+        torch.testing.assert_close(y, y_plain, rtol=1e-5, atol=1e-6, equal_nan=True,
+                                   msg=lambda m: f"{what}: {m}")
+    else:
+        check(torch.equal(y, y_plain), f"{what}: kernel differs from the plain version")
+    fin = torch.isfinite(y.double()) & torch.isfinite(y_plain.double())
+    diff = (y.double() - y_plain.double()).abs()[fin]
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def rank_wrappers() -> tuple:
+    """Every hand-written kernel's wrapper (each counts its launches)."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_gather, moe_dispatch_gather_backward
+    from repro_torch.kernels.semiring_spmv import (
+        semiring_spmv_fused_padded, semiring_spmv_padded, semiring_spmv_padded_batch,
+        semiring_spmv_sell,
+    )
+    from repro_torch.kernels.spgemm_binary import semiring_spgemm_binary
+    from repro_torch.kernels.spgemm_tiles import semiring_spgemm_padded
+    from repro_torch.kernels.spmspv_tiles import (
+        semiring_spmspv_fused_padded, semiring_spmspv_padded, semiring_spmspv_padded_batch,
+    )
+    return (semiring_spmv_padded, semiring_spmspv_padded, semiring_spmv_fused_padded,
+            semiring_spmv_sell, semiring_spmspv_fused_padded, semiring_spgemm_padded,
+            semiring_spgemm_binary, moe_dispatch_gather, semiring_spmv_padded_batch,
+            semiring_spmspv_padded_batch, moe_dispatch_gather_backward)
+
+
+def rank_graph_calls(torch, mesh, dev, data: dict, call=None, holds=None, timing=None) -> dict:
+    """Phase 25a's calls on ``mesh``, the virtual ``Mesh`` or a rank's
+    ``RankMesh`` (its own parts, ``partition(..., part=rank)``): on cit-HP
+    (bsr 128×128) ⟨+,×⟩ on integer weights, ⟨min,+⟩ and ⟨∨,∧⟩, every
+    strategy, both kernels and the fused form, every Merge topology, the
+    compressed Load; ⟨+,×⟩'s batched calls on 2d; ``iterate_phases`` at
+    depth 0 and 2 (⟨min,+⟩, 2d, square); the masked SpGEMM on ca-Q (2d,
+    64×64, 0/1 ⟨+,∧⟩ and integer ⟨+,×⟩). Returns {key: what the mesh
+    holds after the call, on the host}. ``call`` runs each call (the
+    launch counts), ``holds`` (kind -> fn) hold a rank's Kernel-phase
+    launches to the plain versions, ``timing`` times the phase split.
+    ``partition_s`` holds the seconds the partitions took."""
+    import importlib
+
+    from repro_torch.core.distributed import (
+        build_phase_fns, make_distributed_batched_matvec, make_distributed_matvec,
+        make_distributed_spgemm,
+    )
+    from repro_torch.core.pipeline import iterate_phases
+    from repro_torch.core.semiring import SEMIRINGS
+
+    part = importlib.import_module("repro_torch.core.partition")
+    call = call or (lambda fn: fn())
+    own = getattr(mesh, "rank", None)
+    d = mesh.n_devices
+    strategies = {"row": (d, 1), "col": (1, d), "2d": mesh.grid}
+    out = {}
+
+    def pm_of(g, sr, vals, grid, shape=None, block=(128, 128)):
+        t0 = time.perf_counter()
+        pm = part.partition(g["cols"], g["rows"], vals, shape or (g["n"], g["n"]), grid, "bsr",
+                            sr, block=block, balance="rows", device=dev, part=own)
+        out["partition_s"] = out.get("partition_s", 0.0) + time.perf_counter() - t0
+        return pm
+
+    def vec(pm, v, fill, dim=0, side="input"):
+        t = torch.from_numpy(v).to(dev)
+        return mesh.local(part.shard_tensor(pm.plan, t, fill, dim=dim, side=side))
+
+    def keep(key, y):
+        out[key] = y.cpu()
+
+    cit = data["cit"]
+    for name in ("plus_times", "min_plus", "bool_or_and"):
+        sr, inp = SEMIRINGS[name], data[name]
+        for strategy, grid in strategies.items():
+            pm = pm_of(cit, sr, inp["vals"], grid)
+            xs, xsp = vec(pm, inp["x"], sr.zero), vec(pm, inp["x_sp"], sr.zero)
+            forms = [("spmv", xs, {}), ("spmspv", xsp, {"kernel": "spmspv"}),
+                     ("spmv/fused", xs, {"fused": True}),
+                     ("spmspv/fused", xsp, {"kernel": "spmspv", "fused": True})]
+            if strategy != "row":
+                forms += [(f"spmv/{t}:{o}", xs, {"topology": t, "merge_order": o})
+                          for t, o in (("ring", "rc"), ("tree", "rc"), ("staged2d", "rc"),
+                                       ("staged2d", "cr")) if o == "rc" or strategy == "col"]
+            if strategy != "col":
+                forms.append(("spmspv/compressed", xsp,
+                              {"kernel": "spmspv", "f_local": pm.plan.in_per}))
+            for label, xin, kw in forms:
+                fn = make_distributed_matvec(mesh, pm, sr, strategy, **kw)
+                keep((name, strategy, label), call(lambda: fn(pm.parts, xin)))
+            if holds is not None:
+                for kernel, xin in (("spmv", xs), ("spmspv", xsp)):
+                    for fused in (False, True):
+                        holds["matvec"](pm, sr, strategy, xin, kernel, fused)
+            if timing is not None and name == "plus_times":
+                timing(pm, sr, strategy, xs)
+            if name == "plus_times" and strategy == "2d":
+                for kernel, key in (("spmv", "xb"), ("spmspv", "xb_sp")):
+                    blk = vec(pm, inp[key], sr.zero, dim=1)
+                    fb = make_distributed_batched_matvec(mesh, pm, sr, "2d", kernel=kernel)
+                    keep((name, strategy, f"batched/{kernel}"), call(lambda: fb(pm.parts, blk)))
+                    if holds is not None:
+                        holds["batched"](pm, sr, blk, kernel)
+            del pm, xs, xsp
+            _free(torch, dev)
+    # the pipeline: x <- A x on 2d, square chunks
+    sr, inp = SEMIRINGS["min_plus"], data["min_plus"]
+    n_pad = inp["x0"].shape[0]
+    pm = pm_of(cit, sr, inp["vals"], mesh.grid, shape=(n_pad, n_pad))
+    x0 = vec(pm, inp["x0"], sr.zero)
+    fns = build_phase_fns(mesh, pm, sr, "2d", "spmv")
+    for depth in (0, 2):
+        keep(("min_plus", "2d", f"iterate/depth{depth}"),
+             call(lambda: iterate_phases(fns, pm.parts, x0, data["pipe_iters"], depth=depth)))
+    del pm, fns
+    _free(torch, dev)
+    # the masked SpGEMM on ca-Q
+    caq = data["caq"]
+    for name in ("plus_and", "plus_times"):
+        sr = SEMIRINGS[name]
+        pm = pm_of(caq, sr, caq[f"vals/{name}"], mesh.grid, block=(64, 64))
+        bs = vec(pm, caq[f"b/{name}"], sr.one)
+        ms = vec(pm, caq[f"mask/{name}"], sr.zero, side="output")
+        fn = make_distributed_spgemm(mesh, pm, sr, "2d")
+        keep((name, "2d", "spgemm/masked"), call(lambda: fn(pm.parts, bs, ms)))
+        if holds is not None:
+            holds["spgemm"](pm, sr, bs)
+        del pm, bs, ms
+        _free(torch, dev)
+    return out
+
+
+_DIGEST_WEIGHTS: dict = {}
+
+
+def digest(torch, t) -> tuple:
+    """(dtype, shape, two 64-bit sums of t's bytes, each byte times a
+    seeded random int64 weight by position): integer sums, the same in any
+    order, so two tensors' digests are equal exactly when their bits are
+    (but for a 2^-64 chance). Computed on t's device in chunks."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    n = 1 << 24
+    if str(b.device) not in _DIGEST_WEIGHTS:
+        gen = torch.Generator(device=b.device).manual_seed(25)
+        _DIGEST_WEIGHTS[str(b.device)] = torch.randint(
+            -(1 << 62), 1 << 62, (2, n), dtype=torch.int64, device=b.device, generator=gen)
+    w = _DIGEST_WEIGHTS[str(b.device)]
+    acc = torch.zeros(2, dtype=torch.int64, device=b.device)
+    for i in range(0, b.numel(), n):
+        c = b[i:i + n].to(torch.int64)
+        acc = acc * 1000003 + (c[None] * w[:, :c.numel()]).sum(dim=1)
+    return (str(t.dtype), tuple(t.shape)) + tuple(int(v) for v in acc.tolist())
+
+
+def state_blocks(params, opt, ef=None) -> dict:
+    """{key: the block stack} of every ``Sharded`` leaf of a mesh state."""
+    from repro_torch.distributed.sharding import Sharded
+    from repro_torch.train import checkpoint as ckpt
+    trees = {"params": params, "master": opt.master, "mu": opt.mu, "nu": opt.nu}
+    if ef is not None:
+        trees["ef"] = ef
+    return {f"{f}/{k}": v.blocks for f, tree in trees.items()
+            for k, v in ckpt._flatten(tree).items() if isinstance(v, Sharded)}
+
+
+def rank_train_run(torch, mesh, dev, cfg, batches, tcfg, compressed: bool, hold: str,
+                   kernels=()) -> list:
+    """``make_train_step`` (or the compressed step) on ``mesh`` from the
+    model drawn from seed ``SEED``, one record a step: the loss and grad
+    norm (on the host), the step's ms (host clock ending in a sync) and
+    kernel 7's and 7ᵀ's launches, and every block of the state: as host
+    copies (``hold="blocks"``) or as ``digest``s (``hold="digest"``;
+    on the virtual mesh, each block of the stack)."""
+    from repro_torch.distributed.sharding import set_activation_mesh
+    from repro_torch.models.transformer import build_model
+    from repro_torch.train.train_loop import (
+        init_mesh_ef, init_mesh_state, make_compressed_train_step, make_train_step,
+    )
+    model = build_model(cfg, device=dev).init(seed=SEED)
+    params, opt = init_mesh_state(model, mesh)
+    ef = init_mesh_ef(model, mesh) if compressed else None
+    step = (make_compressed_train_step if compressed else make_train_step)(model, mesh, tcfg)
+    rows = []
+    for batch in batches:
+        _sync(torch, dev)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        if compressed:
+            params, opt, ef, met = step(params, opt, ef, batch)
+        else:
+            params, opt, met = step(params, opt, batch)
+        _sync(torch, dev)
+        rec = {"ms": (time.perf_counter() - t0) * 1e3, "loss": met["loss"].cpu(),
+               "grad_norm": met["grad_norm"].cpu(), "launches": [k.launches for k in kernels]}
+        blocks = state_blocks(params, opt, ef)
+        if hold == "blocks":
+            rec["blocks"] = {k: v.cpu() for k, v in blocks.items()}
+        else:
+            rec["digests"] = {k: [digest(torch, v[i]) for i in range(v.shape[0])]
+                              for k, v in blocks.items()}
+        rows.append(rec)
+    set_activation_mesh(None)
+    del model, params, opt, ef, step
+    _free(torch, dev)
+    return rows
+
+
+def _rank_launch_counts(kernels, tally):
+    def call(fn):
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        for k in kernels:
+            tally[k.__name__] += k.launches
+        return out
+    return call
+
+
+def rank25_graph_and_pod(rank: int, world: int, init: str, payload: dict) -> dict:
+    """One of phase 25's 8 gloo ranks: 25a on a (2, 4) ``RankMesh`` (its
+    parts alone), each Kernel-phase launch held to its plain version on
+    the rank's part, Load / Kernel / Retrieve+Merge ms by CUDA events; then
+    25c's compressed steps on (pod 2, data 2, model 2)."""
+    import torch
+
+    sys.path.insert(0, payload["src"])
+    from repro_torch.core.distributed import _fused_partials, build_phase_fns
+    from repro_torch.core.partition import device_part
+    from repro_torch.core.rank_mesh import init_rank_mesh
+    from repro_torch.core.spmspv import frontier_from_dense, spmspv_batch
+    from repro_torch.core.spmv import spmv_batch
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device(payload["device"])
+    t_rank = time.perf_counter()
+    mesh = init_rank_mesh(RANK_GRID, ("dr", "dc"), "gloo", device=dev, init_method=init,
+                          rank=rank, world_size=world)
+    kernels = rank_wrappers()
+    tally = {k.__name__: 0 for k in kernels}
+    call = _rank_launch_counts(kernels, tally)
+    errs: dict = {}
+    kernel_of = {("spmv", False): "semiring_spmv_padded",
+                 ("spmspv", False): "semiring_spmspv_padded",
+                 ("spmv", True): "semiring_spmv_fused_padded",
+                 ("spmspv", True): "semiring_spmspv_fused_padded"}
+
+    def held(name, y, y_plain, sr, what):
+        errs[name] = max(errs.get(name, 0.0), _held(torch, y, y_plain, sr, what))
+
+    def hold_matvec(pm, sr, strategy, xs, kernel, fused):
+        fns = build_phase_fns(mesh, pm, sr, strategy, kernel, fused=fused)
+        xf = fns["load"](pm.parts, xs) if fns["load"] is not None else xs
+        if fused and strategy != "row":
+            chunks = mesh.n_devices if strategy == "col" else mesh.grid[1]
+            ys = call(lambda: _fused_partials(pm.parts, xf, sr, kernel, chunks)[0])
+        else:
+            ys = call(lambda: fns["kernel"](pm.parts, xs, xf))
+        a, xg = device_part(pm.parts, 0), xf[0]
+        if kernel == "spmspv":
+            y_plain = ops.semiring_spmspv_ref(a, frontier_from_dense(xg, sr), sr)
+        elif fused:
+            y_plain = ref.spmv_fused_padded_ref(a.tiles, ops._spmv_fused_meta(a), xg, sr)
+        else:
+            y_plain = ops.semiring_spmv_ref(a, xg, sr)
+        name = kernel_of[(kernel, fused)]
+        held(name, ys[0].reshape(-1), y_plain, sr, f"phase 25a rank {rank} {sr.name}/"
+             f"{strategy} {name}")
+
+    def hold_batched(pm, sr, blk, kernel):
+        xfb = mesh.all_gather(to_2d(mesh, blk, pm.grid), "dr", dim=2)
+        body = spmv_batch if kernel == "spmv" else spmspv_batch
+        a = device_part(pm.parts, 0)
+        y = call(lambda: body(a, xfb[0], sr))
+        held(f"semiring_{kernel}_padded_batch", y, body(a, xfb[0], sr, impl="ref"), sr,
+             f"phase 25a rank {rank} batched {kernel}")
+
+    def hold_spgemm(pm, sr, bs):
+        from repro_torch.core.spgemm import spgemm_masked
+        bf = mesh.all_gather(to_2d(mesh, bs, pm.grid), "dr")
+        a = device_part(pm.parts, 0)
+        n6b = tally["semiring_spgemm_binary"]
+        y = call(lambda: spgemm_masked(a, bf[0], sr))
+        bp, mk, meta, bn, ncol = ops._spgemm_operands(a, bf[0], sr, None)
+        if tally["semiring_spgemm_binary"] > n6b:
+            name, y_plain = "semiring_spgemm_binary", ref.spgemm_binary_ref(
+                a.tiles, meta, bp, mk, sr, bn)
+        else:
+            name, y_plain = "semiring_spgemm_padded", ref.spgemm_padded_ref(
+                a.tiles, meta, bp, mk, sr, bn)
+        held(name, y, y_plain[:, :ncol], sr, f"phase 25a rank {rank} spgemm {sr.name}")
+
+    splits = []
+
+    def timing(pm, sr, strategy, xs):
+        fns = build_phase_fns(mesh, pm, sr, strategy, "spmv")
+        load, kernel, rm = fns["load"], fns["kernel"], fns["retrieve_merge"]
+        xf = load(pm.parts, xs) if load is not None else xs
+        ys = kernel(pm.parts, xs, xf)
+        splits.append({"strategy": strategy,
+                       "load_ms": _event_ms(torch, dev, lambda: load(pm.parts, xs))
+                       if load is not None else 0.0,
+                       "kernel_ms": _event_ms(torch, dev, lambda: kernel(pm.parts, xs, xf)),
+                       "retrieve_merge_ms": _event_ms(torch, dev, lambda: rm(pm.parts, ys))
+                       if rm is not None else 0.0,
+                       "e2e_ms": _event_ms(torch, dev, lambda: fns["e2e"](pm.parts, xs))})
+
+    from repro_torch.core.distributed import to_2d_layout as to_2d
+    _peak(torch, dev, reset=True)
+    t0 = time.perf_counter()
+    wire0 = dict(mesh.wire_bytes)
+    outs = rank_graph_calls(torch, mesh, dev, payload["graph"], call,
+                            {"matvec": hold_matvec, "batched": hold_batched,
+                             "spgemm": hold_spgemm}, timing)
+    graph = {"outs": outs, "tally": tally, "errs": errs, "splits": splits,
+             "seconds": time.perf_counter() - t0, "peak_bytes": _peak(torch, dev),
+             "wire_bytes": {k: v - wire0.get(k, 0) for k, v in mesh.wire_bytes.items()},
+             "calls": dict(mesh.calls)}
+    del outs
+    _free(torch, dev)
+    # 25c: the compressed step on (pod 2, data 2, model 2)
+    pod = init_rank_mesh(RANK_POD_SHAPE, ("pod", "data", "model"), "gloo", device=dev)
+    _peak(torch, dev, reset=True)
+    t0 = time.perf_counter()
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in payload["pod_batches"]]
+    steps = rank_train_run(torch, pod, dev, payload["pod_cfg"], batches, payload["pod_tcfg"],
+                           True, "blocks", kernels[7:8] + kernels[10:11])
+    pod_run = {"steps": steps, "seconds": time.perf_counter() - t0,
+               "peak_bytes": _peak(torch, dev), "wire_bytes": dict(pod.wire_bytes),
+               "calls": dict(pod.calls)}
+    return {"graph": graph, "pod": pod_run, "seconds": time.perf_counter() - t_rank}
+
+
+def rank25_train(rank: int, world: int, init: str, payload: dict) -> dict:
+    """One of phase 25b's 4 gloo ranks: ``make_train_step`` on (data 2,
+    model 2) at full width, every block's digest after every step."""
+    import torch
+
+    sys.path.insert(0, payload["src"])
+    from repro_torch.launch.mesh import rank_mesh
+
+    dev = torch.device(payload["device"])
+    t0 = time.perf_counter()
+    mesh = rank_mesh(*RANK_TRAIN_SHAPE, backend="gloo", device=dev, init_method=init,
+                     rank=rank, world_size=world)
+    kernels = rank_wrappers()
+    _peak(torch, dev, reset=True)
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in payload["batches"]]
+    steps = rank_train_run(torch, mesh, dev, payload["cfg"], batches, payload["tcfg"], False,
+                           "digest", kernels[7:8] + kernels[10:11])
+    return {"steps": steps, "peak_bytes": _peak(torch, dev), "wire_bytes": dict(mesh.wire_bytes),
+            "calls": dict(mesh.calls), "seconds": time.perf_counter() - t0}
+
+
+def rank25_nccl(rank: int, world: int, init: str, payload: dict) -> dict:
+    """Phase 25d: one NCCL rank (world 1, the calling process) on the
+    card: 25a's row strategy (⟨+,×⟩ spmv on cit-HP) and one train step of
+    25c's config on 1×1 meshes, the collectives NCCL's."""
+    import importlib
+
+    import torch
+
+    sys.path.insert(0, payload["src"])
+    from repro_torch.core.distributed import make_distributed_matvec
+    from repro_torch.core.rank_mesh import init_rank_mesh
+    from repro_torch.core.semiring import PLUS_TIMES
+
+    part = importlib.import_module("repro_torch.core.partition")
+    dev = torch.device(payload["device"])
+    mesh = init_rank_mesh((1, 1), ("dr", "dc"), "nccl", device=dev, init_method=init,
+                          rank=rank, world_size=world)
+    g, inp = payload["graph"]["cit"], payload["graph"]["plus_times"]
+    pm = part.partition(g["cols"], g["rows"], inp["vals"], (g["n"], g["n"]), (1, 1), "bsr",
+                        PLUS_TIMES, block=(128, 128), device=dev, part=0)
+    xs = mesh.local(part.shard_tensor(pm.plan, torch.from_numpy(inp["x"]).to(dev), 0.0))
+    y = make_distributed_matvec(mesh, pm, PLUS_TIMES, "row")(pm.parts, xs).cpu()
+    del pm
+    lm = init_rank_mesh((1, 1), ("data", "model"), "nccl", device=dev)
+    batches = [{k: v.to(dev) for k, v in payload["pod_batches"][0].items()}]
+    steps = rank_train_run(torch, lm, dev, payload["pod_cfg"], batches, payload["pod_tcfg"],
+                           False, "blocks")
+    return {"row": y, "steps": steps, "backend": mesh.backend,
+            "calls": {"graph": dict(mesh.calls), "train": dict(lm.calls)}}
+
+
+def rank_phases(torch, dev, cit, caq) -> dict:
+    """Phase 25: the mesh on a process group, one rank per device. The
+    card's machine has one H100, so the ranks time-share it over gloo,
+    each collective staged through pinned host buffers; their walls are
+    not a multi-card result. (a) 8 ranks on phase 16's (2, 4) mesh and
+    partitions of cit-HP: every call of ``rank_graph_calls`` on every rank
+    ``torch.equal`` to block ``rank`` of the virtual mesh's, each rank's
+    Kernel-phase launches held to their plain versions on its part, the
+    phase split by CUDA events beside the virtual mesh's. (b) 4 ranks,
+    ``make_train_step`` on (data 2, model 2), DeepSeek-V2-Lite at full
+    width, 2 layers, bf16, 3 steps: each rank's loss and grad norm equal
+    and every block's digest equal to the virtual mesh's block ``rank``.
+    (c) The compressed step on (pod 2, data 2, model 2) at phase 21d's
+    scaled config on the 8 ranks of (a): blocks and per-pod error
+    feedback ``torch.equal``. (d) One NCCL rank (world 1): (a)'s row
+    strategy and one train step on 1×1 meshes, equal to the virtual
+    mesh's. Returns the ranks' kernel launches, by kernel."""
+    import numpy as np
+
+    from repro_torch.core.distributed import build_phase_fns
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.graphs.engine import edge_values
+    from repro_torch.launch.mesh import small_mesh
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models.zoo import count_params, get_config
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import TrainConfig
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 25)
+    src = str(Path(__file__).resolve().parent / "src")
+    where = "cuda:0" if dev.type == "cuda" else "cpu"
+    kernels = rank_wrappers()
+    launches = {k.__name__: 0 for k in kernels}
+    print("phase 25: the ranks time-share one card, each collective staged through pinned "
+          "host buffers over gloo (NCCL refuses two ranks on one GPU): their walls are not a "
+          "multi-card result")
+
+    def edges(g):
+        return {"rows": g.rows.astype(np.int64), "cols": g.cols.astype(np.int64), "n": g.n}
+
+    def sparse(v, fill, density=0.05):
+        return np.where(rng.random(v.shape) < density, v, fill).astype(v.dtype)
+
+    n = cit.n
+    graph = {"cit": edges(cit), "pipe_iters": RANK_PIPE_ITERS}
+    for name in ("plus_times", "min_plus", "bool_or_and"):
+        sr = SEMIRINGS[name]
+        x = (rng.integers(0, 2, n).astype(np.int32) if sr.dtype == torch.int32
+             else rng.integers(0, 9, n).astype(np.float32))
+        fill = 0 if sr.dtype == torch.int32 else float(sr.zero)
+        graph[name] = {"vals": edge_values(cit, sr, weighted=name != "bool_or_and", seed=5),
+                       "x": x, "x_sp": sparse(x, fill)}
+    xb = rng.uniform(0.5, 4.0, (RANK_B, n)).astype(np.float32)
+    graph["plus_times"].update(xb=xb, xb_sp=sparse(xb, 0.0))
+    n_pad = -(-n // (128 * 8)) * (128 * 8)
+    x0 = np.full(n_pad, np.inf, np.float32)
+    x0[rng.choice(n, 64, replace=False)] = 0.0
+    graph["min_plus"]["x0"] = x0
+    graph["caq"] = edges(caq)
+    for name in ("plus_and", "plus_times"):
+        sr = SEMIRINGS[name]
+        dt = np.int32 if sr.dtype == torch.int32 else np.float32
+        graph["caq"][f"vals/{name}"] = np.ones(caq.nnz, dt)
+        graph["caq"][f"b/{name}"] = ((rng.random((caq.n, RANK_SPGEMM_COLS)) < 0.3).astype(dt)
+                                     if name == "plus_and" else
+                                     rng.integers(0, 4, (caq.n, RANK_SPGEMM_COLS)).astype(dt))
+        graph["caq"][f"mask/{name}"] = (rng.random((caq.n, RANK_SPGEMM_COLS)) < 0.4).astype(dt)
+
+    # the virtual mesh's results and phase split
+    t0 = time.perf_counter()
+    vm = Mesh(RANK_GRID, device=dev)
+    v_splits = []
+
+    def v_timing(pm, sr, strategy, xs):
+        fns = build_phase_fns(vm, pm, sr, strategy, "spmv")
+        load, kernel, rm = fns["load"], fns["kernel"], fns["retrieve_merge"]
+        xf = load(pm.parts, xs) if load is not None else xs
+        ys = kernel(pm.parts, xs, xf)
+        v_splits.append({"strategy": strategy,
+                         "load_ms": _event_ms(torch, dev, lambda: load(pm.parts, xs))
+                         if load is not None else 0.0,
+                         "kernel_ms": _event_ms(torch, dev, lambda: kernel(pm.parts, xs, xf)),
+                         "retrieve_merge_ms": _event_ms(torch, dev, lambda: rm(pm.parts, ys))
+                         if rm is not None else 0.0,
+                         "e2e_ms": _event_ms(torch, dev, lambda: fns["e2e"](pm.parts, xs))})
+
+    want = rank_graph_calls(torch, vm, dev, graph, timing=v_timing)
+    v_partition_s = want.pop("partition_s")
+    virtual_s = time.perf_counter() - t0
+    full = get_config("deepseek-v2-lite-16b")
+    pod_cfg = scaled_config(full, 0.05)
+    pod_cfg = dataclasses.replace(pod_cfg, moe=dataclasses.replace(pod_cfg.moe, top_k=2))
+    pod_tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+                           microbatches=1, remat=True, grad_compress_pod=True)
+    pod_src = SyntheticLM(DataConfig(global_batch=8, seq_len=128, vocab=pod_cfg.vocab, seed=SEED))
+    pod_batches = [{k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in pod_src.batch(i, 0, 1).items()} for i in range(RANK_POD_STEPS)]
+    on_dev = [{k: v.to(dev) for k, v in b.items()} for b in pod_batches]
+    v_pod = rank_train_run(torch, small_mesh(*RANK_POD_SHAPE[1:], pod=RANK_POD_SHAPE[0],
+                                             device=dev),
+                           dev, pod_cfg, on_dev, pod_tcfg, True, "blocks")
+    payload = {"src": src, "device": where, "graph": graph, "pod_cfg": pod_cfg,
+               "pod_tcfg": pod_tcfg, "pod_batches": pod_batches}
+
+    # ---------------------------------------------------------------- 25a, 25c
+    t0 = time.perf_counter()
+    ranks = run_ranks(rank25_graph_and_pod, RANK_GRID[0] * RANK_GRID[1], payload, timeout=600)
+    spawn_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        got = res["graph"]["outs"]
+        partition_s = got.pop("partition_s")
+        check(got.keys() == want.keys(), f"phase 25a rank {r}: calls {set(want) ^ set(got)}")
+        for key, w in want.items():
+            check(torch.equal(got[key], w[r:r + 1]),
+                  f"phase 25a rank {r} {key}: not block {r} of the virtual mesh's result")
+        for k, v in res["graph"]["tally"].items():
+            launches[k] += v
+        for k in ("semiring_spmv_padded", "semiring_spmspv_padded", "semiring_spmv_fused_padded",
+                  "semiring_spmspv_fused_padded", "semiring_spmv_padded_batch",
+                  "semiring_spmspv_padded_batch", "semiring_spgemm_padded",
+                  "semiring_spgemm_binary"):
+            check(res["graph"]["tally"][k] > 0, f"phase 25a rank {r}: {k} was not launched")
+            check(k in res["graph"]["errs"], f"phase 25a rank {r}: {k} was not held to its "
+                  "plain version on the rank's part")
+        print(json.dumps({"phase": "25a", "rank": r, "splits": res["graph"]["splits"],
+                          "wire_bytes": res["graph"]["wire_bytes"],
+                          "collectives": res["graph"]["calls"],
+                          "peak_bytes": res["graph"]["peak_bytes"],
+                          "seconds": res["graph"]["seconds"], "partition_s": partition_s,
+                          "rank_seconds": res["seconds"],
+                          "max_abs_err_vs_plain": res["graph"]["errs"]}))
+        for i, (s, w) in enumerate(zip(res["pod"]["steps"], v_pod)):
+            check(torch.equal(s["loss"], w["loss"]) and torch.equal(s["grad_norm"],
+                                                                    w["grad_norm"]),
+                  f"phase 25c rank {r} step {i + 1}: loss or grad norm differs")
+            check(s["blocks"].keys() == w["blocks"].keys(), f"phase 25c rank {r}: leaves differ")
+            for k, v in w["blocks"].items():
+                check(torch.equal(s["blocks"][k], v[r:r + 1]),
+                      f"phase 25c rank {r} step {i + 1} {k}: not the virtual mesh's block")
+            check(all(x > 0 for x in s["launches"]),
+                  f"phase 25c rank {r} step {i + 1}: kernels 7 and 7ᵀ launched {s['launches']}")
+            launches["moe_dispatch_gather"] += s["launches"][0]
+            launches["moe_dispatch_gather_backward"] += s["launches"][1]
+    print(json.dumps({"phase": "25a", "virtual": True, "splits": v_splits,
+                      "virtual_seconds": virtual_s, "partition_s": v_partition_s}))
+    print(json.dumps({"phase": "25c", "config": "scaled_config(deepseek-v2-lite-16b, 0.05), "
+                      "top-2", "params": count_params(pod_cfg), "mesh": list(RANK_POD_SHAPE),
+                      "step_ms": [[s["ms"] for s in res["pod"]["steps"]] for res in ranks],
+                      "virtual_step_ms": [s["ms"] for s in v_pod],
+                      "loss": [float(s["loss"]) for s in v_pod],
+                      "wire_bytes_rank0": ranks[0]["pod"]["wire_bytes"],
+                      "peak_bytes": [res["pod"]["peak_bytes"] for res in ranks]}))
+    print(f"phase 25a: {len(want)} calls on 8 gloo ranks ((2, 4), cit-HP and ca-Q) equal the "
+          f"virtual mesh's blocks bit for bit; every rank's Kernel-phase launches equal their "
+          f"plain versions; ranks started and run in {spawn_s:.1f} s")
+    print(f"phase 25c: the compressed step on {RANK_POD_SHAPE} over 8 ranks equals the virtual "
+          f"mesh for {RANK_POD_STEPS} steps: every block and each pod's error feedback")
+    del ranks, want, v_pod
+    _free(torch, dev)
+
+    # ---------------------------------------------------------------- 25b
+    cfg = dataclasses.replace(full, n_layers=2)
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS),
+                       microbatches=RANK_TRAIN_MICRO, remat=True)
+    t_src = SyntheticLM(DataConfig(global_batch=RANK_TRAIN_ROWS, seq_len=TRAIN_SEQ,
+                                   vocab=cfg.vocab, seed=SEED))
+    batches = [{k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in t_src.batch(i, 0, 1).items()} for i in range(RANK_TRAIN_STEPS)]
+    _peak(torch, dev, reset=True)
+    t0 = time.perf_counter()
+    v_train = rank_train_run(torch, small_mesh(*RANK_TRAIN_SHAPE, device=dev), dev, cfg,
+                             [{k: v.to(dev) for k, v in b.items()} for b in batches], tcfg,
+                             False, "digest", kernels[7:8] + kernels[10:11])
+    v_peak, v_s = _peak(torch, dev), time.perf_counter() - t0
+    _free(torch, dev)
+    t0 = time.perf_counter()
+    tranks = run_ranks(rank25_train, RANK_TRAIN_SHAPE[0] * RANK_TRAIN_SHAPE[1],
+                       {"src": src, "device": where, "cfg": cfg, "tcfg": tcfg,
+                        "batches": batches}, timeout=600)
+    train_s = time.perf_counter() - t0
+    for r, res in enumerate(tranks):
+        for i, (s, w) in enumerate(zip(res["steps"], v_train)):
+            check(torch.equal(s["loss"], w["loss"]) and torch.equal(s["grad_norm"],
+                                                                    w["grad_norm"]),
+                  f"phase 25b rank {r} step {i + 1}: loss or grad norm differs")
+            check(s["digests"].keys() == w["digests"].keys(), f"phase 25b rank {r}: leaves")
+            for k, v in w["digests"].items():
+                check(s["digests"][k] == [v[r]],
+                      f"phase 25b rank {r} step {i + 1} {k}: not the virtual mesh's block")
+            # the virtual mesh runs the rows of both data positions, a rank its own
+            check([RANK_TRAIN_SHAPE[0] * x for x in s["launches"]] == w["launches"]
+                  and all(x > 0 for x in s["launches"]),
+                  f"phase 25b rank {r} step {i + 1}: kernels 7 and 7ᵀ launched "
+                  f"{s['launches']}, the virtual mesh {w['launches']} for {RANK_TRAIN_SHAPE[0]} "
+                  "data positions")
+            launches["moe_dispatch_gather"] += s["launches"][0]
+            launches["moe_dispatch_gather_backward"] += s["launches"][1]
+        print(json.dumps({"phase": "25b", "rank": r, "step_ms": [s["ms"] for s in res["steps"]],
+                          "wire_bytes": res["wire_bytes"], "collectives": res["calls"],
+                          "peak_bytes": res["peak_bytes"], "seconds": res["seconds"]}))
+    leaves = len(v_train[0]["digests"])
+    print(json.dumps({"phase": "25b", "virtual": True, "arch": cfg.arch_id, "layers": 2,
+                      "params": count_params(cfg), "mesh": list(RANK_TRAIN_SHAPE),
+                      "tokens_per_step": RANK_TRAIN_ROWS * TRAIN_SEQ,
+                      "microbatches": RANK_TRAIN_MICRO,
+                      "step_ms": [s["ms"] for s in v_train], "peak_bytes": v_peak,
+                      "seconds": v_s, "loss": [float(s["loss"]) for s in v_train],
+                      "grad_norm": [float(s["grad_norm"]) for s in v_train]}))
+    print(f"phase 25b: {cfg.arch_id} at full width, 2 layers, on {RANK_TRAIN_SHAPE} over 4 gloo "
+          f"ranks: {RANK_TRAIN_STEPS} steps, each rank's loss and grad norm equal and all "
+          f"{leaves} block digests equal to the virtual mesh's block rank, ranks started and run "
+          f"in {train_s:.1f} s")
+    del tranks, v_train
+    _free(torch, dev)
+
+    # ---------------------------------------------------------------- 25d
+    from repro_torch.core.distributed import make_distributed_matvec
+    import importlib
+    part = importlib.import_module("repro_torch.core.partition")
+    sr, inp = SEMIRINGS["plus_times"], graph["plus_times"]
+    pm = part.partition(graph["cit"]["cols"], graph["cit"]["rows"], inp["vals"], (n, n), (1, 1),
+                        "bsr", sr, block=(128, 128), device=dev)
+    xs = part.shard_tensor(pm.plan, torch.from_numpy(inp["x"]).to(dev), 0.0)
+    y1 = make_distributed_matvec(Mesh((1, 1), device=dev), pm, sr, "row")(pm.parts, xs).cpu()
+    del pm, xs
+    v_one = rank_train_run(torch, small_mesh(1, 1, device=dev), dev, pod_cfg, on_dev[:1],
+                           dataclasses.replace(pod_tcfg, grad_compress_pod=False), False,
+                           "blocks")
+    t0 = time.perf_counter()
+    # world 1: this process is the rank (its process group is destroyed after)
+    import os
+    import tempfile
+
+    import torch.distributed as tdist
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            nccl = rank25_nccl(0, 1, "file://" + os.path.join(tmp, "rendezvous"),
+                               {"src": src, "device": where, "graph": graph, "pod_cfg": pod_cfg,
+                                "pod_tcfg": dataclasses.replace(pod_tcfg,
+                                                                grad_compress_pod=False),
+                                "pod_batches": pod_batches})
+        finally:
+            if tdist.is_initialized():
+                tdist.destroy_process_group()
+    nccl_s = time.perf_counter() - t0
+    check(nccl["backend"] == "nccl", f"phase 25d: the process group is {nccl['backend']}")
+    check(torch.equal(nccl["row"], y1), "phase 25d: the NCCL rank's row spmv is not the "
+          "virtual mesh's")
+    s, w = nccl["steps"][0], v_one[0]
+    check(torch.equal(s["loss"], w["loss"]) and torch.equal(s["grad_norm"], w["grad_norm"])
+          and all(torch.equal(s["blocks"][k], v) for k, v in w["blocks"].items()),
+          "phase 25d: the NCCL rank's train step is not the virtual mesh's")
+    check(nccl["calls"]["graph"].get("all_gather", 0) > 0
+          and nccl["calls"]["train"].get("gather_full", 0) > 0,
+          f"phase 25d: NCCL issued no collective: {nccl['calls']}")
+    print(json.dumps({"phase": "25d", "backend": "nccl", "world": 1,
+                      "collectives": nccl["calls"], "seconds": nccl_s}))
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 25d: one NCCL rank's row spmv and train step equal one virtual device's; "
+          f"phase 25: {seconds:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4065,6 +4808,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    # phase 25's ranks fork from a server that imports torch meanwhile
+    from repro_torch.launch.ranks import start_rank_server
+    start_rank_server()
     _build.build_all()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
     # per source: kernels compiled, the most registers any uses, and the
@@ -4955,6 +5701,11 @@ def main() -> int:
     print(f"phase 24: {time.perf_counter() - t0:.1f} s")
     mark("24b")
     mesh_dryrun_phase(torch, mesh_rows["bytes_23a"])
+
+    # ---------------------------------------------------------------- 25
+    mark("25")
+    for name, count in rank_phases(torch, dev, cit, caq).items():
+        launches[name] = launches.get(name, 0) + count
     mark("done")
 
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",

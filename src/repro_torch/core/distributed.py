@@ -24,11 +24,16 @@ Every sharded tensor carries a leading device axis: x and y are
 ``[D, n_per]`` in the plan's canonical layouts (input chunk ``g = c*R +
 r`` holds piece *r* of column band *c*; output chunk ``g = r*C + c`` holds
 piece *c* of row band *r*), shard and unshard them with the plan
-(``core/partition.py``). A collective is one indexing copy over the device
-axis; the Load's gathered input is a real copy, with a device time of its
-own. The Kernel phase runs the local body once per virtual device on its
-slice of the stacked partition, contiguous views, so one Kernel phase is
-D kernel launches on one stream, in device order. No matvec phase reads
+(``core/partition.py``). On a ``core/rank_mesh.py`` mesh every rank holds
+its own block, [1, ...], of x, y and the partition (``partition(...,
+part=rank)``): the Kernel phase loops over the blocks the mesh holds,
+never over the plan's device count. On either mesh the 2d layout move is
+a ``ppermute`` (``to_2d_layout``). On the virtual mesh a collective is
+one indexing copy over the device axis; the Load's gathered input is a
+real copy, with a device time of its own. The Kernel phase runs the
+local body once per virtual device on its slice of the stacked
+partition, contiguous views, so one Kernel phase is D kernel launches on
+one stream, in device order. No matvec phase reads
 from the card: the front doors build their metadata on the device, and the
 mesh keeps its index tables there. The SpGEMM path does read: the front
 door's 0/1 test (``kernels/ops.py``) and the wrappers' ``torch.nonzero``
@@ -213,7 +218,7 @@ def _phases(mesh: Mesh, pm: PartitionedMatrix, sr: Semiring, strategy: str, kern
         # 2d: with the 2d input layout (device (r, c) holds chunk c*R + r),
         # the gather over axis_r assembles column band c on every grid row.
         load = None if strategy == "col" else (
-            lambda parts, xs: mesh.all_gather(vec_to_2d_layout(xs, pm.grid), ar))
+            lambda parts, xs: mesh.all_gather(to_2d_layout(mesh, xs, pm.grid, axis_names), ar))
         axis, mp = ar, (col_mp if strategy == "col" else col2d_mp)
     retrieve_merge = None if mp is None else (
         lambda parts, ys: merge_collective(mesh, ys, sr, mp))
@@ -221,12 +226,12 @@ def _phases(mesh: Mesh, pm: PartitionedMatrix, sr: Semiring, strategy: str, kern
     if f_local is not None and kernel == "spmspv" and strategy != "col":
         # the compressed Load: each device's frontier crosses the fabric
         def c_load(parts, xs):
-            x = xs if strategy == "row" else vec_to_2d_layout(xs, pm.grid)
+            x = xs if strategy == "row" else to_2d_layout(mesh, xs, pm.grid, axis_names)
             return gather_frontier(mesh, x, sr, f_local, axis)
 
         def c_kernel(parts, xs, f):
             return torch.stack([_spmspv(device_part(parts, g), frontier_of(f, g), sr,
-                                        impl=loc_impl) for g in range(pm.n_devices)])
+                                        impl=loc_impl) for g in range(f.indices.shape[0])])
         return {"load": c_load, "kernel": c_kernel, "retrieve_merge": retrieve_merge}
     if fused and mp is not None:
         # the fused kernels write chunk-major partials that the Merge folds
@@ -334,7 +339,8 @@ def make_distributed_batched_matvec(
         return lambda parts, x: merge_collective(mesh, compute(parts, x), sr, col_mp, axis=1)
 
     def fn(parts, x):
-        y_partial = compute(parts, mesh.all_gather(vec_to_2d_layout(x, pm.grid), ar, dim=2))
+        y_partial = compute(parts, mesh.all_gather(to_2d_layout(mesh, x, pm.grid, axis_names),
+                                                   ar, dim=2))
         return merge_collective(mesh, y_partial, sr, col2d_mp, axis=1)
     return fn
 
@@ -380,7 +386,7 @@ def make_distributed_spgemm(
         elif strategy == "col":
             c = merge_collective(mesh, compute(parts, b), sr, col_mp)
         else:
-            b2 = vec_to_2d_layout(b, pm.grid)
+            b2 = to_2d_layout(mesh, b, pm.grid, axis_names)
             c = merge_collective(mesh, compute(parts, mesh.all_gather(b2, ar)), sr, col2d_mp)
         if mask is None:
             return c
@@ -493,3 +499,12 @@ def vec_to_2d_layout(x: Tensor, grid) -> Tensor:
     the paper's inter-iteration vector reload through the host CPU."""
     r_parts, c_parts = grid
     return x.reshape(c_parts, r_parts, *x.shape[1:]).transpose(0, 1).reshape(x.shape)
+
+
+def to_2d_layout(mesh: Mesh, x: Tensor, grid, axis_names: Sequence[str] = ("dr", "dc")) -> Tensor:
+    """``vec_to_2d_layout`` on ``mesh``'s blocks: a ``ppermute`` over the
+    flat axis, device c*R + r sending its chunk to device r*C + c (on the
+    virtual mesh one permuting copy, across ranks a send and a receive)."""
+    r_parts, c_parts = grid
+    perm = [(c * r_parts + r, r * c_parts + c) for r in range(r_parts) for c in range(c_parts)]
+    return mesh.ppermute(x, tuple(axis_names), perm)

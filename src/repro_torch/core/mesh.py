@@ -33,8 +33,10 @@ No primitive reduces over the device axis. A ⊕ across devices is the
 caller's, with ``sr.add`` in an order it states (``core/collectives.py``
 folds in position order, left to right): ``torch.sum`` or ``amin`` over
 the axis would leave the order to CUDA, and a float ⊕ would then not give
-the same bits on every call. A process-group mesh (one rank per card) can
-implement the same primitives.
+the same bits on every call. ``core/rank_mesh.py``'s ``RankMesh`` is the
+same mesh over a process group, one rank per device: each rank holds its
+own block, ``[1, ...]``, and every primitive is a collective that gives
+it block ``rank`` of this mesh's result.
 """
 from __future__ import annotations
 
@@ -201,7 +203,54 @@ class Mesh:
         """Per-device ``dynamic_index_in_dim``: out[g] = x[g, idx[g]] for
         x [D, S, ...] and idx [D]."""
         self._check(x)
-        return x[torch.arange(self.n_devices, device=x.device), idx]
+        return x[torch.arange(x.shape[0], device=x.device), idx]
+
+    def positions(self, axis: Axis) -> list:
+        """The positions along ``axis`` that this mesh holds blocks of: all
+        of them (a rank of ``RankMesh`` holds its own). No axis, ``()``, is
+        one position."""
+        return list(range(self.axis_size(axis) if axis else 1))
+
+    def split_rows(self, x: Tensor, axis: Axis) -> list:
+        """The rows of a batch tensor ``x`` [B, ...] that each position
+        along ``axis`` this mesh holds owns, in position order: B/S
+        contiguous rows a position, S the axis size (views)."""
+        n = self.axis_size(axis) if axis else 1
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not split over {axis!r} ({n} ways)")
+        r = x.shape[0] // n
+        return [x[q * r:(q + 1) * r] for q in self.positions(axis)]
+
+    def gather_positions(self, values: Sequence[Tensor], axis: Axis) -> list:
+        """Every position's value along ``axis``, in position order, from
+        the values of the positions this mesh holds (``positions``): here
+        all of them already; across ranks an all-gather."""
+        n = self.axis_size(axis) if axis else 1
+        if len(values) != n:
+            raise ValueError(f"expected {n} values along {axis!r}, got {len(values)}")
+        return list(values)
+
+    def fold_scatter(self, fulls: Sequence[Tensor], entries, over: Axis) -> Tensor:
+        """[D, *block] f32: each device's block (``scatter_full`` by
+        ``entries``) of the ⊕ of one full tensor a position along ``over``
+        (``fulls``, of the positions this mesh holds, in order), folded
+        left to right in position order with ``+`` in f32. It is the
+        gradient's reduce-scatter over the axes of ``over`` that
+        ``entries`` names and all-reduce over the others, with no sum on
+        the wire: each device folds the blocks it receives."""
+        n = self.axis_size(over) if over else 1
+        if len(fulls) != n:
+            raise ValueError(f"expected {n} tensors along {over!r}, got {len(fulls)}")
+        total = self.scatter_full(fulls[0], entries).float()
+        for f in fulls[1:]:
+            total = total + self.scatter_full(f, entries)
+        return total
+
+    def local(self, x: Tensor) -> Tensor:
+        """The blocks of a [D, ...] stack of every device's that this mesh
+        holds: all of them (a rank of ``RankMesh`` holds its own)."""
+        self._check(x)
+        return x
 
     def grid_view(self, x: Tensor) -> Tensor:
         """[D, ...] as [*grid, ...] (same memory)."""

@@ -539,18 +539,28 @@ def _stack(built: list, **static):
 
 
 def _stacked_bsr(per_tile, local_shape: Tuple[int, int], sr: Semiring,
-                 block: Tuple[int, int], device) -> PaddedBSR:
+                 block: Tuple[int, int], device, keep=None) -> PaddedBSR:
     """The parts as ``formats.build_bsr_padded`` builds each at the
     largest slot count any part needs, stacked: every part's stored
     elements are computed first (``formats._densify_tiles``, the tiles
     themselves never on the host), then written into one ⊕-identity
-    payload [D, mb, slots, bm, bn]."""
+    payload [D, mb, slots, bm, bn]. With ``keep`` (a part's index) only
+    that part's payload is made, [1, mb, slots, bm, bn], at the slot count
+    of the whole stack (the other parts' tiles are counted, not
+    densified)."""
     bm, bn = block
     m, n = local_shape
     mb, nb = -(-m // bm), -(-n // bn)
-    ents = [formats._densify_tiles(r, c, v, local_shape, sr, block) for r, c, v in per_tile]
+
+    def count(r, c):                     # stored tiles per block row
+        return np.bincount(np.unique((r // bm) * nb + c // bn) // nb, minlength=mb)
+
+    kept = per_tile if keep is None else [per_tile[keep]]
+    ents = [formats._densify_tiles(r, c, v, local_shape, sr, block) for r, c, v in kept]
     counts = [np.bincount(e.keys // nb, minlength=mb) for e in ents]
-    slots = max(max(1, int(c.max()) if c.size else 1) for c in counts)
+    slots = max(max(1, int(c.max()) if c.size else 1)
+                for c in (counts if keep is None else
+                          [count(r.astype(np.int64), c.astype(np.int64)) for r, c, _ in per_tile]))
     d = len(ents)
     tile_cols = np.zeros((d, mb, slots), dtype=np.int32)
     tiles = torch.full((d, mb, slots, bm, bn), formats._background(sr), dtype=sr.dtype,
@@ -571,12 +581,18 @@ def partition(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
               shape: Tuple[int, int], grid: Tuple[int, int], fmt: str,
               sr: Semiring, block: Tuple[int, int] = (128, 128),
               balance: str = "rows",
-              plan: PartitionPlan | None = None, device=None) -> PartitionedMatrix:
+              plan: PartitionPlan | None = None, device=None,
+              part: int | None = None) -> PartitionedMatrix:
     """Partition + convert each tile to ``fmt`` with uniform padded sizes,
     stacked on ``device`` (the card unless named).
 
     ``balance`` picks the plan's cut mode (see module docstring); passing a
     prebuilt ``plan`` (e.g. the cost-model planner's choice) overrides it.
+
+    ``part`` (a flat device id) keeps that device's part alone, stacked as
+    ``[1, ...]``: one rank's part on a ``RankMesh``. Its padded sizes are
+    the whole stack's (the other parts are sized on the host, never made
+    on the device), and the plan, grid and shapes stay global.
     """
     device = resolve_device(device)
     rows = np.asarray(rows, dtype=np.int64)
@@ -590,19 +606,24 @@ def partition(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     nnz_max = max(1, max(r.shape[0] for r, _, _ in per_tile))
     nnz_max = ((nnz_max + 7) // 8) * 8
 
+    if part is not None and not 0 <= part < len(per_tile):
+        raise ValueError(f"part {part} of a {len(per_tile)}-device partition")
     if fmt == "bsr":
-        stacked = _stacked_bsr(per_tile, local_shape, sr, block, device)
+        stacked = _stacked_bsr(per_tile, local_shape, sr, block, device, keep=part)
         local_shape = stacked.shape                    # padded up to block multiple
         plan = dataclasses.replace(plan, local_shape=local_shape)
     elif fmt in ("coo", "csr", "csc"):
         build = {"coo": formats.build_coo, "csr": formats.build_csr,
                  "csc": formats.build_csc}[fmt]
-        built = [build(r, c, v, local_shape, sr, nnz_max, device) for r, c, v in per_tile]
+        # with ``part``, the other parts are built on the host for their sizes
+        built = [build(r, c, v, local_shape, sr, nnz_max,
+                       device if part is None or g == part else "cpu")
+                 for g, (r, c, v) in enumerate(per_tile)]
         static = {}
         if fmt == "csc":
             # one max_col_nnz for every part, as the JAX package's shard_map needs
             static["max_col_nnz"] = max(b.max_col_nnz for b in built)
-        stacked = _stack(built, **static)
+        stacked = _stack(built if part is None else [built[part]], **static)
     else:
         raise ValueError(fmt)
     r_parts, c_parts = grid

@@ -16,6 +16,10 @@ holds copies) and gathers the stack back, through the mesh's
 ``scatter_full`` and ``gather_full``. ``Sharded`` is a tensor held that
 way; ``shard_state`` and ``unshard_state`` move a whole parameter and
 optimizer tree (``convert.py``'s JAX-layout trees) onto the mesh and back.
+On ``core/rank_mesh.py``'s ``RankMesh`` the stack is the rank's own
+block, ``[1, *block]``, cut from the full tensor before it moves to the
+rank's device; the gather is an all-gather across the ranks, and
+``primary_devices`` stays global.
 
 The ``constrain*`` helpers are the reference's layout hints to XLA. The
 port places every block itself, so they return their inputs; the
@@ -193,9 +197,12 @@ class NamedSharding:
 
     def shard(self, full: Tensor, dtype: torch.dtype | None = None) -> Tensor:
         """[D, *block]: every device's block of ``full`` (moved to the mesh's
-        device and, when given, ``dtype``)."""
-        full = torch.as_tensor(full).to(self.mesh.device, dtype=dtype)
-        return self.mesh.scatter_full(full, self.spec)
+        device and, when given, ``dtype``); a rank's own block alone on a
+        ``RankMesh``, cut before the move."""
+        full = torch.as_tensor(full)
+        if self.mesh.stack_size < self.mesh.n_devices:
+            return self.mesh.scatter_full(full, self.spec).to(self.mesh.device, dtype=dtype)
+        return self.mesh.scatter_full(full.to(self.mesh.device, dtype=dtype), self.spec)
 
     def gather(self, blocks: Tensor) -> Tensor:
         """The full tensor from its [D, *block] stack."""

@@ -44,12 +44,16 @@ class DeviceView(Mesh):
     * ``gather_full`` is an all-gather over the axes its spec names, of
       the full tensor (one per kept position);
     * ``all_gather`` is an all-gather over its axis, of the result;
-    * ``scatter_full`` is only given a contribution (the mesh train
-      step's gradient cut): its block of the sum over the batch axes. It
-      is a reduce-scatter of the block over the batch axes the spec names
-      and an all-reduce of the block over the batch axes it does not: the
-      devices of one (pod, data) group computed the same contribution,
-      and the cut along their other axes is local;
+    * ``fold_scatter`` (the mesh train step's gradient cut) and
+      ``scatter_full`` are only given a contribution: its block of the sum
+      over the batch axes. It is a reduce-scatter of the block over the
+      batch axes the spec names and an all-reduce of the block over the
+      batch axes it does not: the devices of one (pod, data) group
+      computed the same contribution, and the cut along their other axes
+      is local;
+    * the step's batch is the device's own rows (``device_step``), so
+      ``split_rows`` keeps it whole, and ``positions`` is device 0's;
+      ``gather_positions`` is an all-gather over its axis;
     * ``fold_blocks`` is an all-reduce of the partial over the holders;
     * ``ppermute`` is a collective-permute, ``all_to_all`` an all-to-all.
     """
@@ -92,6 +96,22 @@ class DeviceView(Mesh):
         self._note("reduce-scatter", nbytes, tuple(a for a in batch if a in named))
         self._note("all-reduce", nbytes, tuple(a for a in batch if a not in named))
         return torch.empty([1] + block, dtype=full.dtype, device=full.device)
+
+    def fold_scatter(self, fulls, entries, over):
+        return self.scatter_full(fulls[0], entries)
+
+    def positions(self, axis) -> list:
+        return [0]
+
+    def split_rows(self, x, axis) -> list:
+        return [x]
+
+    def gather_positions(self, values, axis) -> list:
+        n = self.axis_size(axis) if axis else 1
+        v = values[0]
+        self._note("all-gather", n * self._nbytes(v.shape, v.dtype), self._names(axis) if axis
+                   else ())
+        return [torch.empty_like(v) for _ in range(n)]
 
     def all_gather(self, x, axis, dim: int = 1):
         self._check(x)

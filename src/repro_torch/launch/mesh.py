@@ -9,14 +9,19 @@ another). The LM sharding layer, the mesh train steps and the elastic
 restore run on it (``distributed/sharding.py``, ``train/train_loop.py``,
 ``train/checkpoint.py``). The production meshes of 256 and 512 virtual
 devices are built like any other; what runs on them is bounded by the
-card's memory, since every device's blocks live on the one card. A mesh
-of one rank per card waits for the process-group backend (ROADMAP.md §1,
-item 3d); ``launch/device_view.py`` is one device of such a mesh as the
-dry run counts it.
+card's memory, since every device's blocks live on the one card.
+
+``rank_mesh`` is the same (data, model) or (pod, data, model) mesh with
+one rank per device over a process group (``core/rank_mesh.py``): each
+rank holds its own blocks on its own card (``cuda:LOCAL_RANK``, or the
+device named), and every mesh primitive is a collective across the
+ranks. ``launch/device_view.py`` is one device of such a mesh as the dry
+run counts it.
 """
 from __future__ import annotations
 
 from repro_torch.core.mesh import Mesh
+from repro_torch.core.rank_mesh import RankMesh, init_rank_mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
@@ -36,3 +41,15 @@ def small_mesh(data: int = 2, model: int = 2, pod: int = 0, device=None) -> Mesh
     if pod:
         return make_mesh((pod, data, model), ("pod", "data", "model"), device=device)
     return make_mesh((data, model), ("data", "model"), device=device)
+
+
+def rank_mesh(data: int = 2, model: int = 2, pod: int = 0, backend: str = "nccl",
+              device=None, **init) -> RankMesh:
+    """This rank's view of ``small_mesh(data, model, pod)`` with one rank
+    per device, over the default process group (joined by
+    ``init_rank_mesh`` from the torchrun environment unless ``init`` gives
+    ``init_method``, ``rank`` and ``world_size``)."""
+    if pod:
+        return init_rank_mesh((pod, data, model), ("pod", "data", "model"), backend,
+                              device=device, **init)
+    return init_rank_mesh((data, model), ("data", "model"), backend, device=device, **init)

@@ -10,8 +10,16 @@ unless ``--device`` names another. With ``--data``, ``--model`` or
 ``--pod`` above 1 it runs the mesh step (``make_train_step``) on a mesh of
 that many virtual devices of the one device; ``--compress-pod`` with a pod
 axis runs the int8 error-feedback step (``make_compressed_train_step``).
-One rank per card waits for the process-group backend (ROADMAP.md §1,
-item 3d).
+
+With ``--backend gloo|nccl``, under ``torchrun --nproc-per-node N`` (N =
+pod · data · model), the same mesh has one rank per device
+(``launch.mesh.rank_mesh``, from torchrun's environment): each rank holds
+its own blocks on ``cuda:LOCAL_RANK`` (or ``--device``), every mesh
+primitive is a collective, each rank checkpoints under
+``<ckpt-dir>/rank<R>`` and only rank 0 prints:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --backend nccl --data 2 --model 2
 """
 from __future__ import annotations
 
@@ -81,12 +89,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--compress-pod", action="store_true")
     ap.add_argument("--device", default=None,
-                    help="torch device to train on (default: the CUDA card)")
+                    help="torch device to train on (default: the CUDA card; with "
+                         "--backend, cuda:LOCAL_RANK)")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="one rank per device over this process-group backend "
+                         "(run under torchrun); without it, virtual devices of one card")
     args = ap.parse_args(argv)
 
     from repro_torch.core.device import resolve_device
     from repro_torch.distributed.fault_tolerance import FTConfig, TrainDriver
-    from repro_torch.launch.mesh import small_mesh
+    from repro_torch.launch.mesh import rank_mesh, small_mesh
     from repro_torch.models.transformer import build_model
     from repro_torch.models.zoo import count_params, get_config
     from repro_torch.train.data import DataConfig, make_source
@@ -96,13 +108,21 @@ def main(argv=None) -> dict:
         make_compressed_train_step, make_train_step, train_step_fn,
     )
 
-    device = resolve_device(args.device)
     cfg = scaled_config(get_config(args.arch), args.scale)
+    ckpt_dir = args.ckpt_dir
+    if args.backend:
+        mesh = rank_mesh(args.data, args.model, args.pod, args.backend, device=args.device)
+        device = mesh.device
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{mesh.rank}")
+    else:
+        device = resolve_device(args.device)
+        on_mesh = args.data > 1 or args.model > 1 or args.pod > 1 or args.compress_pod
+        mesh = small_mesh(args.data, args.model, args.pod, device=device) if on_mesh else None
     model = build_model(cfg, device)
-    on_mesh = args.data > 1 or args.model > 1 or args.pod > 1 or args.compress_pod
-    mesh = small_mesh(args.data, args.model, args.pod, device=device) if on_mesh else None
-    print(f"arch={args.arch} scaled params={count_params(cfg) / 1e6:.1f}M device={device}"
-          + (f" mesh={mesh.shape}" if mesh else ""))
+    say = print if getattr(mesh, "rank", 0) == 0 else (lambda *a, **k: None)
+    say(f"arch={args.arch} scaled params={count_params(cfg) / 1e6:.1f}M device={device}"
+        + (f" mesh={mesh.shape}" if mesh else "")
+        + (f" ranks={mesh.n_devices} backend={args.backend}" if args.backend else ""))
 
     tcfg = TrainConfig(
         opt=OptConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps),
@@ -132,12 +152,15 @@ def main(argv=None) -> dict:
         return device_batch(source.batch(step_idx, 0, 1), device)
 
     driver = TrainDriver(step_fn, batch_fn,
-                         FTConfig(ckpt_dir=args.ckpt_dir,
+                         FTConfig(ckpt_dir=ckpt_dir,
                                   ckpt_every=args.ckpt_every))
     out = driver.run(params, opt_state, args.steps)
     h = out["history"]
-    print(f"steps={out['final_step']} restarts={out['restarts']} "
-          f"loss[0]={h[0]['loss']:.3f} loss[-1]={h[-1]['loss']:.3f}")
+    say(f"steps={out['final_step']} restarts={out['restarts']} "
+        f"loss[0]={h[0]['loss']:.3f} loss[-1]={h[-1]['loss']:.3f}")
+    if args.backend:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return out
 
 

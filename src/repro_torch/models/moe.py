@@ -12,8 +12,8 @@
 
 ``moe_ffn`` picks between them statically from the routing density
 top_k / n_experts against ``DENSE_DISPATCH_THRESHOLD``; with ``with_aux``
-it also returns ``load_balance_loss``, the Switch-style auxiliary of the
-train objective.
+it also returns ``load_balance_parts``, the statistics of the Switch-style
+auxiliary of the train objective (``load_balance_loss``).
 
 The buffer is filled under autograd (``ops.moe_dispatch``): its gradient
 flows back to x through the gather's transpose (kernel 7ᵀ), which sums
@@ -83,21 +83,34 @@ class DispatchPlan(NamedTuple):
     #                    for a dropped assignment
 
 
-def load_balance_loss(x: Tensor, w_router: Tensor, cfg: MoEConfig) -> Tensor:
-    """Switch-style auxiliary loss, f32: E·⟨f, p⟩ with f the fraction of
-    tokens whose top-1 expert (the first of equal maxima) is each expert
-    and p the mean router probability; 1 at uniform routing. f is a count
-    and carries no gradient: the reference's ``bincount``, taken as a sum
-    of one-hot rows so that its size does not depend on the data (no host
-    sync, and it runs on the meta device)."""
+def load_balance_parts(x: Tensor, w_router: Tensor, cfg: MoEConfig) -> Tuple[Tensor, Tensor]:
+    """The two statistics of ``load_balance_loss`` over x's tokens, f32 [E]
+    each: the count of tokens whose top-1 expert (the first of equal
+    maxima) is each expert, which carries no gradient (the reference's
+    ``bincount``, taken as a sum of one-hot rows so that its size does not
+    depend on the data: no host sync, and it runs on the meta device), and
+    the mean router probability. Rows split over devices exchange these
+    (``balance_loss`` of the folded counts and the token-weighted means)."""
     logits = (x @ w_router).float()
     probs = torch.softmax(logits, dim=-1)
     p_mean = probs.reshape(-1, cfg.n_experts).mean(dim=0)
     top1 = probs.argmax(dim=-1).reshape(-1)
     experts = torch.arange(cfg.n_experts, device=top1.device)
-    f = (top1[:, None] == experts).sum(dim=0).float()
-    f = f / torch.clamp_min(f.sum(), 1.0)
-    return cfg.n_experts * torch.sum(f * p_mean)
+    counts = (top1[:, None] == experts).sum(dim=0).float()
+    return counts, p_mean
+
+
+def balance_loss(counts: Tensor, p_mean: Tensor, n_experts: int) -> Tensor:
+    """E·⟨f, p⟩ with f the top-1 fraction from ``counts`` and p ``p_mean``."""
+    f = counts / torch.clamp_min(counts.sum(), 1.0)
+    return n_experts * torch.sum(f * p_mean)
+
+
+def load_balance_loss(x: Tensor, w_router: Tensor, cfg: MoEConfig) -> Tensor:
+    """Switch-style auxiliary loss, f32: E·⟨f, p⟩ with f the fraction of
+    tokens whose top-1 expert is each expert and p the mean router
+    probability (``load_balance_parts``); 1 at uniform routing."""
+    return balance_loss(*load_balance_parts(x, w_router, cfg), cfg.n_experts)
 
 
 def dispatch_plan(top_ids: Tensor, n_experts: int, c: int) -> DispatchPlan:
@@ -205,7 +218,7 @@ def moe_ffn(x: Tensor, moe_params, cfg: MoEConfig, with_aux: bool = False):
     """Routed experts (+ shared experts, deepseek-style). x [..., D]; a 3-D
     [B, T, D] input is routed per batch row: natively batched on the
     sparse path (the reference's single-device regime), row by row on the
-    dense one. ``with_aux`` returns (y, ``load_balance_loss``)."""
+    dense one. ``with_aux`` returns (y, ``load_balance_parts``)."""
     fn = moe_dense if uses_dense(cfg) else moe_sparse
 
     def routed(xt: Tensor) -> Tensor:
@@ -220,5 +233,5 @@ def moe_ffn(x: Tensor, moe_params, cfg: MoEConfig, with_aux: bool = False):
         y = y + swiglu(x, moe_params["shared_w1"], moe_params["shared_w3"],
                        moe_params["shared_w2"])
     if with_aux:
-        return y, load_balance_loss(x, moe_params["router"], cfg)
+        return y, load_balance_parts(x, moe_params["router"], cfg)
     return y

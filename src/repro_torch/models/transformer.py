@@ -13,7 +13,7 @@ remainder layers.
 
 Four modes share the layer bodies:
   * train   — full-sequence forward with grad, no cache; each MoE layer
-    also returns its load-balance loss, and with ``remat`` each layer body
+    also returns its load-balance statistics, and with ``remat`` each layer body
     runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
     around each scanned body)
   * forward — the same without grad or auxiliary loss (serving's encoder)
@@ -29,8 +29,10 @@ through every decode step.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+import operator
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +44,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.attention import TensorSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm, swiglu
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import balance_loss, moe_ffn
 from repro_torch.models.params import P_, ParamTree, init_param_, layer_names
 from repro_torch.models.ssm import (
     GLAState, causal_conv1d, gla_chunked, gla_step, slstm_scan, slstm_step,
@@ -250,7 +252,8 @@ class Block(ParamTree):
 
     def forward(self, x: Tensor, cache, mode: str):
         """(x, cache); in train mode a MoE layer returns its load-balance
-        loss in the cache's place, as the reference's train body does."""
+        statistics (``moe.load_balance_parts``) in the cache's place, as the
+        reference's train body returns its loss."""
         cfg = self.cfg
         a, cache = self._attn(rms_norm(x, self["norm1"], cfg.norm_eps), cache, mode)
         x = x + a
@@ -489,16 +492,48 @@ class Mamba2Block(_Recurrent):
         return x, None if mode == "forward" else _store(cache, SSMCache(conv, gla))
 
 
+class LossParts(NamedTuple):
+    """The train objective's sums over some rows of a batch
+    (``Model.loss_parts``): what devices that split the rows exchange."""
+    nll_sum: Tensor          # f32: Σ NLL over the labels ≥ 0
+    tokens: Tensor           # f32: the count of labels ≥ 0
+    routed: int              # tokens each MoE layer routed: rows × sequence
+    counts: Tuple[Tensor, ...]    # per MoE layer: top-1 counts [E], no gradient
+    p_mean: Tuple[Tensor, ...]    # per MoE layer: mean router probability [E]
+
+
+def loss_from_parts(parts: Sequence[LossParts], cfg: ModelConfig,
+                    moe_aux_coeff: float = 0.01) -> Tuple[Tensor, dict]:
+    """The train objective of the rows of every part, as ``Model.loss``
+    returns it, each sum folded left to right in part order: the NLL the
+    mean over every part's labels ≥ 0; each MoE layer's aux from the
+    folded counts and the routed-weighted fold of the parts' means. The
+    gradient flows into the parts that carry one: with every part but one
+    detached, it is that part's rows' share of the whole objective's
+    gradient, and the shares sum to it."""
+    fold = functools.partial(functools.reduce, operator.add)
+    tokens = fold([p.tokens for p in parts])
+    nll = fold([p.nll_sum for p in parts]) / torch.clamp_min(tokens, 1.0)
+    routed = sum(p.routed for p in parts)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for j in range(len(parts[0].counts)):
+        counts = fold([p.counts[j] for p in parts])
+        p_mean = fold([(p.routed / routed) * p.p_mean[j] for p in parts])
+        aux = aux + balance_loss(counts, p_mean, cfg.moe.n_experts).float()
+    total = nll + moe_aux_coeff * aux
+    return total, {"loss": nll, "moe_aux": aux, "tokens": tokens}
+
+
 class Model(nn.Module):
     """A model of a ported family. Parameters are allocated on ``device``
     (the CUDA card unless named; with no card and no ``device=`` the
     constructor raises) and filled by ``init`` or ``load_state_dict``;
     they are made with ``requires_grad`` off, and
     ``train.train_loop.init_train_state`` turns it on.
-    Public API: init / forward / forward_with_aux / loss / cache_specs /
+    Public API: init / forward / forward_with_aux / loss / loss_parts / cache_specs /
     init_cache / vision_kv / prefill / decode. ``forward``, ``prefill``,
-    ``decode`` and ``vision_kv`` run without grad; ``forward_with_aux``
-    and ``loss`` are the train mode."""
+    ``decode`` and ``vision_kv`` run without grad; ``forward_with_aux``,
+    ``loss`` and ``loss_parts`` are the train mode."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -669,6 +704,14 @@ class Model(nn.Module):
                                self.vision_kv(image_embeds))
         return self._head(x)
 
+    def _train_forward(self, tokens, frames, image_embeds, remat: bool):
+        """Train mode: (logits [B, T, V], each MoE layer's load-balance
+        statistics in layer order)."""
+        x, extras = self._run_stack(self._embed_in(tokens, frames), None, "train",
+                                    self._vision_kv(image_embeds), remat)
+        stats = [a for seg in extras.values() for a in seg if a is not None]
+        return self._head(x), stats
+
     def forward_with_aux(self, tokens: Optional[Tensor] = None, *,
                          frames: Optional[Tensor] = None,
                          image_embeds: Optional[Tensor] = None,
@@ -678,14 +721,25 @@ class Model(nn.Module):
         the VLM projects ``image_embeds`` with grad. ``remat`` recomputes
         each layer body in the backward instead of keeping its
         activations."""
-        x, extras = self._run_stack(self._embed_in(tokens, frames), None, "train",
-                                    self._vision_kv(image_embeds), remat)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for seg in extras.values():
-            for a in seg:
-                if a is not None:
-                    aux = aux + a.float()
-        return self._head(x), aux
+        logits, stats = self._train_forward(tokens, frames, image_embeds, remat)
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        for counts, p_mean in stats:
+            aux = aux + balance_loss(counts, p_mean, self.cfg.moe.n_experts).float()
+        return logits, aux
+
+    def loss_parts(self, batch: dict, remat: bool = False) -> "LossParts":
+        """The sums of the train objective over ``batch``'s rows, with
+        grad, as ``loss_from_parts`` folds them: ``batch`` as for
+        ``loss``."""
+        logits, stats = self._train_forward(
+            batch.get("tokens"), batch.get("frames"), batch.get("image_embeds"), remat)
+        logits = logits.float()
+        labels = batch["labels"]
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        return LossParts(torch.sum((lse - ll) * mask), torch.sum(mask), labels.numel(),
+                         tuple(c for c, _ in stats), tuple(p for _, p in stats))
 
     def loss(self, batch: dict, remat: bool = False,
              moe_aux_coeff: float = 0.01) -> Tuple[Tensor, dict]:
@@ -694,17 +748,7 @@ class Model(nn.Module):
         (or ``frames``), ``labels`` [B, T] and, for a VLM, optionally
         ``image_embeds``; the NLL is the mean over the labels ≥ 0, from
         f32 logits."""
-        logits, moe_aux = self.forward_with_aux(
-            batch.get("tokens"), frames=batch.get("frames"),
-            image_embeds=batch.get("image_embeds"), remat=remat)
-        logits = logits.float()
-        labels = batch["labels"]
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
-        mask = (labels >= 0).float()
-        nll = torch.sum((lse - ll) * mask) / torch.clamp_min(torch.sum(mask), 1.0)
-        total = nll + moe_aux_coeff * moe_aux
-        return total, {"loss": nll, "moe_aux": moe_aux, "tokens": torch.sum(mask)}
+        return loss_from_parts([self.loss_parts(batch, remat)], self.cfg, moe_aux_coeff)
 
     def cache_specs(self, batch: int, max_seq: int) -> dict:
         return cache_specs(self.cfg, batch, max_seq)

@@ -17,7 +17,10 @@ Scheme (1-bit-Adam-style error feedback, at 8 bits):
 x and e are [D, ...] stacks, each device quantises its own tensor, the
 codes cross the axis as an int8 ``Mesh.all_gather`` and the scales as
 f32, and each device sums the dequantised terms in position order before
-dividing by n, as the reference's ``jnp.sum(deq, axis=0) / n``. The
+dividing by n, as the reference's ``jnp.sum(deq, axis=0) / n``. On a
+``core/rank_mesh.py`` mesh the stacks are a rank's own, [1, ...], and
+the codes and scales cross the axis between ranks: int8 and f32 bytes on
+the wire. The
 ``stacked`` pair is the reference's fallback for old jax: a [P, ...] stack
 against one shared error-feedback buffer, with no mesh.
 """

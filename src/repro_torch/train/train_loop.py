@@ -14,13 +14,21 @@ by ``param_shardings``; master, mu, nu and the error-feedback tree by
 ``zero1_shardings``; ``step`` replicated. Where XLA decides the reference's
 placement, the port decides it FSDP-style:
   * each step gathers every leaf from its blocks (``Mesh.gather_full``)
-    into the model's parameters, the one copy that the devices of every
-    (pod, data) group share on one card;
-  * each microbatch runs whole, its forward and backward as in
-    ``train_step_fn``: the batch axes' devices share the one working copy
-    on the card, so splitting the rows over them would change only the
-    order of the sums. Its gradient is cut into the ZeRO-1 blocks
-    (``Mesh.scatter_full``) and folded into them microbatch by microbatch;
+    into the model's parameters, the one working copy that the devices
+    of every (pod, data) group share on one card (and that every rank
+    holds whole);
+  * each microbatch is cut into the rows of each position along the
+    batch axes, as the reference shards it over (pod, data). Each
+    position runs the forward of its rows; the positions' sums of the
+    objective (``Model.loss_parts``: the NLL, the token count, each MoE
+    layer's top-1 counts and mean router probability) are exchanged
+    (``Mesh.gather_positions``), so that the objective is the whole
+    microbatch's, as the reference's is; each position then takes the
+    backward of its share (``loss_from_parts`` with the others' sums
+    detached). The positions' gradients are folded into the ZeRO-1
+    blocks in position order (``Mesh.fold_scatter``: a reduce-scatter
+    over the batch axes a block's spec names, an all-reduce over the
+    others), microbatch by microbatch;
   * AdamW runs on every device's own blocks, with the gradient norm
     counting each element once (one holder of every set of copies) and
     folding the per-block partials in a fixed order; each parameter's bf16
@@ -28,13 +36,22 @@ placement, the port decides it FSDP-style:
     data axis (``Mesh.all_gather``) where ZeRO-1 split them finer.
 The compressed step runs the pod axis manually
 (``partial_shard_map``): each pod's gradient comes from its contiguous
-share of the global batch, cut into microbatches inside the pod, and the
-pods' gradients are averaged by ``compressed_tree_psum_mean`` over the
-pod axis, each pod keeping its own error-feedback buffer.
+share of the global batch, cut into microbatches inside the pod and each
+microbatch over the pod's data positions as above, the positions'
+gradients folded whole over the data axis; the pods' gradients are
+averaged by ``compressed_tree_psum_mean`` over the pod axis, each pod
+keeping its own error-feedback buffer.
 
-A process-group mesh (one rank per card, ROADMAP.md §1 item 3d) would
-implement the same mesh primitives on each rank's own blocks, and each
-rank would run its own rows of a microbatch.
+On ``core/rank_mesh.py``'s ``RankMesh`` (one rank per device) the same
+steps run on each rank's own blocks, every gather, exchange and fold a
+collective across the ranks, in the same order on every rank: a rank
+runs the rows of its own (pod, data) position, so the data axis is real
+data parallelism, and its blocks equal the virtual mesh's bit for bit.
+The model axis is not tensor parallelism: the ranks of one (pod, data)
+position run the same rows on the same working copy, and every rank
+holds the full working copy and its rows' full gradient before the
+fold, so a model larger than one card's memory waits for the weights
+to be gathered layer by layer.
 """
 from __future__ import annotations
 
@@ -51,7 +68,7 @@ from repro_torch.distributed.sharding import (
     shard_state, tree_map, zero1_shardings,
 )
 from repro_torch.models.params import P_
-from repro_torch.models.transformer import Model, model_specs
+from repro_torch.models.transformer import LossParts, Model, loss_from_parts, model_specs
 from repro_torch.train.grad_compress import compressed_psum_mean
 from repro_torch.train.optimizer import OptConfig, OptState, adamw_apply, adamw_init
 
@@ -162,10 +179,12 @@ def partial_shard_map(body: Callable, mesh: Mesh, manual_axes, in_specs, out_spe
     in mesh order), an argument whose spec names them on its leading dim
     cut into its contiguous chunk for that position (every leaf of a dict),
     any other argument whole. An output whose spec names the manual axes
-    comes back as the list of every position's value; any other output is
-    the same at every position, and position 0's is returned."""
+    comes back as the list of every position's value (of the positions
+    the mesh holds: a rank's own alone); any other output is the same at
+    every position, and the first one's is returned."""
     axes = tuple(a for a in mesh.axis_names if a in set(manual_axes))
     n = mesh.axis_size(axes)
+    held = mesh.positions(axes)         # every position, or a rank's own
 
     def manual(spec) -> bool:
         return bool(spec) and bool(set(entry_axes(spec[0])) & set(axes))
@@ -177,7 +196,7 @@ def partial_shard_map(body: Callable, mesh: Mesh, manual_axes, in_specs, out_spe
         return {k: one(v) for k, v in arg.items()} if isinstance(arg, dict) else one(arg)
 
     def run(*args):
-        outs = [body(i, *(cut(a, sp, i) for a, sp in zip(args, in_specs))) for i in range(n)]
+        outs = [body(i, *(cut(a, sp, i) for a, sp in zip(args, in_specs))) for i in held]
         return tuple([o[j] for o in outs] if manual(sp) else outs[0][j]
                      for j, sp in enumerate(out_specs))
     return run
@@ -273,20 +292,63 @@ class _MeshPlan:
         return OptState(new.step, opt_state.master, opt_state.mu, opt_state.nu), om
 
 
+def _pack(p: LossParts) -> torch.Tensor:
+    """A position's objective sums as one f32 vector, for the exchange."""
+    return torch.cat([p.nll_sum.reshape(1), p.tokens.reshape(1), *p.counts, *p.p_mean]).detach()
+
+
+def _unpack(v: torch.Tensor, like: LossParts) -> LossParts:
+    """``_pack``'s vector as ``LossParts`` shaped as ``like`` (every
+    position routes as many tokens: the rows split evenly)."""
+    n, e = len(like.counts), (like.counts[0].numel() if like.counts else 0)
+    layers = [v[2 + j * e:2 + (j + 1) * e] for j in range(2 * n)]
+    return LossParts(v[0], v[1], like.routed, tuple(layers[:n]), tuple(layers[n:]))
+
+
+def _position_grads(model: Model, plan: _MeshPlan, rows: List[Dict[str, torch.Tensor]],
+                    axes, cfg: TrainConfig):
+    """The forward of each held position's ``rows`` on the one working
+    copy, every position's objective sums exchanged over ``axes``, then
+    each held position's backward of its share: (per held position, the
+    full gradient by leaf; the objective's value, the same at every
+    position)."""
+    mesh, params = plan.mesh, plan.params
+    for p in params.values():
+        p.grad = None
+    parts = [model.loss_parts(r, remat=cfg.remat) for r in rows]
+    every = mesh.gather_positions([_pack(p) for p in parts], axes)
+    grads, total = [], None
+    for j, q in enumerate(mesh.positions(axes)):
+        mix = [_unpack(v, parts[j]) for v in every]
+        mix[q] = parts[j]
+        total, _ = loss_from_parts(mix, model.cfg)
+        total.backward()
+        g = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        grads.append({name: plan.stacked(g, spec, prts) for name, spec, prts in plan.layout})
+        del g
+    return grads, total.detach()
+
+
 def _grads_into(model: Model, plan: _MeshPlan, batch: Dict[str, torch.Tensor], cfg: TrainConfig,
-                acc: Dict[str, torch.Tensor], cut: Callable) -> torch.Tensor:
-    """The microbatches of ``batch``, each run whole on the model's one
-    working copy, their gradients folded into ``acc`` (f32, leaf name →
-    ``cut(full gradient, name)``) and divided by the count, as
+                acc: Dict[str, torch.Tensor], axes, fold: Callable) -> torch.Tensor:
+    """The microbatches of ``batch``, each cut into the rows of the
+    positions along ``axes`` (``_position_grads``), the positions'
+    gradients folded into ``acc`` (f32, leaf name → ``fold(per-position
+    full gradients, name)``) and divided by the count, as
     ``_grads_and_loss`` does; returns the loss."""
     k = cfg.microbatches
     micro = ([batch] if k <= 1 else
              [{key: v[i] for key, v in _split_micro(batch, k).items()} for i in range(k)])
     losses = []
     for mb in micro:
-        grads, loss, _ = _backward(model, plan.params, mb, cfg)
-        for name, spec, parts in plan.layout:
-            acc[name].add_(cut(plan.stacked(grads, spec, parts), name))
+        split = {key: plan.mesh.split_rows(v, axes) for key, v in mb.items()}
+        rows = [{key: v[j] for key, v in split.items()}
+                for j in range(len(plan.mesh.positions(axes)))]
+        grads, loss = _position_grads(model, plan, rows, axes, cfg)
+        for name, _, _ in plan.layout:
+            acc[name].add_(fold([g.pop(name) for g in grads], name))
         del grads
         losses.append(loss)
     if k <= 1:
@@ -335,18 +397,19 @@ def make_train_step(model: Model, mesh: Mesh, cfg: TrainConfig):
     """The mesh step ``(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on ``init_mesh_state``'s blocks, updated in place (the
     reference's ``donate``). ``batch`` holds the global batch's tensors,
-    cut into microbatches as the reference cuts them before sharding each
-    over (pod, data).
+    cut into microbatches as the reference cuts them, and each microbatch
+    into the rows of the positions along (pod, data) that the mesh holds.
     Sets the activation mesh, which stays set after the call, as in the
     reference."""
     set_activation_mesh(mesh)
     plan = _MeshPlan(model, mesh)
+    axes = batch_axes(mesh)
 
     def step(params: dict, opt_state: OptState, batch: Dict[str, torch.Tensor]):
         plan.load_weights(params)
         acc = plan.zero1_zeros()
-        loss = _grads_into(model, plan, batch, cfg, acc,
-                           lambda full, name: mesh.scatter_full(full, plan.z_sh[name].spec))
+        loss = _grads_into(model, plan, batch, cfg, acc, axes,
+                           lambda fulls, name: mesh.fold_scatter(fulls, plan.z_sh[name].spec, axes))
         opt_state, om = plan.adamw(params, opt_state, acc, cfg.opt)
         return params, opt_state, {"loss": loss, **om}
 
@@ -356,7 +419,8 @@ def make_train_step(model: Model, mesh: Mesh, cfg: TrainConfig):
 def make_compressed_train_step(model: Model, mesh: Mesh, cfg: TrainConfig):
     """The pod-manual mesh step ``(params, opt_state, ef, batch) -> (params,
     opt_state, ef, metrics)``: pod p computes the gradient of rows
-    [p·GB/P, (p+1)·GB/P), cut into microbatches inside the pod; the pods'
+    [p·GB/P, (p+1)·GB/P), cut into microbatches inside the pod and each
+    over its data positions; the pods'
     gradients are averaged in int8 with error feedback
     (``compressed_psum_mean`` over the pod axis; each pod keeps its own
     buffer, in the ZeRO-1 blocks of its devices), and every pod takes the
@@ -366,12 +430,22 @@ def make_compressed_train_step(model: Model, mesh: Mesh, cfg: TrainConfig):
     set_activation_mesh(mesh)
     plan = _MeshPlan(model, mesh)
     n_pod = mesh.shape["pod"]
-    pod_mesh = Mesh((n_pod,), ("pod",), device=mesh.device)
+    # the pods' tensors stacked [P, ...] on one card, or a rank's own [1, ...]
+    # averaged over the rank mesh's pod axis
+    pod_mesh = (Mesh((n_pod,), ("pod",), device=mesh.device)
+                if mesh.stack_size == mesh.n_devices else mesh)
+
+    data = tuple(a for a in batch_axes(mesh) if a != "pod")
+
+    def whole(fulls, name):
+        """The pod's gradient: its data positions' folded in f32."""
+        every = mesh.gather_positions(fulls, data)
+        return _fold([every[0].float()] + every[1:])
 
     def pod_body(pod: int, batch: Dict[str, torch.Tensor]):
         acc = {name: torch.zeros(spec.shape, dtype=torch.float32, device=mesh.device)
                for name, spec, _ in plan.layout}
-        loss = _grads_into(model, plan, batch, cfg, acc, lambda full, name: full)
+        loss = _grads_into(model, plan, batch, cfg, acc, data, whole)
         return acc, loss
 
     per_pod = partial_shard_map(pod_body, mesh, {"pod"}, in_specs=(("pod",),),
@@ -389,6 +463,9 @@ def make_compressed_train_step(model: Model, mesh: Mesh, cfg: TrainConfig):
             del x
             e.blocks.copy_(mesh.scatter_full(new_ef, zspec, keep="pod"))
             grads[name] = mesh.scatter_full(mean, zspec, keep="pod")
+        if len(losses) < n_pod:             # a rank's own pod: gather the others'
+            got = mesh.all_gather(losses[0].reshape(1, 1), "pod", dim=1)[0]
+            losses = [got[i] for i in range(n_pod)]
         loss = _fold(losses) / n_pod
         opt_state, om = plan.adamw(params, opt_state, grads, cfg.opt)
         return params, opt_state, ef, {"loss": loss, **om}
