@@ -508,6 +508,8 @@ RANK_TRAIN_MICRO = 2           # in 2 microbatches
 RANK_TRAIN_STEPS = 3
 RANK_POD_SHAPE = (2, 2, 2)     # 25c: 8 gloo ranks, (pod, data, model)
 RANK_POD_STEPS = 2
+RANK_MULTI_B_SMALL = 6         # phase 26a: bfs over 8 gloo ranks on (2, 4): ranks 6, 7 empty
+RANK_SERVE_QUERIES = 64        # phase 26b: mixed bfs/sssp/ppr through the server on 4 ranks
 # phase 21c's device time by kind of kernel, by words of the kernel's name
 TRAIN_KERNEL_KINDS = (("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
                       ("moe_dispatch", ("moe_dispatch",)),
@@ -2209,15 +2211,16 @@ def dryrun_cells(torch) -> float:
 
 def mesh_rows_phases(torch, dev, cit, rtx, stump, compare, all_kernels, phase14: dict,
                      devices=MESH_ROW_DEVICES, d_rtx: int = MESH_ROW_RTX,
-                     rtx_iters: int = RTX_MAX_ITERS, n_queries: int = SERVE_QUERIES
-                     ) -> tuple[dict, dict]:
+                     rtx_iters: int = RTX_MAX_ITERS, n_queries: int = SERVE_QUERIES,
+                     walls: dict | None = None) -> tuple[dict, dict]:
     """Phase 24: the multi-source traversals row-sharded over ("batch",)
     meshes of virtual devices, against phase 14's single-device batched
     runs (``phase14``: "app graph" → (sources, result, wall ms)); each
     device's launch of kernels 1b and 2b on one level's rows against its
     plain version; ``GraphQueryServer(mesh=...)`` against the mesh-less
     server. Returns the block kernels' main-path launches and worst
-    differences from their plain versions."""
+    differences from their plain versions; ``walls``, when given, gets
+    each cit-HP run's wall ms by "app D=d" (D=1: the single-device run)."""
     import warnings
 
     import numpy as np
@@ -2292,6 +2295,8 @@ def mesh_rows_phases(torch, dev, cit, rtx, stump, compare, all_kernels, phase14:
         t_sync = time.perf_counter()
         n_sync = syncs(lambda: multi(eng, srcs, mesh=mesh))
         laps[f"syncs {label} {g.name} D={d}"] = time.perf_counter() - t_sync
+        if walls is not None and g is cit:
+            walls[f"{label} D={d}"] = ms
         row = {"phase": 24, "app": f"{label}_multi", "graph": g.name, "B": len(srcs),
                "devices": d, "rows_per_device": -(-len(srcs) // d), "wall_ms": ms,
                "single_device_wall_ms": single_ms, "levels": levels, "launches": counts,
@@ -2315,6 +2320,8 @@ def mesh_rows_phases(torch, dev, cit, rtx, stump, compare, all_kernels, phase14:
             check(torch.equal(got, ref_), f"phase 24 {label} cit-HP: the single-device run's "
                   f"{field} differs from phase 14's")
         one_syncs = syncs(lambda: multi(eng, srcs)) / max(int(one.iterations.max()), 1)
+        if walls is not None:
+            walls[f"{label} D=1"] = one_ms
         for d in devices:
             rows.append(run_mesh(label, cit, eng, multi, srcs, want, one_ms, d, extra={
                 "single_device_launches": one_counts,
@@ -4744,6 +4751,404 @@ def rank_phases(torch, dev, cit, caq) -> dict:
     return launches
 
 
+def _rank_syncs(torch, dev, fn) -> tuple:
+    """(fn's result, its wall ms on the host clock ending in a sync, the
+    synchronising CUDA calls torch.cuda's sync debug mode reports in it;
+    0 on the host)."""
+    import warnings
+
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    if dev.type != "cuda":
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3, 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    _sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def rank26_multi(rank: int, world: int, init: str, payload: dict) -> dict:
+    """One gloo rank of phase 26 on cit-HP's bsr engines: each run of
+    ``payload["runs"]`` ((app, B, mesh shape, axis names, axis_name)) on a
+    ``RankMesh``, the rank's own rows alone (a first run counted and
+    timed, a second under the sync debug mode), the first launch of
+    kernels 1b and 2b held to its plain version; then, with ``serve``,
+    26b's ``GraphQueryServer(mesh=RankMesh)`` flush of the queries, and
+    with ``matvec``, ``GraphQueryServer.partitioned_matvec`` on (2, 4)."""
+    import torch
+
+    sys.path.insert(0, payload["src"])
+    from repro_torch.core.rank_mesh import init_rank_mesh
+    from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, PLUS_TIMES
+    from repro_torch.graphs import bfs_multi, build_engine, ppr_multi, sssp_multi
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.semiring_spmv import semiring_spmv_padded_batch
+    from repro_torch.kernels.spmspv_tiles import semiring_spmspv_padded_batch
+
+    dev = torch.device(payload["device"])
+    t_rank = time.perf_counter()
+    cit, stump = payload["graph"], payload["stump"]
+    apps = {"bfs": (BOOL_OR_AND, bfs_multi, {}),
+            "sssp": (MIN_PLUS, sssp_multi, {"weighted": True, "seed": 5}),
+            "ppr": (PLUS_TIMES, ppr_multi, {"normalize": True})}
+    blocks = (semiring_spmv_padded_batch, semiring_spmspv_padded_batch)
+    plain = {"semiring_spmv_padded_batch": ref.spmv_padded_batch_ref,
+             "semiring_spmspv_padded_batch": ref.spmspv_padded_batch_ref}
+    caught: dict = {}
+    errs: dict = {}
+
+    def recorder(k):
+        """k's wrapper, keeping the operands and output of its first launch
+        on the main path (the launch itself counts as any other)."""
+        def call(tiles, second, xs, *, sr):
+            y = k(tiles, second, xs, sr=sr)
+            if k.__name__ not in caught:
+                caught[k.__name__] = (tiles, second.clone(), xs.clone(), sr, y)
+            return y
+        return call
+
+    def hold(name, tiles, second, xs, sr, y, what) -> list:
+        """Hold one launch's output to its plain version; its block shape.
+        (A function of its own: no frame keeps the engine's tiles after.)"""
+        errs[name] = max(errs.get(name, 0.0), _held(torch, y, plain[name](tiles, second, xs, sr),
+                                                    sr, what))
+        return list(xs.shape)
+
+    meshes: dict = {}
+
+    def mesh_of(shape, names):
+        if (shape, names) not in meshes:
+            meshes[shape, names] = init_rank_mesh(shape, names, "gloo", device=dev,
+                                                  init_method=init, rank=rank, world_size=world)
+        return meshes[shape, names]
+
+    launches = {k.__name__: 0 for k in blocks}
+    runs = []
+    for app, b, shape, names, axis in payload["runs"]:
+        sr, multi, kw = apps[app]
+        mesh = mesh_of(shape, names)
+        t0 = time.perf_counter()
+        eng = build_engine(cit, sr, stump, device=dev, fmt_spmv="bsr", fmt_spmspv="bsr", **kw)
+        _sync(torch, dev)
+        build_s = time.perf_counter() - t0
+        srcs = payload["sources"][app][:b]
+        caught.clear()
+        ops.semiring_spmv_padded_batch, ops.semiring_spmspv_padded_batch = (
+            recorder(k) for k in blocks)
+        try:
+            for k in blocks:
+                k.launches = 0
+            calls0, wire0 = dict(mesh.calls), dict(mesh.wire_bytes)
+            _peak(torch, dev, reset=True)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            res = multi(eng, srcs, mesh=mesh, axis_name=axis)
+            _sync(torch, dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {k.__name__: k.launches for k in blocks}
+            calls = {k: v - calls0.get(k, 0) for k, v in mesh.calls.items()
+                     if v > calls0.get(k, 0)}
+            wire = {k: v - wire0.get(k, 0) for k, v in mesh.wire_bytes.items()
+                    if v > wire0.get(k, 0)}
+            peak = _peak(torch, dev)
+        finally:
+            ops.semiring_spmv_padded_batch, ops.semiring_spmspv_padded_batch = blocks
+        for k, v in counts.items():
+            launches[k] += v
+        held = {name: hold(name, *ops_, f"phase 26a rank {rank} {app} B={b} {name}")
+                for name, ops_ in caught.items()}
+        caught.clear()
+        again, warm_ms, n_sync = _rank_syncs(torch, dev, lambda: multi(eng, srcs, mesh=mesh,
+                                                                       axis_name=axis))
+        (lo, hi), = mesh.row_shares(b, axis)
+        runs.append({"app": app, "B": b, "mesh": list(shape), "axis": axis, "rows": hi - lo,
+                     "result": tuple(t.cpu() for t in res),
+                     "again_equal": all(torch.equal(x, y) for x, y in zip(res, again)),
+                     "wall_ms": ms, "warm_wall_ms": warm_ms, "host_syncs": n_sync,
+                     "levels": int(res.iterations.max()), "launches": counts,
+                     "collectives": calls, "wire_bytes": wire, "peak_bytes": peak,
+                     "build_s": build_s, "held": held})
+        del eng, res, again
+        _free(torch, dev)
+    out = {"runs": runs, "launches": launches, "errs": errs}
+    if "serve" in payload:
+        from repro_torch.serve.graph_engine import GraphQueryServer
+        mesh = mesh_of((world,), ("batch",))
+        srv = GraphQueryServer(cit, stump, batch_size=SERVE_BATCH, mesh=mesh, device=dev)
+        reqs = [srv.submit(a, s) for a, s in payload["serve"]]
+        calls0 = dict(mesh.calls)
+        _peak(torch, dev, reset=True)
+        t0 = time.perf_counter()
+        srv.flush()
+        out["serve"] = {"payloads": [(r.algorithm, r.source, r.result) for r in reqs],
+                        "flush_ms": (time.perf_counter() - t0) * 1e3,
+                        "counters": dict(srv.counters), "lru": list(srv.cache._d.keys()),
+                        "collectives": {k: v - calls0.get(k, 0) for k, v in mesh.calls.items()
+                                        if v > calls0.get(k, 0)},
+                        "peak_bytes": _peak(torch, dev)}
+        del srv, reqs
+        _free(torch, dev)
+    if "matvec" in payload:
+        import importlib
+
+        from repro_torch.serve.graph_engine import GraphQueryServer
+        part = importlib.import_module("repro_torch.core.partition")
+        mesh = mesh_of((2, 4), ("dr", "dc"))
+        srv = GraphQueryServer(cit, stump, device=dev)
+        t0 = time.perf_counter()
+        pm, fn, choice = srv.partitioned_matvec("bfs", mesh)
+        build_s = time.perf_counter() - t0
+        x = torch.from_numpy(payload["matvec"]).to(dev)
+        xp = torch.zeros(pm.plan.shape[1], dtype=x.dtype, device=dev)
+        xp[: x.shape[0]] = x
+        xs = mesh.local(part.shard_tensor(pm.plan, xp, 0))
+        y = fn(pm.parts, xs)
+        out["matvec"] = {"y": y.cpu(), "strategy": choice.strategy, "partition_s": build_s,
+                         "stack": int(xs.shape[0]),
+                         "ms": _event_ms(torch, dev, lambda: fn(pm.parts, xs))}
+        del pm, fn, srv
+        _free(torch, dev)
+    out["calls"] = {str(k): dict(m.calls) for k, m in meshes.items()}
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def rank26_nccl(rank: int, world: int, init: str, payload: dict) -> dict:
+    """Phase 26c: one NCCL rank (world 1, the calling process):
+    ``bfs_multi`` on a 1-device ``RankMesh``, the collectives NCCL's."""
+    import torch
+
+    from repro_torch.core.rank_mesh import init_rank_mesh
+    from repro_torch.graphs import bfs_multi
+
+    dev = torch.device(payload["device"])
+    mesh = init_rank_mesh((1,), ("batch",), "nccl", device=dev, init_method=init, rank=rank,
+                          world_size=world)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    res = bfs_multi(payload["engine"], payload["sources"], mesh=mesh)
+    _sync(torch, dev)
+    return {"result": res, "ms": (time.perf_counter() - t0) * 1e3, "backend": mesh.backend,
+            "calls": dict(mesh.calls)}
+
+
+def rank_multi_phases(torch, dev, cit, stump, phase14: dict, walls24: dict, smi: str) -> dict:
+    """Phase 26: the row-sharded traversals and the graph server on a
+    process group, one gloo rank per position, the ranks sharing the one
+    card (their walls are host-staged gloo on time-shared SMs, not a
+    multi-card result). (a) cit-HP's bsr engines: bfs, sssp and ppr_multi
+    at B = 32 over 4 ranks on ("batch",), then bfs at B = 6 over 8 ranks
+    on (2, 4) with the tuple axis (ranks 6 and 7 hold no rows): every
+    rank's result equal to phase 14's single-device batch (bfs, sssp
+    ``torch.equal``; ppr within rtol 1e-3, atol 1e-6), each rank's first
+    launch of kernels 1b and 2b held to its plain version, walls beside
+    phase 24's virtual ones. (b) ``GraphQueryServer(mesh=RankMesh((4,)))``
+    on the 4 ranks: mixed queries, every rank's payloads equal to each
+    other's and to the mesh-less server's (PPR, on the csr route's atomic
+    sums, within rtol 1e-3, atol 1e-6); ``partitioned_matvec`` through the
+    server on the 8 ranks equal to the virtual mesh's block ``rank``. (c)
+    One NCCL rank: ``bfs_multi`` on a 1-device ``RankMesh``. Returns the
+    block kernels' launches and worst differences from the plain versions."""
+    import importlib
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as tdist
+
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.core.semiring import BOOL_OR_AND
+    from repro_torch.graphs import bfs_multi, build_engine
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.serve.graph_engine import GraphQueryServer
+
+    t_phase = time.perf_counter()
+    src = str(Path(__file__).resolve().parent / "src")
+    where = "cuda:0" if dev.type == "cuda" else "cpu"
+    want = {app: phase14[f"{app} cit-HP"] for app in ("bfs", "sssp", "ppr")}
+    b = len(want["bfs"][0])
+    launches = {"semiring_spmv_padded_batch": 0, "semiring_spmspv_padded_batch": 0}
+    worst = dict.fromkeys(launches, 0.0)
+    rng = np.random.default_rng(SEED + 26)
+    queries = serve_workload(cit, RANK_SERVE_QUERIES, SEED + 26)
+    x_mv = (rng.random(cit.n) < 0.3).astype(np.int32)
+    base = {"src": src, "device": where, "graph": cit, "stump": stump,
+            "sources": {app: w[0] for app, w in want.items()}}
+    print(f"phase 26: {smi}; the ranks time-share one card over gloo, each collective staged "
+          "through pinned host buffers: their walls are not a multi-card result")
+
+    def held_result(label, got, ref_, app):
+        for field, g, w in zip(ref_._fields, got, ref_):
+            w = w.cpu()
+            check(g.shape == w.shape and g.dtype == w.dtype, f"{label}: {field} shape or dtype")
+            if app == "ppr" and field in ("rank", "residual"):
+                torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-6,
+                                           msg=lambda m: f"{label} {field}: {m}")
+            else:
+                check(torch.equal(g, w), f"{label}: {field} differs from phase 14's "
+                      "single-device batch")
+        return all(torch.equal(g, w.cpu()) for g, w in zip(got, ref_))
+
+    def take(res_ranks, phase):
+        rows = []
+        for r, res in enumerate(res_ranks):
+            for k, v in res["launches"].items():
+                launches[k] += v
+            for k, v in res["errs"].items():
+                worst[k] = max(worst[k], v)
+            for run in res["runs"]:
+                app, bb = run["app"], run["B"]
+                ref_ = type(want[app][1])(*(t[:bb] for t in want[app][1]))
+                label = f"phase {phase} rank {r} {app} B={bb} on {run['mesh']}"
+                exact = held_result(label, run.pop("result"), ref_, app)
+                check(run.pop("again_equal"), f"{label}: a second run differs from the first")
+                levels = max(run["levels"], 1)
+                blocks = sum(run["launches"].values())
+                check(run["rows"] == 0 or blocks > 0, f"{label}: no block kernel launched on the "
+                      f"rank's {run['rows']} rows")
+                check(run["rows"] > 0 or blocks == 0, f"{label}: an empty share launched {blocks}")
+                tests = run["levels"] + (run["levels"] < (50 if app == "ppr" else 64))
+                check(run["collectives"] == {"all_true": tests, "gather_rows": 1},
+                      f"{label}: collectives {run['collectives']}, expected {tests} stopping "
+                      "tests and one gather")
+                row = {"phase": phase, "rank": r, **run, "bit_equal": exact,
+                       "launches_per_level": blocks / levels,
+                       "host_syncs_per_level": run["host_syncs"] / levels,
+                       "card": smi}
+                if run["mesh"] == [4]:
+                    row["virtual_wall_ms_D4_phase24"] = walls24.get(f"{app} D=4")
+                    row["single_device_wall_ms_phase24"] = walls24.get(f"{app} D=1")
+                rows.append(row)
+                print(json.dumps(row))
+        return rows
+
+    # ---------------------------------------------------------------- 26a (4 ranks), 26b
+    t0 = time.perf_counter()
+    four = run_ranks(rank26_multi, 4, {**base, "runs": [(app, b, (4,), ("batch",), "batch")
+                                                      for app in ("bfs", "sssp", "ppr")],
+                                       "serve": queries}, timeout=600)
+    spawn4_s = time.perf_counter() - t0
+    rows4 = take(four, "26a")
+    for name in launches:
+        check(all(any(name in run["held"] for run in res["runs"]) for res in four),
+              f"phase 26a: {name} was not held to its plain version on every rank")
+    print(f"phase 26a: cit-HP bfs/sssp/ppr_multi at B = {b} over 4 gloo ranks equal phase 14's "
+          f"single-device batch on every rank; ranks started and run in {spawn4_s:.1f} s")
+
+    plain = GraphQueryServer(cit, stump, batch_size=SERVE_BATCH, device=dev)
+    preqs = [plain.submit(a, s) for a, s in queries]
+    t0 = time.perf_counter()
+    plain.flush()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    first = four[0]["serve"]
+    for r, res in enumerate(four):
+        got = res["serve"]
+        check(got["counters"] == dict(plain.counters) and got["lru"] == list(plain.cache._d.keys()),
+              f"phase 26b rank {r}: counters or LRU keys differ from the mesh-less server's")
+        for (a, s, q), p, (_, _, q0) in zip(got["payloads"], preqs, first["payloads"]):
+            check((a, s) == (p.algorithm, p.source) and set(q) == set(p.result),
+                  f"phase 26b rank {r}: request {a}/{s}")
+            # csr/csc PPR: the ⟨+,×⟩ CSR reduce sums with atomics, so ranks
+            # within rtol 1e-3, atol 1e-6 and the stop within one iteration,
+            # as phase 24 holds them; every rank holds the same gathered bytes
+            same_stop = q["iterations"] == p.result["iterations"]
+            for key, w in p.result.items():
+                check(np.array_equal(np.asarray(q[key]), np.asarray(q0[key])),
+                      f"phase 26b rank {r} {a}/{s}: {key} differs from rank 0's")
+                if a == "ppr" and key != "rank" and not same_stop:
+                    check(key != "iterations" or abs(q[key] - w) <= 1,
+                          f"phase 26b rank {r} ppr/{s}: iterations {q[key]} and {w}")
+                elif a == "ppr" and key in ("rank", "residual"):
+                    np.testing.assert_allclose(q[key], w, rtol=1e-3, atol=1e-6,
+                                               err_msg=f"phase 26b rank {r} ppr/{s} {key}")
+                else:
+                    check(np.array_equal(np.asarray(q[key]), np.asarray(w)),
+                          f"phase 26b rank {r} {a}/{s}: {key} differs")
+        print(json.dumps({"phase": "26b", "rank": r, "queries": len(queries),
+                          "flush_ms": got["flush_ms"], "plain_flush_ms": plain_ms,
+                          "collectives": got["collectives"], "peak_bytes": got["peak_bytes"],
+                          "counters": got["counters"], "card": smi}))
+    del plain, preqs, four
+    _free(torch, dev)
+
+    # ---------------------------------------------------------------- 26a (8 ranks), 26b
+    t0 = time.perf_counter()
+    eight = run_ranks(rank26_multi, 8, {**base, "runs": [
+        ("bfs", RANK_MULTI_B_SMALL, (2, 4), ("a", "b"), ("a", "b"))], "matvec": x_mv},
+        timeout=600)
+    spawn8_s = time.perf_counter() - t0
+    rows8 = take(eight, "26a")
+    for r in (6, 7):
+        check(rows8[r]["rows"] == 0, f"phase 26a: rank {r} holds {rows8[r]['rows']} rows of 6")
+    eng = build_engine(cit, BOOL_OR_AND, stump, device=dev, fmt_spmv="bsr", fmt_spmspv="bsr")
+    srcs6 = want["bfs"][0][:RANK_MULTI_B_SMALL]
+    vm = Mesh((2, 4), ("a", "b"), device=dev)
+    bfs_multi(eng, srcs6, mesh=vm, axis_name=("a", "b"))   # the runner built, as on the ranks
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    v6 = bfs_multi(eng, srcs6, mesh=vm, axis_name=("a", "b"))
+    _sync(torch, dev)
+    v6_ms = (time.perf_counter() - t0) * 1e3
+    held_result("phase 26a virtual (2, 4) B=6", tuple(t.cpu() for t in v6),
+                type(want["bfs"][1])(*(t[:6] for t in want["bfs"][1])), "bfs")
+    print(json.dumps({"phase": "26a", "virtual": True, "app": "bfs", "B": 6, "mesh": [2, 4],
+                      "warm_wall_ms": v6_ms, "card": smi}))
+    srv = GraphQueryServer(cit, stump, device=dev)
+    part = importlib.import_module("repro_torch.core.partition")
+    pm, fn, choice = srv.partitioned_matvec("bfs", Mesh((2, 4), device=dev))
+    xp = torch.zeros(pm.plan.shape[1], dtype=torch.int32, device=dev)
+    xp[: cit.n] = torch.from_numpy(x_mv).to(dev)
+    y_virtual = fn(pm.parts, part.shard_tensor(pm.plan, xp, 0)).cpu()
+    for r, res in enumerate(eight):
+        mv = res["matvec"]
+        check(mv["stack"] == 1 and mv["strategy"] == choice.strategy,
+              f"phase 26b rank {r}: partitioned_matvec built {mv['stack']} parts, strategy "
+              f"{mv['strategy']}")
+        check(torch.equal(mv["y"], y_virtual[r:r + 1]),
+              f"phase 26b rank {r}: partitioned_matvec is not block {r} of the virtual mesh's")
+    print(json.dumps({"phase": "26b", "partitioned_matvec": "bfs", "mesh": [2, 4],
+                      "strategy": choice.strategy,
+                      "rank_ms": [res["matvec"]["ms"] for res in eight],
+                      "partition_s": [res["matvec"]["partition_s"] for res in eight],
+                      "card": smi}))
+    del pm, fn, srv, eight, y_virtual
+    print(f"phase 26a: bfs_multi at B = 6 over 8 gloo ranks on (2, 4), tuple axis, equals phase "
+          f"14's rows on every rank (ranks 6 and 7 empty); phase 26b: GraphQueryServer on 4 ranks "
+          f"answered {len(queries)} queries as the mesh-less server, partitioned_matvec on 8 "
+          f"ranks equals the virtual blocks; 8 ranks started and run in {spawn8_s:.1f} s")
+
+    # ---------------------------------------------------------------- 26c
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            nccl = rank26_nccl(0, 1, "file://" + os.path.join(tmp, "rendezvous"),
+                               {"device": where, "engine": eng, "sources": want["bfs"][0]})
+        finally:
+            if tdist.is_initialized():
+                tdist.destroy_process_group()
+    check(nccl["backend"] == "nccl", f"phase 26c: the process group is {nccl['backend']}")
+    held_result("phase 26c NCCL rank", tuple(t.cpu() for t in nccl["result"]), want["bfs"][1],
+                "bfs")
+    levels = int(nccl["result"].iterations.max())
+    check(nccl["calls"] == {"all_true": levels + (levels < 64), "gather_rows": 1},
+          f"phase 26c: collectives {nccl['calls']}")
+    print(json.dumps({"phase": "26c", "backend": "nccl", "world": 1, "B": b,
+                      "wall_ms": nccl["ms"], "collectives": nccl["calls"],
+                      "seconds": time.perf_counter() - t0, "card": smi}))
+    del eng, nccl
+    _free(torch, dev)
+    print(f"phase 26c: one NCCL rank's bfs_multi equals phase 14's batch; phase 26: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "worst": worst, "rows": rows4 + rows8}
+
+
 def main() -> int:
     import torch
 
@@ -5692,12 +6097,13 @@ def main() -> int:
     # ---------------------------------------------------------------- 24
     mark("24")
     t0 = time.perf_counter()
-    tally, errs = mesh_rows_phases(torch, dev, cit, rtx, stump, compare, all_kernels, phase14)
+    walls24: dict = {}
+    tally, errs = mesh_rows_phases(torch, dev, cit, rtx, stump, compare, all_kernels, phase14,
+                                   walls=walls24)
     for name, count in tally.items():
         launches[name] = launches.get(name, 0) + count
     for name, err in errs.items():
         worst[name] = max(worst[name], err)
-    del phase14
     print(f"phase 24: {time.perf_counter() - t0:.1f} s")
     mark("24b")
     mesh_dryrun_phase(torch, mesh_rows["bytes_23a"])
@@ -5706,6 +6112,15 @@ def main() -> int:
     mark("25")
     for name, count in rank_phases(torch, dev, cit, caq).items():
         launches[name] = launches.get(name, 0) + count
+
+    # ---------------------------------------------------------------- 26
+    mark("26")
+    got = rank_multi_phases(torch, dev, cit, stump, phase14, walls24, smi)
+    for name, count in got["launches"].items():
+        launches[name] += count
+    for name, err in got["worst"].items():
+        worst[name] = max(worst[name], err)
+    del phase14, got
     mark("done")
 
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",

@@ -29,6 +29,13 @@ tensor (``jax.device_put``, or what a reduce-scatter leaves of one
 contribution). Every device's gather result is the same tensor, so on one
 card the devices share one copy of it.
 
+``row_shares``, ``all_true`` and ``gather_rows`` hold a batch row-sharded
+over an axis (the reference's ``P(axis, None)`` block in
+``graphs/multi.py``): the rows each position owns, a stopping test over
+every position's rows and the gather of the rows back into the batch.
+Here they are local; on a ``RankMesh`` the last two are collectives, so
+one code path serves both meshes.
+
 No primitive reduces over the device axis. A ⊕ across devices is the
 caller's, with ``sr.add`` in an order it states (``core/collectives.py``
 folds in position order, left to right): ``torch.sum`` or ``amin`` over
@@ -229,6 +236,35 @@ class Mesh:
         if len(values) != n:
             raise ValueError(f"expected {n} values along {axis!r}, got {len(values)}")
         return list(values)
+
+    # ---- a row-sharded batch (the reference's P(axis, None)) -------------
+
+    def row_shares(self, batch: int, axis: Axis) -> list:
+        """(lo, hi) of the rows of a [batch, ...] block that each position
+        along ``axis`` this mesh holds owns, in position order: ⌈batch / S⌉
+        rows a position for S positions, so when S does not divide batch
+        the last positions hold fewer, or none (lo == hi), as XLA pads an
+        uneven split. Here every position's: together rows [0, batch)."""
+        c = -(-batch // self.axis_size(axis))
+        return [(min(batch, q * c), min(batch, (q + 1) * c)) for q in self.positions(axis)]
+
+    def all_true(self, flags: Tensor, axis: Axis) -> bool:
+        """Whether ``flags`` (a bool per row this mesh holds) is true on
+        every row of every position along ``axis``: here one host read of
+        the block's flags; across ranks an all-gather of one flag a
+        position, folded on the host."""
+        self._names(axis)
+        return bool(flags.all())
+
+    def gather_rows(self, tensors: Sequence[Tensor], batch: int, axis: Axis) -> list:
+        """Each of ``tensors`` (the rows this mesh holds, ``row_shares``)
+        as the whole [batch, ...] block, every position's rows in position
+        order: here the tensors themselves; across ranks one all-gather."""
+        self._names(axis)
+        for t in tensors:
+            if t.shape[0] != batch:
+                raise ValueError(f"expected {batch} rows, got {tuple(t.shape)}")
+        return list(tensors)
 
     def fold_scatter(self, fulls: Sequence[Tensor], entries, over: Axis) -> Tensor:
         """[D, *block] f32: each device's block (``scatter_full`` by

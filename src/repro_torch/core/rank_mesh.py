@@ -31,7 +31,12 @@ same order:
 * ``gather_positions`` is an all-gather over the group along the axis;
   ``split_rows`` is local, the rank's own rows;
 * ``fold_blocks`` all-gathers every rank's partial over the default group
-  and folds those of ``devices`` left to right on each rank.
+  and folds those of ``devices`` left to right on each rank;
+* a row-sharded batch (``graphs/multi.py``): ``row_shares`` is local, the
+  rows of the rank's position; ``all_true``, the stopping test, is an
+  all-gather along the axis of one flag a position, folded on the host;
+  ``gather_rows`` is one all-gather along the axis of the share's rows of
+  every tensor given, as bytes side by side, padded to ⌈B / S⌉ rows.
 
 No primitive reduces on the wire: every collective moves bytes (each
 tensor is sent as its ``uint8`` view), and a ⊕ across ranks is the
@@ -356,6 +361,41 @@ class RankMesh(Mesh):
         _, ranks = self._group(axis)
         got = self._gather_blocks(values[0], axis, "gather_positions")     # ascending flat id
         return [got[ranks.index(r)] for r in self._row(axis)]
+
+    # ---- a row-sharded batch ---------------------------------------------
+
+    def all_true(self, flags: Tensor, axis: Axis) -> bool:
+        group, ranks = self._group(axis)
+        src = self._stage_in(flags.all().reshape(1).to(torch.uint8), "flag")
+        out = self._out(len(ranks), "flags")        # on the host when staged
+        _all_gather_single(out, src, group)
+        self.wire_bytes["all_true"] += len(ranks) - 1
+        self.calls["all_true"] += 1
+        return bool(out.all())
+
+    def gather_rows(self, tensors: Sequence[Tensor], batch: int, axis: Axis) -> list:
+        """One all-gather along ``axis`` of every tensor's rows: each row
+        of the rank's share as its bytes, all tensors side by side, padded
+        to ⌈batch / S⌉ rows (``all_gather`` needs one shape on every
+        rank); the padding is dropped after."""
+        (lo, hi), = self.row_shares(batch, axis)
+        c = -(-batch // self.axis_size(axis))
+        widths = [math.prod(t.shape[1:]) * t.element_size() for t in tensors]
+        share = torch.zeros((c, sum(widths)), dtype=torch.uint8, device=self.device)
+        a = 0
+        for t, w in zip(tensors, widths):
+            if t.shape[0] != hi - lo:
+                raise ValueError(f"the rank holds rows [{lo}, {hi}), got {tuple(t.shape)}")
+            share[: hi - lo, a:a + w] = _bytes(t).view(hi - lo, w)
+            a += w
+        _, ranks = self._group(axis)
+        got = self._gather_blocks(share, axis, "gather_rows")       # ascending flat id
+        full = torch.cat([got[ranks.index(r)] for r in self._row(axis)])[:batch]
+        out, a = [], 0
+        for t, w in zip(tensors, widths):
+            out.append(full[:, a:a + w].contiguous().view(t.dtype).view(batch, *t.shape[1:]))
+            a += w
+        return out
 
     def fold_scatter(self, fulls: Sequence[Tensor], entries, over: Axis) -> Tensor:
         if len(fulls) != 1:

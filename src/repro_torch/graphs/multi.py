@@ -13,29 +13,44 @@ route the block goes through kernels 1 and 2 over [B, n]
 (kernels/ops.py), row for row bit-identical to the single-vector
 launches.
 
-``mesh``/``axis_name`` row-shard the [B, n] block over a
-``core.mesh.Mesh`` of virtual devices (the JAX package's
+``mesh``/``axis_name`` row-shard the [B, n] block (the JAX package's
 ``P(axis_name, None)``): position i along ``axis_name`` (one axis or a
-tuple of them) holds rows [i·c, (i+1)·c) with c = ⌈B / S⌉ for an axis of
+tuple of them) owns rows [i·c, (i+1)·c) with c = ⌈B / S⌉ for an axis of
 S positions, so when S does not divide B the last positions hold fewer
-rows, or none, as XLA pads an uneven split. The state stays one [B, n]
-tensor per array: its row blocks in position order are the devices'
-blocks (the [S, c, n] stack with its padding rows dropped), and devices
-that differ only along the other axes hold copies, which on one card
-share that tensor. Each level launches the block kernels once per
-position that holds rows, on its rows alone, so the adaptive switch and
-kernel 2's capacity rung decide from one device's rows; since every row
-is computed on its own, no answer moves. The elementwise update runs on
-the whole block (per device it is the same op on its rows), and the level
-loop stays one host loop for the mesh: it stops when every row on every
-device is done, the reference's scalar convergence reduction, one sync a
-level (the adaptive switch's and the capacity rung's counts are read per
-share).
+rows, or none, as XLA pads an uneven split (``Mesh.row_shares``). A
+runner builds state for the rows its mesh holds and launches the block
+kernels once a level per position that holds rows, on its rows alone, so
+the adaptive switch and kernel 2's capacity rung decide from one
+position's rows; since every row is computed on its own, no answer moves.
+The level loop is one host loop for the whole batch: it stops when every
+row of every position is done (``Mesh.all_true``, the reference's scalar
+convergence reduction), and the result rows, iteration counts and traces
+are then gathered into the whole batch (``Mesh.gather_rows``).
+
+* On a ``core.mesh.Mesh`` of virtual devices on one card the mesh holds
+  every position: the state is one [B, n] tensor per array, whose row
+  blocks in position order are the devices' blocks, and devices that
+  differ only along the other axes hold copies, which share that tensor.
+  The stopping test is one host read a level and the gather is nothing.
+* On a ``core.rank_mesh.RankMesh`` (one rank per device) a rank holds its
+  own position's rows alone, c_r × n, and launches only on them; ranks
+  that differ only along the other axes hold the same rows and compute
+  them, as copies do on the virtual mesh. Every rank takes the whole
+  inputs (sources; for relax, the whole ``dist0``/``changed0``), as the
+  reference takes one global array. The stopping test is one all-gather
+  of a flag a position along ``axis_name`` and one host read a level, the
+  result one all-gather at the end, so every rank returns the
+  ``*BatchResult`` of the ``mesh=None`` run, and every rank runs the same
+  number of levels and issues the same collectives in the same order. A
+  rank whose share is empty (B = 6 on 8 positions) launches nothing but
+  joins every collective.
 
 ``traverse_multi_buckets`` drains several source buckets through
-core.pipeline.pipeline_buckets. ``partitioned_matvec`` partitions a
-graph's transposed adjacency over a ``core.mesh.Mesh`` as the cost-model
-planner picks and builds its distributed matvec (the Fig.-3 path).
+core.pipeline.pipeline_buckets, in order on one thread, so on a
+``RankMesh`` every rank issues and materialises its buckets in the same
+order. ``partitioned_matvec`` partitions a graph's transposed adjacency
+over a mesh as the cost-model planner picks and builds its distributed
+matvec (the Fig.-3 path); on a ``RankMesh`` a rank builds its own part.
 """
 from __future__ import annotations
 
@@ -47,6 +62,7 @@ import torch
 
 from repro_torch.core.adaptive import select_kernel_batch
 from repro_torch.core.pipeline import pipeline_buckets
+from repro_torch.core.rank_mesh import RankMesh
 from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, PLUS_TIMES, Semiring
 from repro_torch.graphs.engine import GraphEngine, density_of_batch
 
@@ -104,21 +120,33 @@ def _traces(b: int, max_iters: int, dev) -> tuple[Tensor, Tensor, Tensor]:
 
 def _constrain_block(engine: GraphEngine, policy: str, batch: int, mesh, axis_name):
     """The counterpart of the reference's row-sharding constraint:
-    ``engine.batch_step_fn(policy)`` run on each device's rows when a mesh
-    is given, one call (one launch of each block kernel it picks) per
-    position along ``axis_name`` that holds rows, ⌈B / S⌉ rows a position
-    (the last ones fewer), the outputs stacked back into the [B, n]
-    block."""
+    ``(lo, hi, step, all_true, gather)``, how a runner holds its [B, n]
+    block. It holds rows [lo, hi) of the batch; ``step(xs, densities)``
+    runs on them, ``all_true(flags)`` is the stopping test over every row
+    of the batch (one host read), ``gather(tensors)`` the result rows as
+    the whole batch. Without a mesh: every row, the engine's batched step.
+    With one: the rows of the positions along ``axis_name`` that the mesh
+    holds (``mesh.row_shares``: all of them on a ``Mesh``, the rank's own
+    on a ``RankMesh``), the step run once per position that holds rows,
+    on its rows alone (a position with none launches nothing), and the
+    mesh's ``all_true`` and ``gather_rows``. Holds the step and the mesh,
+    not the engine."""
     step = engine.batch_step_fn(policy)
     if mesh is None:
-        return step
+        return 0, batch, step, lambda f: bool(f.all()), list
     if mesh.device.type != engine.device.type:
         raise ValueError(f"the mesh is on {mesh.device}, the engine on {engine.device}")
-    c = -(-batch // mesh.axis_size(axis_name))
-    shares = [(a, min(batch, a + c)) for a in range(0, batch, c)]
-    if len(shares) == 1:
-        return step
-    return lambda xs, d: torch.cat([step(xs[a:b], d[a:b]) for a, b in shares])
+    shares = mesh.row_shares(batch, axis_name)
+    lo, hi = shares[0][0], shares[-1][1]
+    held = [(a - lo, b - lo) for a, b in shares if b > a]
+    if not held:
+        own = lambda xs, _d: torch.empty_like(xs)  # noqa: E731
+    elif len(held) == 1:
+        own = step
+    else:
+        own = lambda xs, d: torch.cat([step(xs[a:b], d[a:b]) for a, b in held])  # noqa: E731
+    return (lo, hi, own, lambda f: mesh.all_true(f, axis_name),
+            lambda ts: mesh.gather_rows(ts, batch, axis_name))
 
 
 def make_bfs_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
@@ -127,12 +155,14 @@ def make_bfs_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
     """Build a runner: sources [B] (int64 on the engine's device) ->
     BFSBatchResult. Like every runner here it holds the engine's batched
     step and sizes, not the engine (see GraphEngine.batch_step_fn); with
-    a ``mesh`` the step runs on each device's rows (see the module)."""
+    a ``mesh`` it runs the rows the mesh holds (see the module)."""
     sr = _check_semiring(engine, BOOL_OR_AND, "bfs_multi")
-    n, n_true, threshold, b, dev = engine.n, engine.n_true, engine.threshold, batch, engine.device
-    step = _constrain_block(engine, policy, b, mesh, axis_name)
+    n, n_true, threshold, dev = engine.n, engine.n_true, engine.threshold, engine.device
+    lo, hi, step, all_true, gather = _constrain_block(engine, policy, batch, mesh, axis_name)
+    b = hi - lo
 
     def run(sources: Tensor) -> BFSBatchResult:
+        sources = sources[lo:hi]
         rows = torch.arange(b, device=dev)
         frontier = torch.zeros((b, n), dtype=sr.dtype, device=dev)
         frontier[rows, sources] = 1
@@ -144,7 +174,7 @@ def make_bfs_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
         iters, dens, kern = _traces(b, max_iters, dev)
 
         it = 0
-        while it < max_iters and not bool(done.all()):
+        while it < max_iters and not all_true(done):
             active = ~done
             density = density_of_batch(frontier, sr, n_true)
             used = _kernel_codes(policy, density, threshold)
@@ -158,27 +188,28 @@ def make_bfs_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
             done = done | ~(nf != 0).any(dim=1)
             frontier = nf
             it += 1
-        return BFSBatchResult(levels[:, :n_true], iters, dens, kern)
+        return BFSBatchResult(*gather([levels[:, :n_true], iters, dens, kern]))
 
     return run
 
 
-def _relax_block(sr: Semiring, n_true: int, threshold: float, step, policy: str,
+def _relax_block(sr: Semiring, n_true: int, threshold: float, block, policy: str,
                  max_iters: int, dist: Tensor, changed: Tensor) -> SSSPBatchResult:
-    """The ⟨min,+⟩ re-relaxation loop over a [B, n] state block, shared by
-    the cold-start SSSP runner and the warm-start resume runner: relax only
-    from rows' ``changed`` frontiers until no distance improves. Any (dist,
-    changed) with dist ≥ the true fixpoint pointwise and every possible
-    improvement reachable from a changed vertex converges to the exact
-    fixpoint, the property graphs/dynamic.py's incremental recompute is
-    built on."""
+    """The ⟨min,+⟩ re-relaxation loop over a [B, n] state block (the rows
+    ``block``, ``_constrain_block``'s tuple, holds), shared by the cold-start SSSP runner and the
+    warm-start resume runner: relax only from rows' ``changed`` frontiers
+    until no distance improves. Any (dist, changed) with dist ≥ the true
+    fixpoint pointwise and every possible improvement reachable from a
+    changed vertex converges to the exact fixpoint, the property
+    graphs/dynamic.py's incremental recompute is built on."""
+    _, _, step, all_true, gather = block
     b, dev = dist.shape[0], dist.device
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     iters, dens, kern = _traces(b, max_iters, dev)
 
     it = 0
-    while it < max_iters and not bool(done.all()):
+    while it < max_iters and not all_true(done):
         active = ~done
         density = density_of_batch(changed, sr, n_true)
         used = _kernel_codes(policy, density, threshold)
@@ -192,7 +223,7 @@ def _relax_block(sr: Semiring, n_true: int, threshold: float, step, policy: str,
         done = done | ~(new_changed != inf).any(dim=1)
         changed = new_changed
         it += 1
-    return SSSPBatchResult(dist[:, :n_true], iters, dens, kern)
+    return SSSPBatchResult(*gather([dist[:, :n_true], iters, dens, kern]))
 
 
 def make_sssp_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
@@ -200,14 +231,15 @@ def make_sssp_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
                     axis_name="batch") -> Callable[[Tensor], SSSPBatchResult]:
     """Build a runner: sources [B] -> SSSPBatchResult."""
     sr = _check_semiring(engine, MIN_PLUS, "sssp_multi")
-    n, n_true, threshold, b, dev = engine.n, engine.n_true, engine.threshold, batch, engine.device
-    step = _constrain_block(engine, policy, b, mesh, axis_name)
+    n, n_true, threshold, dev = engine.n, engine.n_true, engine.threshold, engine.device
+    block = _constrain_block(engine, policy, batch, mesh, axis_name)
+    lo, hi = block[:2]
 
     def run(sources: Tensor) -> SSSPBatchResult:
-        rows = torch.arange(b, device=dev)
-        dist = torch.full((b, n), float("inf"), dtype=torch.float32, device=dev)
-        dist[rows, sources] = 0.0
-        return _relax_block(sr, n_true, threshold, step, policy, max_iters, dist, dist.clone())
+        rows = torch.arange(hi - lo, device=dev)
+        dist = torch.full((hi - lo, n), float("inf"), dtype=torch.float32, device=dev)
+        dist[rows, sources[lo:hi]] = 0.0
+        return _relax_block(sr, n_true, threshold, block, policy, max_iters, dist, dist.clone())
 
     return run
 
@@ -220,16 +252,18 @@ def make_relax_multi(engine: GraphEngine, batch: int, max_iters: int = 64,
     entries reset to +inf) and ``changed0`` with the delta frontier (finite
     only where re-relaxation must start) is the incremental BFS/SSSP path of
     graphs/dynamic.py; seeding the cold start (source rows 0, the rest +inf)
-    gives :func:`make_sssp_multi`'s result bit for bit: the same loop."""
+    gives :func:`make_sssp_multi`'s result bit for bit: the same loop. With
+    a mesh the caller passes the whole blocks and the runner takes its rows."""
     sr = _check_semiring(engine, MIN_PLUS, "relax_multi")
     n, n_true, threshold = engine.n, engine.n_true, engine.threshold
-    step = _constrain_block(engine, policy, batch, mesh, axis_name)
+    block = _constrain_block(engine, policy, batch, mesh, axis_name)
+    lo, hi = block[:2]
 
     def run(dist0: Tensor, changed0: Tensor) -> SSSPBatchResult:
         pad = (0, n - dist0.shape[1])
-        dist = torch.nn.functional.pad(dist0, pad, value=float("inf"))
-        changed = torch.nn.functional.pad(changed0, pad, value=float("inf"))
-        return _relax_block(sr, n_true, threshold, step, policy, max_iters, dist, changed)
+        dist = torch.nn.functional.pad(dist0[lo:hi], pad, value=float("inf"))
+        changed = torch.nn.functional.pad(changed0[lo:hi], pad, value=float("inf"))
+        return _relax_block(sr, n_true, threshold, block, policy, max_iters, dist, changed)
 
     return run
 
@@ -243,33 +277,35 @@ def make_ppr_multi(engine: GraphEngine, batch: int, alpha: float = 0.85,
     a row stops where the single-source run stops: a sum over the [B, n]
     block's rows may round differently and move a stop near ``tol``."""
     sr = _check_semiring(engine, PLUS_TIMES, "ppr_multi")
-    n, n_true, threshold, b, dev = engine.n, engine.n_true, engine.threshold, batch, engine.device
-    step = _constrain_block(engine, policy, b, mesh, axis_name)
+    n, n_true, threshold, dev = engine.n, engine.n_true, engine.threshold, engine.device
+    lo, hi, step, all_true, gather = _constrain_block(engine, policy, batch, mesh, axis_name)
+    b = hi - lo
     tol_t = torch.tensor(tol, dtype=torch.float32, device=dev)
 
     def run(sources: Tensor) -> PPRBatchResult:
         rows = torch.arange(b, device=dev)
         e_s = torch.zeros((b, n), dtype=torch.float32, device=dev)
-        e_s[rows, sources] = 1.0
+        e_s[rows, sources[lo:hi]] = 1.0
         r = e_s
         res = torch.full((b,), float("inf"), dtype=torch.float32, device=dev)
         iters, dens, kern = _traces(b, max_iters, dev)
 
         it = 0
-        while it < max_iters and bool((res > tol_t).any()):
+        while it < max_iters and not all_true(~(res > tol_t)):
             active = res > tol_t
             density = density_of_batch(r, sr, n_true)
             used = _kernel_codes(policy, density, threshold)
             pr = step(r, density)
             r_new = (1.0 - alpha) * e_s + alpha * pr
-            res_new = torch.stack([torch.sum(torch.abs(r_new[i] - r[i])) for i in range(b)])
+            res_new = torch.stack([torch.sum(torch.abs(r_new[i] - r[i]))
+                                   for i in range(b)]) if b else res      # an empty share
             r = torch.where(active[:, None], r_new, r)
             res = torch.where(active, res_new, res)
             iters = torch.where(active, it + 1, iters)
             _masked_trace_update(dens, it, active, density)
             _masked_trace_update(kern, it, active, used)
             it += 1
-        return PPRBatchResult(r[:, :n_true], iters, dens, kern, res)
+        return PPRBatchResult(*gather([r[:, :n_true], iters, dens, kern, res]))
 
     return run
 
@@ -286,9 +322,16 @@ def _cached_runner(engine: GraphEngine, alg: str, batch: int, mesh=None,
                    axis_name="batch", **kwargs):
     """One runner per (engine, alg, batch, mesh, axis, options), kept in
     the engine instance's __dict__ (GraphEngine is an unhashable
-    dataclass). A runner depends on the mesh only through its layout, so
-    the key holds the layout (axis names, shape, device), not the mesh."""
-    layout = None if mesh is None else (mesh.axis_names, mesh.grid, str(mesh.device))
+    dataclass). On a ``Mesh`` a runner depends on the mesh only through
+    its layout, so the key holds the layout (axis names, shape, device).
+    A ``RankMesh``'s runner issues collectives over that mesh's process
+    groups and runs its rank's rows, so its key adds the class, backend,
+    rank and the mesh itself: it never shares a runner with a ``Mesh``
+    of the same layout, nor with another ``RankMesh``."""
+    layout = None if mesh is None else (type(mesh).__name__, mesh.axis_names, mesh.grid,
+                                        str(mesh.device))
+    if isinstance(mesh, RankMesh):
+        layout += (mesh.backend, mesh.rank, id(mesh))
     axis = axis_name if isinstance(axis_name, str) else tuple(axis_name)
     key = (alg, batch, layout, axis, tuple(sorted(kwargs.items())))
     cache = engine.__dict__.setdefault("_multi_runners", {})
@@ -400,8 +443,9 @@ def partitioned_matvec(graph, sr: Semiring, mesh, strategy: str = "auto",
                        seed: int = 0, batched: bool = False,
                        topology: str = "auto", merge_order: str | None = None):
     """Partition ``graph``'s transposed adjacency over ``mesh`` (axes
-    ``dr``/``dc``, a ``core.mesh.Mesh``) and build its distributed matvec,
-    with the partition decided by the cost-model planner.
+    ``dr``/``dc``, a ``core.mesh.Mesh`` or a ``RankMesh``, whose rank
+    builds its own part alone) and build its distributed matvec, with the
+    partition decided by the cost-model planner.
 
     ``strategy="auto"`` lets ``graphs.cost_model.choose_partition`` pick
     strategy+balance from the graph's degree histogram and
@@ -412,7 +456,8 @@ def partitioned_matvec(graph, sr: Semiring, mesh, strategy: str = "auto",
     pins it (``merge_order`` selects the staged-2D order, default "rc").
 
     Returns ``(pm, fn, choice)``: the PartitionedMatrix on the mesh's device
-    (its ``plan`` carries the layouts), the matvec (``batched=True``
+    (its ``plan`` carries the layouts; on a ``RankMesh`` its parts are the
+    rank's, ``[1, ...]``), the matvec (``batched=True``
     builds the [B, n]-block variant), and the PlannerChoice.
     """
     from repro_torch.core.distributed import (
@@ -432,8 +477,10 @@ def partitioned_matvec(graph, sr: Semiring, mesh, strategy: str = "auto",
     fmt = fmt or ("csc" if kernel == "spmspv" else "csr")
     rows = graph.cols.astype(np.int64)   # transposed: pull from in-neighbours
     cols = graph.rows.astype(np.int64)
+    # a rank builds its own part alone
+    part = mesh.rank if isinstance(mesh, RankMesh) else None
     pm = partition(rows, cols, vals, choice.plan.shape, choice.grid, fmt, sr,
-                   plan=choice.plan, device=mesh.device)
+                   plan=choice.plan, device=mesh.device, part=part)
     if topology == "auto":
         topology, merge_order = choice.merge, choice.merge_order
     maker = make_distributed_batched_matvec if batched else make_distributed_matvec

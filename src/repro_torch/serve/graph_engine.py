@@ -16,10 +16,26 @@ counters, ``stats()`` structure and cache-key strings. Three differences:
   arrays only and ``mutate``'s proofs and every checksum read them there.
   The first pull is the host's wait for the card (``serve/bucket_compute``).
 * **mesh** — ``mesh``/``axis_name`` row-shard each [B, n] traversal
-  block over a ``core.mesh.Mesh`` of virtual devices on the server's card
-  (graphs/multi.py): each device's rows run their own launches of the
-  block kernels, and every answer equals the mesh-less server's.
-  ``partitioned_matvec`` runs on such a mesh too.
+  block (graphs/multi.py) over a ``core.mesh.Mesh`` of virtual devices on
+  the server's card, or over a ``core.rank_mesh.RankMesh``, one rank per
+  device, each rank running its own rows: each position's rows run their
+  own launches of the block kernels, and every answer equals the
+  mesh-less server's. ``partitioned_matvec`` runs on either mesh.
+
+  On a ``RankMesh`` the server runs SPMD, the contract a ``torchrun``
+  program keeps: every rank builds the same server over the same graph
+  (with ``device=`` its own card, or the card the ranks share) and is
+  given the same ``submit``, ``mutate`` and ``flush`` calls in the same
+  order. A flush then drains the same buckets in the same order on every
+  rank, each bucket's traversal issuing its collectives (one a level, one
+  at the end) in one order everywhere, and every rank ends it with the
+  same payloads, LRU contents and counters. Whole-graph analytics run on
+  every rank, as the mesh-less server runs them, and ``mutate`` migrates
+  each rank's copy of the cache on its own, from the same payloads, so
+  every rank takes the same branch. ``AsyncGraphServer`` refuses a
+  ``RankMesh`` tenant: its windows close on each process's own clock, so
+  the ranks would drain different buckets and issue different
+  collectives.
 
 The request-batching idiom mirrors serve/engine.py's ServingEngine: callers
 ``submit`` requests, then ``flush`` resolves them. Two request kinds share
@@ -97,6 +113,7 @@ import torch
 from repro_torch.core.adaptive import DecisionStump
 from repro_torch.core.delta import apply_edge_delta, edge_diff, touched_vertices
 from repro_torch.core.device import resolve_device
+from repro_torch.core.rank_mesh import RankMesh
 from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, MIN_TIMES, PLUS_TIMES
 from repro_torch.graphs.analytics import (
     connected_components, kcore, triangle_count, triangle_reference,
@@ -399,10 +416,12 @@ class GraphQueryServer:
         ``partition_choice`` and build the distributed matvec
         (graphs.multi.partitioned_matvec) on ``mesh``, a
         ``core.mesh.Mesh`` of ``partition_devices`` virtual devices (axes
-        ``dr``/``dc``).  The Merge collective rides
-        the same choice — ``topology="auto"`` runs whichever of
-        flat/ring/tree/staged2d the wire-cost model picked alongside the
-        partition (``partition_choice.merge``); a fixed name pins it.
+        ``dr``/``dc``), or a ``RankMesh`` of as many ranks, each rank
+        building its own part and returning its own output block.  The
+        Merge collective rides the same choice — ``topology="auto"`` runs
+        whichever of flat/ring/tree/staged2d the wire-cost model picked
+        alongside the partition (``partition_choice.merge``); a fixed name
+        pins it.
         Returns ``(pm, fn, choice)``; ``pm.plan`` owns the shard/unshard
         layout helpers."""
         from repro_torch.graphs.multi import partitioned_matvec as _pmv
@@ -844,6 +863,12 @@ class AsyncGraphServer:
         ``max_wait`` overrides the server-wide latency budget."""
         if name in self._tenants:
             raise ValueError(f"tenant {name!r} already exists")
+        if isinstance(server_kwargs.get("mesh"), RankMesh):
+            raise ValueError(
+                "an AsyncGraphServer tenant cannot run on a RankMesh: its windows "
+                "close on each process's own clock, so the ranks would drain "
+                "different buckets and issue different collectives; serve it "
+                "with GraphQueryServer, whose flushes the caller orders")
         server_kwargs.setdefault("cache", self.cache)
         server = GraphQueryServer(graph, **server_kwargs)
         self.scheduler.register(name, batch_size=server.batch_size,
