@@ -87,7 +87,7 @@ Phases:
  12. Serving: the full deepseek-v2-lite-16b (27 layers, 15.7 B
      parameters) in bf16, initialised on the card from a seeded
      generator, serves 4 requests (prompts of 17, 64, 200 and 511 tokens,
-     32 new tokens each, max_seq 1024) through ``ServingEngine.run``,
+     8 new tokens each, max_seq 1024) through ``ServingEngine.run``,
      twice. Each request gets its budget, the logits are finite, kernel 7
      launches 26 × (1 + decode steps) times, the second run gives the same
      tokens, peak memory stays under 80 GB. Prefill ms, decode ms per
@@ -116,7 +116,7 @@ Phases:
      1e-6) with its iterations and kernel and density traces, four rows
      held to ``bfs_reference``/``sssp_reference``; ``traverse_multi_buckets``
      on buckets of 32, 32 and 20 padded to 32, identical at depth 0 and 2;
-     on full r-TX ``bfs_multi`` at B = 8 over 256 levels on the tile route
+     on full r-TX ``bfs_multi`` at B = 8 over 128 levels on the tile route
      (two rows held to the clipped oracle), kernel 2 over the block on its
      rows' level-64 frontiers (``torch.equal`` to kernel 2 row by row,
      timed, with its CTAs and non-empty block rows), and ``sssp_multi`` at
@@ -176,11 +176,13 @@ Phases:
      memory.
  17. Graph serving (``repro_torch.serve.graph_engine``): one
      ``AsyncGraphServer`` on a ``FakeClock`` hosts full cit-HP and r-TX
-     (batch 32, csr/csc engines, max_iters 64, pipeline depth 2, strategy
+     (batch 32, csr/csc engines, max_iters 64, r-TX's traversals 32 but
+     for the globals, pipeline depth 2, strategy
      auto, eager windows), 256 seeded traversals each (bfs/sssp/ppr in
      equal shares, 30% repeats). The deep-backlog capacity, the faster of
      two traced drains: each bucket's wall from its ``pipeline/*`` spans. Open loop at 0.5×, 1×
-     and 2× capacity with the cache off, Poisson arrivals, each flush
+     and 2× capacity over the workload (4 times for cit-HP, twice for r-TX) with the
+     cache off, Poisson arrivals, each flush
      advancing the clock by its wall, one deadline budget of 4 median
      bucket walls: misses equal the per-ticket slack oracle, conservation
      in every snapshot, bfs/sssp checksums equal at every load, the miss
@@ -204,7 +206,7 @@ Phases:
      the same f32 input; mistral-nemo-12b (40 layers, 12.25 B
      parameters, head_dim 128), deepseek-7b (int8 KV), minitron-4b and
      qwen1.5-32b (qkv bias, int8 KV, 35.2 B parameters whole) each serve
-     phase 12's 4 requests (32 new tokens, max_seq 1024) through
+     phase 12's 4 requests (8 new tokens, max_seq 1024) through
      ``ServingEngine.run``, nemo twice with the same tokens; every request
      gets its budget with finite logits, the cache tensors' bytes equal
      ``kv_cache.cache_bytes``, the int8 caches hold ``torch.int8`` codes
@@ -214,7 +216,7 @@ Phases:
      gates start closed, so the logits equal the text-only prefill's) and
      decodes with ``vision_kv``. mixtral-8x22b at the most layers that
      fit (14 of 56 unless fewer leave 6 GB free), window 4,096, capacity
-     factor 1.25: batch 2, a 4,000-token prompt and 128 decode steps
+     factor 1.25: batch 2, a 4,000-token prompt and 100 decode steps
      through the ring (it wraps at position 4,096); kernel 7 launches
      once per MoE layer in prefill and in every decode step, and its
      first prefill and decode plans (D = 6144) are held to the plain
@@ -234,7 +236,7 @@ Phases:
      card the mixtral cut at capacity factor 4.0 (no drops) prefills
      2 × 4,000 tokens and decodes 128 through the ring, each step's
      logits within rtol 1e-3, atol 1e-4 of ``forward`` over the same
-     4,128 tokens, window-masked.
+     4,100 tokens, window-masked.
  20. The ssm and hybrid families, whole in bf16 with random weights from
      seed 0 by the reference's init rule, each built, run and freed before
      the next: xlstm-1.3b (48 blocks: 6 groups of 1 sLSTM + 7 mLSTM, d
@@ -244,8 +246,8 @@ Phases:
      same tokens; every request gets its budget with finite logits, the
      cache tensors' bytes equal ``kv_cache.cache_bytes``; a profiler
      window of 3 decode steps each. Then batch 2, a 4,000-token prompt (16
-     chunks of 256) and 128 decode steps (xlstm at max_seq 1,024, having
-     no positional cache; zamba2 at 4,224): every cache tensor keeps its
+     chunks of 256) and 32 decode steps (xlstm at max_seq 1,024, having
+     no positional cache; zamba2 at 4,128): every cache tensor keeps its
      ``data_ptr`` and shape from ``init_cache`` through the last step.
      f32 cuts at full width with TF32 off and matrices redrawn (xlstm one
      group of 8 blocks, zamba2 7 layers: a group of 6 and the remainder,
@@ -393,7 +395,7 @@ Phases:
      mesh's, with its wire bytes by primitive and peak memory. (b) 4
      ranks, ``make_train_step`` on (data 2, model 2), DeepSeek-V2-Lite at
      full width, 2 layers (1,085,287,424 parameters), bf16, 4 × 2,048
-     tokens in 2 microbatches, 3 steps, after the virtual mesh's run of
+     tokens in 2 microbatches, 2 steps, after the virtual mesh's run of
      the same steps (freed before the ranks start): each rank's loss and
      grad norm ``torch.equal`` and every block's digest (two 64-bit
      position-weighted integer sums of its bytes) equal to the virtual
@@ -403,6 +405,43 @@ Phases:
      NCCL rank (world 1): (a)'s row ⟨+,×⟩ spmv and one train step on
      1×1 meshes, equal to the virtual mesh's. Every rank is joined and
      its exit code checked; a rank's failure fails the run.
+ 26. Row-sharded traversals and ``GraphQueryServer`` on ranks
+     (``rank_multi_phases``).
+ 27. One checkpoint for a whole rank mesh and ``AsyncGraphServer``
+     tenants on a ``RankMesh``, on 4 gloo ranks sharing the card
+     (``rank_ckpt_phases``), beside the virtual mesh's and the mesh-less
+     server's twins run meanwhile in the parent. (a) Phase 21d's config:
+     ``TrainDriver`` on (data 2, model 2), 12 steps, an async checkpoint
+     every 4, failures at steps 5 and 9, equal bit for bit to the
+     uninterrupted 4-rank run and to the virtual mesh's driver; its
+     checkpoint one directory, every file byte for byte the virtual
+     mesh's; restored onto (4, 1) and (1, 4) on the 4 ranks and onto (2,
+     1) on 2, each rank's blocks the virtual restore's; the launcher on
+     (2, 2) for 4 steps, relaunched on (4, 1) to step 8, equal to the
+     virtual sequence; kernels 7 and 7ᵀ launched in every driver run, and
+     their first launch on rank 0 ``torch.equal`` to the plain versions.
+     (b) Phase 25b's full-width 2-layer deepseek: its 1,085,287,424
+     parameters (bf16; the whole state is 15.2 GB, past the phase's
+     budget through gloo's host staging) saved on (data 2, model 2) and
+     restored into zero blocks, equal; per rank the save's and restore's
+     seconds, bytes received, host RSS, and the bytes on disk. (c) cit-HP
+     as one tenant of ``AsyncGraphServer`` on ``RankMesh((4,),
+     ("batch",))``, phase 17's csr/csc engines, 64 mixed queries and
+     PageRank, a ``mutate``, ``close()``, rank r's ``FakeClock``
+     advancing 1 / (1 + 3r) as far as rank 0's: every rank's payloads
+     equal to the mesh-less server's (PPR and PageRank within rtol 1e-3,
+     atol 1e-6), rank 0's decision ruling every flush (one share each),
+     conservation in every snapshot; per rank each flush's wall and the
+     shares' bytes.
+
+Order and time. Phase 24b's production meshes launch no hand-written
+kernel and time nothing on the card, so they run on the host in a
+process of their own while nvcc builds the kernels (phase 1; kernel 6's
+source in one nvcc process a semiring), and 24b's cell of phase 23a
+after phase 23. Phase 20 follows the build: its prefill and decode
+times are host-bound, so nothing else loads the host while it runs. The line before the card's
+name is ``{"phase_seconds": ...}``: each group of phases' seconds, from
+the ``[t s] phases N`` marks, so every run shows where its time goes.
 
 Launch counters: all eight are set to 0 before phase 3 and kernels 1–2
 read after phase 4. In phases 6–8 every call of the fused path, in phase
@@ -426,7 +465,8 @@ cross-check (the served path itself runs csr/csc engines and launches
 none; the count is printed), none of the eleven in phase 20, kernels
 7 and 7ᵀ in every train step of phases 21 and 23, 1b or 2b in every
 traversal of phase 24 on a mesh, and on every rank of phase 25 kernels
-1, 2, 3, 5, 1b, 2b, 6 and 6b (a) and 7 and 7ᵀ in every step (b, c). Any
+1, 2, 3, 5, 1b, 2b, 6 and 6b (a) and 7 and 7ᵀ in every step (b, c), and
+7 and 7ᵀ in every rank's driver runs of phase 27a. Any
 mismatch raises, so the run
 exits non-zero without the final ``{"ok": true, ...}`` line.
 """
@@ -439,6 +479,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -452,9 +493,12 @@ FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 INT32_OPS_PER_S = 128 * 132 * 1.98e9
 INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 DENSITIES = (0.001, 0.05, 0.6)
+PLAIN_REPS = 3                 # CUDA-event timings of a plain version (phases 2, 6), after one
+PLAIN_SLOW_REPS = 1            # and of one that takes ~0.1-1 s (phases 8, 9, 14)
 RTX_MAX_ITERS = 256
+RTX_MULTI_ITERS = 128          # phases 14 and 24: r-TX's multi-source BFS/SSSP levels
 PROMPT_LENS = (17, 64, 200, 511)
-MAX_NEW_TOKENS = 32
+MAX_NEW_TOKENS = 8
 MAX_SEQ = 1024
 MESH_GRID = (2, 4)             # phase 16: D = 8 virtual devices
 MESH_GRID_BIG = (8, 8)         # and one row at D = 64
@@ -463,20 +507,24 @@ PIPE_ITERS = 20
 SERVE_ALGS = ("bfs", "sssp", "ppr")
 SERVE_BATCH = 32               # phase 17: the servers' bucket
 SERVE_QUERIES = 256            # traversals per tenant
-SERVE_THREAD_QUERIES = 128     # per tenant in the threaded run
+SERVE_THREAD_QUERIES = 64      # per tenant in the threaded run
 SERVE_SAMPLE = 32              # cit-HP sources per algorithm held to bsr and scipy
 SERVE_LOADS = (0.5, 1.0, 2.0)  # offered load, × capacity
-SERVE_OPEN_REPEATS = 4         # the open loop's stream: the workload this many times
+# the open loop's stream: the workload 4 times over for each tenant (at
+# fewer repeats a tenant's 3-8 windows a load left its miss rates to
+# window-granularity noise, and the gate below failed)
+SERVE_OPEN_REPEATS = {"cit-HP": 4, "r-TX": 4}
+SERVE_RTX_ITERS = 32           # r-TX's traversal depth in the open loop and threaded servers
 HUBERT_FRAMES = 1500           # phase 18: frames per request, 512 wide
 MIXTRAL_LAYERS = 14            # of 56, 5.01 GB each in bf16: what one card holds
 MIXTRAL_FREE_BYTES = 6e9       # left free when fewer fit
 MIXTRAL_BATCH = 2
-MIXTRAL_PROMPT = 4000          # and 128 decode steps: the ring wraps at 4,096
-MIXTRAL_DECODE = 128
+MIXTRAL_PROMPT = 4000          # and 100 decode steps: the ring wraps at 4,096
+MIXTRAL_DECODE = 100
 SSM_ARCHS = ("xlstm-1.3b", "zamba2-1.2b")   # phase 20, whole, in bf16
 SSM_BATCH = 2
 SSM_PROMPT = 4000              # 16 chunks of 256, the last one padded
-SSM_DECODE = 128
+SSM_DECODE = 32
 SSM_LONG_SEQ = {"xlstm-1.3b": 1024,         # no positional cache at all
                 "zamba2-1.2b": SSM_PROMPT + SSM_DECODE + 96}
 SSM_CUT_LAYERS = {"xlstm-1.3b": 8,          # one group: 1 sLSTM + 7 mLSTM
@@ -505,11 +553,17 @@ RANK_SPGEMM_COLS = 512         # 25a: B's columns in the SpGEMM on ca-Q
 RANK_TRAIN_SHAPE = (2, 2)      # 25b: 4 gloo ranks, (data, model)
 RANK_TRAIN_ROWS = 4            # 25b: phase 23's 4 × 2,048 tokens a step
 RANK_TRAIN_MICRO = 2           # in 2 microbatches
-RANK_TRAIN_STEPS = 3
+RANK_TRAIN_STEPS = 2
 RANK_POD_SHAPE = (2, 2, 2)     # 25c: 8 gloo ranks, (pod, data, model)
 RANK_POD_STEPS = 2
 RANK_MULTI_B_SMALL = 6         # phase 26a: bfs over 8 gloo ranks on (2, 4): ranks 6, 7 empty
 RANK_SERVE_QUERIES = 64        # phase 26b: mixed bfs/sssp/ppr through the server on 4 ranks
+CKPT_STEPS = 12                # phase 27a: TrainDriver's run, an async checkpoint every 4 steps
+CKPT_FAILURES = (5, 9)
+CKPT_SHAPES = [(4, 1), (1, 4)]  # 27a: restored onto these on the 4 ranks, and (2, 1) on 2
+CKPT_LAUNCH = ["--seq", "64", "--global-batch", "4"]   # 27a: the launcher's minitron at 0.05
+ASYNC_QUERIES = 64             # 27c: mixed bfs/sssp/ppr on cit-HP, and PageRank
+ASYNC_SKEW = 3.0               # 27c: rank r's clock advances 1 / (1 + 3r) as far as rank 0's
 # phase 21c's device time by kind of kernel, by words of the kernel's name
 TRAIN_KERNEL_KINDS = (("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
                       ("moe_dispatch", ("moe_dispatch",)),
@@ -1225,7 +1279,7 @@ def ssm_phases(torch, dev, prompt_lens, max_new: int, max_seq: int, all_kernels)
     whole in bf16 with random weights from seed 0 by the reference's
     rule, each built, run and freed before the next: phase 12's requests
     served twice with the same tokens, a profiler window of 3 decode
-    steps, then batch 2 × a 4,000-token prompt and 128 decode steps with
+    steps, then batch 2 × a 4,000-token prompt and 32 decode steps with
     every cache tensor keeping its storage and shape from ``init_cache``
     on. Then f32 cuts at full width (TF32 off, matrices redrawn) on the
     card against the host, and on the card each decode step against
@@ -2211,7 +2265,7 @@ def dryrun_cells(torch) -> float:
 
 def mesh_rows_phases(torch, dev, cit, rtx, stump, compare, all_kernels, phase14: dict,
                      devices=MESH_ROW_DEVICES, d_rtx: int = MESH_ROW_RTX,
-                     rtx_iters: int = RTX_MAX_ITERS, n_queries: int = SERVE_QUERIES,
+                     rtx_iters: int = RTX_MULTI_ITERS, n_queries: int = SERVE_QUERIES,
                      walls: dict | None = None) -> tuple[dict, dict]:
     """Phase 24: the multi-source traversals row-sharded over ("batch",)
     meshes of virtual devices, against phase 14's single-device batched
@@ -2452,10 +2506,9 @@ def mesh_rows_phases(torch, dev, cit, rtx, stump, compare, all_kernels, phase14:
     return tally, worst
 
 
-def mesh_dryrun_phase(torch, bytes_23a: dict) -> float:
-    """Phase 24 (b): the dry run on the production meshes, on meta, and on
-    phase 23a's (2, 2) mesh against the bytes device 0's blocks hold on
-    the card. Returns its seconds."""
+def mesh_dryrun_phase(torch) -> float:
+    """Phase 24 (b): the dry run on the production meshes, on meta (no
+    card: ``main`` runs it while the kernels build). Returns its seconds."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models.config import ShapeConfig
@@ -2487,6 +2540,26 @@ def mesh_dryrun_phase(torch, bytes_23a: dict) -> float:
                   f"phase 24b {arch} {kind}: collectives {coll}")
             if kind == "multi":
                 check(coll["dcn_bytes"] > 0, f"phase 24b {arch} multi: no bytes between nodes")
+    return time.perf_counter() - t0
+
+
+def rank24b_dryrun(rank: int, world: int, init: str, payload: dict) -> float:
+    """``mesh_dryrun_phase`` in a process of its own (``main`` runs it
+    beside the kernel build and phase 20). Returns its seconds."""
+    import torch
+
+    sys.path.insert(0, payload["src"])
+    return mesh_dryrun_phase(torch)
+
+
+def mesh_dryrun_cell(torch, bytes_23a: dict) -> float:
+    """Phase 24 (b): the dry run of phase 23a's cell on its (2, 2) mesh
+    against the bytes device 0's blocks hold on the card. Returns its
+    seconds."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+
+    t0 = time.perf_counter()
     b = bytes_23a
     shape = ShapeConfig("train_23a", TRAIN_SEQ, TRAIN_BATCH, "train")
     rec, _ = dryrun.lower_cell(b["cfg"].arch_id, shape, b["mesh"], b["tcfg"], cfg=b["cfg"])
@@ -2535,7 +2608,7 @@ def graph_deltas(g, edge_delta):
 
 
 def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: int = 32,
-                 b_rtx: int = 8, rtx_iters: int = RTX_MAX_ITERS, max_iters: int = 256,
+                 b_rtx: int = 8, rtx_iters: int = RTX_MULTI_ITERS, max_iters: int = 256,
                  results: dict | None = None) -> dict:
     """Phases 14-15: kernels 1 and 2 over a [B, n] block against their plain
     versions and the single-vector kernels; the multi-source traversals on
@@ -2548,6 +2621,13 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
 
     from repro_torch.core import SEMIRINGS, build_bsr_padded
     from repro_torch.core.delta import EdgeDelta, canonicalize
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        laps[part] = now - t_lap[0]
+        t_lap[0] = now
+
     from repro_torch.core.semiring import BOOL_OR_AND, MIN_PLUS, MIN_TIMES, PLUS_TIMES
     from repro_torch.graphs import (
         bfs, bfs_multi, bfs_reference, build_engine, cc_reference, connected_components,
@@ -2601,8 +2681,9 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
 
     def trace_window(fn) -> dict:
         """One call of fn under the profiler with CUDA activity: its wall,
-        all device time, and the device time of the block fold (kernels 1
-        and 2 over a block, tile_fold_block_kernel)."""
+        all device time, the device time of the block fold (kernels 1
+        and 2 over a block, tile_fold_block_kernel) and, under
+        ``host_syncs``, ``syncs``' count of its device-to-host reads."""
         from torch.autograd import DeviceType
 
         torch.cuda.synchronize()
@@ -2620,7 +2701,9 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
                 "block_fold_launches": sum(e.count for e in block),
                 "device_launches": sum(e.count for e in kernels),
                 "device_idle_share": 1 - device_ms / wall_ms if wall_ms else None,
-                "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+                "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
+                "host_syncs": sum(e.count for e in prof.key_averages()
+                                  if e.key == "aten::_local_scalar_dense")}
 
     def syncs(fn) -> int:
         """Device-to-host reads in one call of fn: the profiler's count of
@@ -2690,7 +2773,7 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
                "seq_kernel1_ms": time_ms(lambda: [semiring_spmv_padded(a.tiles, a.tile_cols, x,
                                                                        sr=sr) for x in xs], reps=3),
                "plain_ms": time_ms(lambda: ref.spmv_padded_batch_ref(a.tiles, a.tile_cols, xs, sr),
-                                   reps=3, warmup=0) if lib is not None else None,
+                                   reps=PLAIN_SLOW_REPS, warmup=0) if lib is not None else None,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": time_ms(lambda: lib @ xs.T) if lib is not None else None}
         print(json.dumps(row))
@@ -2712,7 +2795,7 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
                 "seq_kernel2_ms": time_ms(lambda: [semiring_spmspv_padded(a.tiles, m, x, sr=sr)
                                                    for m, x in zip(meta, xd)], reps=3),
                 "plain_ms": time_ms(lambda: ref.spmspv_padded_batch_ref(a.tiles, meta, xd, sr),
-                                    reps=3, warmup=0) if lib is not None else None,
+                                    reps=PLAIN_SLOW_REPS, warmup=0) if lib is not None else None,
                 "bound_ms": bound2, "bound_by": by2,
                 "library_ms": time_ms(lambda: lib @ xd.T) if lib is not None else None}
         print(json.dumps(row2))
@@ -2721,6 +2804,7 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
             summary["semiring_spmspv_padded_batch"] = row2
         del a, xs, xsp, xs40, xsp40, live, ys, ys2, meta, union, xd, lib
         torch.cuda.empty_cache()
+    lap("block kernels")
     print("phase 14: kernels 1 and 2 over a block equal kernels 1 and 2 row by row and match "
           f"their plain versions for all five semirings at B = 1, 5, {b} and {b + 8}, an "
           f"all-pad row and per-row densities {list(DENSITIES)}")
@@ -2762,7 +2846,11 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
                 check(np.array_equal(getattr(res, field)[i].cpu().numpy(), oracle(srcs[i])),
                       f"{label} {g.name} row {i}: differs from the oracle")
                 n_oracle += 1
-        n_sync = syncs(lambda: multi(eng, srcs))
+        if traced:          # one profiled run: its device-to-host reads and its trace
+            trace = trace_window(lambda: multi(eng, srcs))
+            n_sync = trace.pop("host_syncs")
+        else:
+            n_sync = syncs(lambda: multi(eng, srcs))
         levels = int(res.iterations.max())
         row = {"app": f"{label}_multi", "graph": g.name, "B": len(srcs),
                "fmt": f"{kw.get('fmt_spmv', 'csr')}/{kw.get('fmt_spmspv', 'csc')}",
@@ -2774,7 +2862,7 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
                "launches": launches, "rows_held_to_oracle": n_oracle,
                "max_memory_allocated": peak}
         if traced:
-            row["trace"] = trace_window(lambda: multi(eng, srcs))
+            row["trace"] = trace
         apps[f"{label} {g.name}"] = row
         if results is not None:
             results[f"{label} {g.name}"] = (list(srcs), res, wall_ms)
@@ -2811,6 +2899,7 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
                           normalize=True, traced=True, **tiles)
     del eng
     torch.cuda.empty_cache()
+    lap("cit-HP multi-source")
     print(f"phase 14: cit-HP bfs/sssp/ppr_multi at B = {b} equal the single-source runs row by "
           "row (PPR within rtol 1e-3), with iterations and kernel traces")
 
@@ -2887,6 +2976,7 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
     print(json.dumps({"phase": 14, "rtx_sssp_union_calls": union_calls[0]}))
     del eng
     torch.cuda.empty_cache()
+    lap("r-TX multi-source")
     print(f"phase 14: r-TX bfs_multi (tile route, {rtx_iters} levels, held to the clipped "
           f"oracle) and sssp_multi (csr/csc, the union SpMSpV) at B = {b_rtx} equal the "
           "single-source runs")
@@ -2976,6 +3066,8 @@ def multi_phases(torch, dev, cit, rtx, stump, time_ms, compare, all_kernels, b: 
         row.update(pr_iters_warm=warm.iterations, pr_iters_cold=cold.iterations,
                    max_memory_allocated=torch.cuda.max_memory_allocated())
         print(json.dumps(row))
+    lap("incremental")
+    print(json.dumps({"phase": "14-15", "seconds_by_part": laps}))
     print(f"phase 15: cit-HP grow and churn deltas: bfs/sssp/cc_incremental equal the cold runs "
           f"at B = {b}, pagerank_warm within rtol 1e-4 of cold (no more iterations on grow)")
     for k in blocks:
@@ -3582,10 +3674,11 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
                  loads=SERVE_LOADS) -> dict:
     """Phase 17: graph serving through ``repro_torch.serve.graph_engine``.
     One AsyncGraphServer on a FakeClock hosts cit-HP and r-TX (batch 32,
-    the JAX defaults otherwise: csr/csc engines, max_iters 64, pipeline
-    depth 2, strategy "auto"). Open loop as ``benchmarks/slo_openloop.py``
+    the JAX defaults otherwise: csr/csc engines, max_iters 64 (r-TX's
+    traversals 32 in the open loop and the threaded run), pipeline depth
+    2, strategy "auto"). Open loop as ``benchmarks/slo_openloop.py``
     runs it: the deep-backlog capacity, then Poisson arrivals of the
-    workload, repeated ``SERVE_OPEN_REPEATS`` times, at each of ``loads`` ×
+    workload, repeated ``SERVE_OPEN_REPEATS`` times (by tenant), at each of ``loads`` ×
     capacity, each flush consuming simulated time equal to its wall, every
     query due two mixed windows after its arrival. Then the whole-graph
     kinds with the cache on, a mutate of cit-HP, one traced window against
@@ -3629,6 +3722,9 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
     work = {name: serve_workload(g, n_queries, 17 + i) for i, (name, g) in enumerate(graphs.items())}
     field = {"bfs": "levels", "sssp": "dist", "ppr": "rank"}
     server_kw = {"batch_size": SERVE_BATCH, "device": dev}
+    # the traversals' depth by tenant in the open loop's and the threaded
+    # servers (the globals' server keeps the default, 64)
+    served_kw = {"cit-HP": {}, "r-TX": {"max_iters": SERVE_RTX_ITERS}}
     stump = trained_stump()
     answers: dict = {}          # (tenant, algorithm, source) -> the first payload served
     ppr_bits = {"same": 0, "close": 0}
@@ -3674,12 +3770,13 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
                 return out
             server.flush = flush
 
-    def fake_server(max_wait: float, cache_capacity: int = 0, warm: bool = True):
+    def fake_server(max_wait: float, cache_capacity: int = 0, warm: bool = True,
+                    tenant_kw: dict | None = None):
         clock = FakeClock()
         srv = AsyncGraphServer(clock=clock, max_pending=1 << 16, max_wait=max_wait,
                                cache_capacity=cache_capacity)
         for name, g in graphs.items():
-            srv.add_tenant(name, g, **server_kw)
+            srv.add_tenant(name, g, **server_kw, **(tenant_kw or {}).get(name, {}))
         timed_flushes(srv, clock)
         t0 = time.perf_counter()
         for name in graphs if warm else ():  # builds every traversal engine, no deadline
@@ -3699,7 +3796,7 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
     # arrived while the previous flush ran. A timer window that times out
     # partial costs as much as a full one (one bucket per algorithm), which
     # made the lowest load miss more deadlines than the highest.
-    ol, clock, build_s = fake_server(0.0)
+    ol, clock, build_s = fake_server(0.0, tenant_kw=served_kw)
     sched = ol.scheduler
     # the deep backlog drained as one window; its spans time each bucket:
     # the runner's issue (the traversal, which syncs every level) plus its
@@ -3824,7 +3921,7 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
     budget = {name: 2 * window_wall[name] for name in graphs}
     curves = {}
     for name in graphs:
-        queries = work[name] * SERVE_OPEN_REPEATS
+        queries = work[name] * SERVE_OPEN_REPEATS[name]
         gaps = np.random.default_rng(SEED).exponential(1.0, len(queries))
         curves[name] = {}
         for mult in loads:
@@ -4000,7 +4097,7 @@ def serve_phases(torch, dev, cit, rtx, oracles, all_kernels, n_queries: int = SE
     # ---------------------------------------------------------------- threads
     ts = AsyncGraphServer(max_pending=4096, max_wait=0.005, cache_capacity=0)
     for name, g in graphs.items():
-        ts.add_tenant(name, g, **server_kw)
+        ts.add_tenant(name, g, **server_kw, **served_kw[name])
     got: dict = {}
     errors: list = []
 
@@ -4494,7 +4591,7 @@ def rank_phases(torch, dev, cit, caq) -> dict:
     Kernel-phase launches held to their plain versions on its part, the
     phase split by CUDA events beside the virtual mesh's. (b) 4 ranks,
     ``make_train_step`` on (data 2, model 2), DeepSeek-V2-Lite at full
-    width, 2 layers, bf16, 3 steps: each rank's loss and grad norm equal
+    width, 2 layers, bf16, 2 steps: each rank's loss and grad norm equal
     and every block's digest equal to the virtual mesh's block ``rank``.
     (c) The compressed step on (pod 2, data 2, model 2) at phase 21d's
     scaled config on the 8 ranks of (a): blocks and per-pod error
@@ -5149,6 +5246,535 @@ def rank_multi_phases(torch, dev, cit, stump, phase14: dict, walls24: dict, smi:
     return {"launches": launches, "worst": worst, "rows": rows4 + rows8}
 
 
+# ---------------------------------------------------------------- phase 27
+
+
+def ckpt27_blocks(tree) -> dict:
+    """{checkpoint key: a host copy of the blocks} of a mesh state's
+    ``Sharded`` leaves, and {"plain:" key: a host copy} of its plain
+    tensors."""
+    from repro_torch.distributed.sharding import Sharded
+    from repro_torch.train import checkpoint as ckpt
+    out = {}
+    for k, v in ckpt._flatten(tree).items():
+        if isinstance(v, Sharded):
+            out[k] = v.blocks.detach().cpu()
+        elif hasattr(v, "detach"):
+            out["plain:" + k] = v.detach().cpu()
+    return out
+
+
+def ckpt27_drive(torch, mesh, dev, cfg, tcfg, batches, ckpt_dir: str, failure_at,
+                 kernels=()) -> dict:
+    """``TrainDriver`` on ``mesh`` from the model of seed ``SEED``,
+    ``CKPT_STEPS`` steps, an async checkpoint every 4: losses, steps,
+    restarts, the final blocks, kernels' launches (counted from 0 just
+    before the run) and seconds; ``state`` is the live final state."""
+    from repro_torch.distributed.fault_tolerance import FTConfig, TrainDriver
+    from repro_torch.distributed.sharding import set_activation_mesh
+    from repro_torch.models.transformer import build_model
+    from repro_torch.train.train_loop import init_mesh_state, make_train_step
+    model = build_model(cfg, device=dev).init(seed=SEED)
+    params, opt = init_mesh_state(model, mesh)
+    driver = TrainDriver(make_train_step(model, mesh, tcfg), lambda i: batches[i],
+                         FTConfig(ckpt_dir=ckpt_dir, ckpt_every=4, async_save=True))
+    _sync(torch, dev)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = driver.run(params, opt, CKPT_STEPS, failure_at=failure_at)
+    _sync(torch, dev)
+    seconds = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+    set_activation_mesh(None)
+    state = {"params": out["params"], "opt": out["opt_state"]}
+    return {"losses": [h["loss"] for h in out["history"]],
+            "steps": [h["step"] for h in out["history"]], "restarts": out["restarts"],
+            "blocks": ckpt27_blocks(state), "launches": launches, "seconds": seconds,
+            "state": state}
+
+
+def ckpt27_restore(ckpt_dir: str, like, mesh, cfg) -> dict:
+    """Checkpoint ``CKPT_STEPS`` restored into ``mesh``'s parameter and
+    ZeRO-1 shardings: the blocks."""
+    from repro_torch.distributed.sharding import param_shardings, zero1_shardings
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptState
+    specs = model_specs(cfg)
+    z = zero1_shardings(mesh, specs)
+    got, _ = ckpt.restore(ckpt_dir, CKPT_STEPS, like,
+                          {"params": param_shardings(mesh, specs), "opt": OptState(None, z, z, z)})
+    return ckpt27_blocks(got)
+
+
+def ckpt27_launch(extra: list, ckpt_dir: str, steps: int, dev) -> dict:
+    """The launcher (its default minitron at 0.05) for ``steps`` steps from
+    ``ckpt_dir``: its losses and final blocks."""
+    from repro_torch.launch.train import main as train_main
+    out = train_main(["--steps", str(steps), "--device", str(dev), "--ckpt-dir", ckpt_dir]
+                     + CKPT_LAUNCH + extra)
+    return {"losses": [h["loss"] for h in out["history"]],
+            "blocks": ckpt27_blocks({"params": out["params"], "opt": out["opt_state"]})}
+
+
+def async27_serve(torch, dev, cit, stump, queries, delta, mesh=None, skew: float = 1.0) -> dict:
+    """Phase 27c's workload: ``AsyncGraphServer`` on a ``FakeClock`` with
+    cit-HP as one tenant (phase 17's csr/csc engines, ``mesh`` given or
+    none): the first half of ``queries`` and PageRank, a ``mutate``, the
+    second half, ``close()``; 30% of the queries with a deadline, the
+    clock advanced by ``skew`` times a seeded step and the server polled
+    after a quarter of them. Every flush's wall (host clock ending in a
+    sync), the payloads, the tenant's SLO snapshot after every flush."""
+    import numpy as np
+
+    from repro_torch.serve.graph_engine import AsyncGraphServer
+    from repro_torch.serve.scheduler import FakeClock
+    clock = FakeClock()
+    srv = AsyncGraphServer(clock=clock, max_pending=1024, max_wait=0.05)
+    srv.add_tenant("cit", cit, stump=stump, batch_size=SERVE_BATCH, mesh=mesh, device=dev)
+    rng = np.random.default_rng(SEED + 27)
+    walls, snaps, tickets = [], [], []
+
+    def timed(what: str, fn) -> None:
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        n = fn()
+        _sync(torch, dev)
+        walls.append({"call": what, "tickets": n, "ms": (time.perf_counter() - t0) * 1e3})
+        snaps.append(srv.stats("cit")["slo"])
+
+    half = len(queries) // 2
+    report = None
+    for epoch, qs in enumerate((list(queries[:half]) + [("pagerank", None)], queries[half:])):
+        for a, s in qs:
+            dl = float(rng.uniform(0.005, 0.1)) if rng.random() < 0.3 else None
+            tickets.append(srv.submit("cit", a, s, deadline=dl))
+            if rng.random() < 0.25:
+                clock.advance(float(rng.uniform(0.0, 0.08)) * skew)
+                timed("poll", srv.poll)
+        timed("drain", srv.drain)
+        if epoch == 0:
+            rep = {}
+            timed("mutate", lambda: rep.update(srv.mutate("cit", delta)) or 0)
+            report = rep
+    timed("close", lambda: srv.close() or 0)
+    return {"payloads": [(tk.algorithm, tk.source, tk.done(), tk.result) for tk in tickets],
+            "walls": walls, "snapshots": snaps, "report": report,
+            "slo": srv.stats("cit")["slo"]}
+
+
+def rank27_state(torch, mesh, dev, cfg, ckpt_dir: str) -> dict:
+    """Phase 27b on one rank: the full-width 2-layer model's parameters as
+    (data 2, model 2) blocks, saved (rank 0 writes) and restored into zero
+    blocks of the same shardings; the seconds, bytes received, host RSS
+    and the restored blocks' equality."""
+    import os
+    import resource
+
+    from repro_torch.convert import stack_model_params
+    from repro_torch.distributed.sharding import Sharded, param_shardings, shard_state, tree_map
+    from repro_torch.models.transformer import build_model, model_specs
+    from repro_torch.train import checkpoint as ckpt
+
+    def rss() -> dict:
+        """Host bytes: the process's peak so far and its resident set now."""
+        with open("/proc/self/statm") as f:
+            now = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+        return {"peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024, "now": now}
+
+    model = build_model(cfg, device=dev).init(seed=SEED)
+    params = shard_state(stack_model_params(cfg, dict(model.named_parameters())),
+                         param_shardings(mesh, model_specs(cfg)))
+    del model
+    _free(torch, dev)
+    is_sharded = lambda x: isinstance(x, Sharded)          # noqa: E731
+    like = tree_map(lambda s: Sharded(torch.zeros_like(s.blocks), s.sharding, s.shape), params,
+                    is_leaf=is_sharded)
+    out = {"rss_before": rss(), "block_bytes": sum(
+        v.blocks.numel() * v.blocks.element_size() for v in ckpt._flatten(params).values())}
+    wire0, calls0 = mesh.wire_bytes["gather_root"], mesh.calls["gather_root"]
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    ckpt.save(ckpt_dir, 1, {"params": params})
+    out["save_s"] = time.perf_counter() - t0
+    out["rss_after_save"] = rss()
+    out["received_bytes"] = mesh.wire_bytes["gather_root"] - wire0
+    out["gathers"] = mesh.calls["gather_root"] - calls0
+    mesh.share(b"")                         # rank 0's files are written before the reads
+    if mesh.rank == 0:
+        step = os.path.join(ckpt_dir, "step_1")
+        out["disk_bytes"] = sum(os.path.getsize(os.path.join(step, f)) for f in os.listdir(step))
+    t0 = time.perf_counter()
+    got, _ = ckpt.restore(ckpt_dir, 1, {"params": like})
+    _sync(torch, dev)
+    out["restore_s"] = time.perf_counter() - t0
+    out["rss_after_restore"] = rss()
+    a, b = ckpt._flatten(got["params"]), ckpt._flatten(params)
+    out["equal"] = a.keys() == b.keys() and all(torch.equal(a[k].blocks, b[k].blocks) for k in a)
+    out["leaves"] = len(a)
+    del params, like, got, a, b
+    _free(torch, dev)
+    return out
+
+
+def rank27(rank: int, world: int, init: str, payload: dict) -> dict:
+    """One of phase 27's 4 gloo ranks sharing the card. (a) ``TrainDriver``
+    on (data 2, model 2) uninterrupted and with failures, the first launch
+    of kernels 7 and 7ᵀ on rank 0 kept; the checkpoint restored onto (4,
+    1) and (1, 4); the launcher on (2, 2), then relaunched on (4, 1).
+    (c) ``async27_serve`` on ``RankMesh((4,), ("batch",))``, this rank's
+    clock advancing 1 / (1 + ASYNC_SKEW · rank) as far as rank 0's.
+    (b) ``rank27_state``. Then ranks 0 and 1, a world of 2 of their own,
+    restore (a)'s checkpoint onto (2, 1)."""
+    import os
+
+    import torch
+    import torch.distributed as tdist
+
+    sys.path.insert(0, payload["src"])
+    from repro_torch.core.rank_mesh import init_rank_mesh
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import rank_mesh
+
+    dev = torch.device(payload["device"])
+    t_rank = time.perf_counter()
+    laps, t_lap = {}, [t_rank]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        laps[part] = now - t_lap[0]
+        t_lap[0] = now
+
+    work, cfg, tcfg = payload["dir"], payload["cfg"], payload["tcfg"]
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in payload["batches"]]
+    kernels = rank_wrappers()
+    k7 = (kernels[7], kernels[10])
+    mesh = rank_mesh(2, 2, 0, "gloo", device=dev, init_method=init, rank=rank, world_size=world)
+    out: dict = {"held": {}}
+
+    # ---- 27a: rank 0 keeps the first launch of kernels 7 and 7ᵀ
+    caught: dict = {}
+    gather, backward = ops._moe_dispatch_gather, ops.moe_dispatch_gather_backward
+
+    def first_gather(x, slot_tok, **hint):
+        y = gather(x, slot_tok, **hint)
+        caught.setdefault("moe_dispatch_gather", (x.detach().clone(), slot_tok.clone(), y.clone()))
+        return y
+
+    def first_backward(g, tok_slots):
+        y = backward(g, tok_slots)
+        caught.setdefault("moe_dispatch_gather_backward", (g.clone(), tok_slots.clone(),
+                                                           y.clone()))
+        return y
+
+    if rank == 0:
+        ops._moe_dispatch_gather, ops.moe_dispatch_gather_backward = first_gather, first_backward
+    try:
+        out["clean"] = ckpt27_drive(torch, mesh, dev, cfg, tcfg, batches,
+                                    os.path.join(work, "clean"), None, k7)
+    finally:
+        ops._moe_dispatch_gather, ops.moe_dispatch_gather_backward = gather, backward
+    for name, (a, b, y) in caught.items():
+        plain = (ref.moe_dispatch_gather_ref if name == "moe_dispatch_gather"
+                 else ref.moe_dispatch_gather_backward_ref)(a, b)
+        _sync(torch, dev)
+        out["held"][name] = {"equal": bool(torch.equal(y, plain)),
+                             "max_abs_err": float((y.double() - plain.double()).abs().max())
+                             if y.numel() else 0.0, "shape": list(a.shape)}
+    del caught
+    out["clean"].pop("state")
+    lap("27a clean driver")
+    out["faulty"] = ckpt27_drive(torch, mesh, dev, cfg, tcfg, batches,
+                                 os.path.join(work, "faulty"), list(CKPT_FAILURES), k7)
+    like = out["faulty"].pop("state")
+    lap("27a faulty driver")
+    out["restore"] = {shape: ckpt27_restore(os.path.join(work, "faulty"), like,
+                                            rank_mesh(*shape, 0, "gloo", device=dev), cfg)
+                      for shape in CKPT_SHAPES}
+    lap("27a restores")
+    first = ckpt27_launch(["--backend", "gloo", "--data", "2", "--model", "2"],
+                          os.path.join(work, "launch"), 4, dev)
+    tdist.init_process_group("gloo", init_method=init + "_relaunch", rank=rank, world_size=world)
+    out["launcher"] = [first, ckpt27_launch(["--backend", "gloo", "--data", "4", "--model", "1"],
+                                            os.path.join(work, "launch"), 8, dev)]
+    lap("27a launcher")
+
+    # ---- 27c, 27b on a process group of their own
+    tdist.init_process_group("gloo", init_method=init + "_serve", rank=rank, world_size=world)
+    m4 = init_rank_mesh((world,), ("batch",), "gloo", device=dev)
+    shares0 = m4.calls["share"]
+    out["async"] = async27_serve(torch, dev, payload["graph"], payload["stump"],
+                                 payload["queries"], payload["delta"], mesh=m4,
+                                 skew=1.0 / (1.0 + ASYNC_SKEW * rank))
+    out["async"]["shares"] = m4.calls["share"] - shares0
+    out["async"]["share_bytes"] = m4.wire_bytes["share"]
+    _free(torch, dev)
+    lap("27c")
+    out["state"] = rank27_state(torch, rank_mesh(2, 2, 0, "gloo", device=dev), dev,
+                                payload["big_cfg"], os.path.join(work, "state"))
+    lap("27b")
+    tdist.destroy_process_group()
+    if rank < 2:
+        tdist.init_process_group("gloo", init_method=init + "_two", rank=rank, world_size=2)
+        out["restore"][(2, 1)] = ckpt27_restore(os.path.join(work, "faulty"), like,
+                                                rank_mesh(2, 1, 0, "gloo", device=dev), cfg)
+        lap("27a restore onto (2, 1)")
+    out["laps"] = laps
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def rank_ckpt_phases(torch, dev, cit, stump, smi: str) -> dict:
+    """Phase 27: one checkpoint for a whole rank mesh, restored onto rank
+    meshes of other shapes, and ``AsyncGraphServer`` tenants on a
+    ``RankMesh``, on 4 gloo ranks sharing the card (``rank27``), beside the
+    virtual mesh's and the mesh-less server's twins run meanwhile in this
+    process. (a) Phase 21d's config: ``TrainDriver`` with failures at
+    steps 5 and 9 equal bit for bit to the uninterrupted 4-rank run and to
+    the virtual mesh's driver; its checkpoint one directory, byte for byte
+    the virtual mesh's; restored onto (4, 1), (1, 4) and (2, 1), each
+    rank's blocks the virtual restore's; the launcher on (2, 2) relaunched
+    on (4, 1) equal to the virtual sequence; kernels 7 and 7ᵀ launched in
+    every rank's driver and their first launch on rank 0 equal to the
+    plain versions. (b) Phase 25b's full-width 2-layer deepseek: its
+    parameters (bf16) saved and restored on (data 2, model 2), with each
+    rank's seconds, bytes and host RSS. (c) cit-HP served by
+    ``AsyncGraphServer`` on ``RankMesh((4,), ("batch",))``, each rank's
+    clock skewed: every rank's payloads equal the mesh-less server's,
+    one shared decision a flush. Returns kernel 7's and 7ᵀ's launches."""
+    import filecmp
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.delta import EdgeDelta
+    from repro_torch.launch.mesh import small_mesh
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models.zoo import count_params, get_config
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import TrainConfig
+
+    t_phase = time.perf_counter()
+    src = str(Path(__file__).resolve().parent / "src")
+    where = "cuda:0" if dev.type == "cuda" else "cpu"
+    full = get_config("deepseek-v2-lite-16b")
+    small = scaled_config(full, 0.05)
+    small = dataclasses.replace(small, moe=dataclasses.replace(small.moe, top_k=2))
+    big = dataclasses.replace(full, n_layers=2)
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=20))
+    data = SyntheticLM(DataConfig(global_batch=8, seq_len=128, vocab=small.vocab, seed=SEED))
+    host_batches = [{k: torch.from_numpy(np.ascontiguousarray(v))
+                     for k, v in data.batch(i, 0, 1).items()} for i in range(CKPT_STEPS)]
+    queries = serve_workload(cit, ASYNC_QUERIES, SEED + 27)
+    rng = np.random.default_rng(SEED + 27)
+    ins = rng.integers(0, cit.n, (8, 2))
+    delta = EdgeDelta(insert_rows=ins[:, 0], insert_cols=ins[:, 1],
+                      delete_rows=cit.rows[:2], delete_cols=cit.cols[:2])
+    work = tempfile.mkdtemp(prefix="phase27_")
+    payload = {"src": src, "device": where, "dir": os.path.join(work, "ranks"), "cfg": small,
+               "tcfg": tcfg, "batches": host_batches, "graph": cit, "stump": stump,
+               "queries": queries, "delta": delta, "big_cfg": big}
+    print(f"phase 27: {smi}; 4 gloo ranks time-share the card, each collective staged through "
+          "pinned host buffers: their walls are not a multi-card result")
+    got: dict = {}
+
+    def ranks_run() -> None:
+        try:
+            got["ranks"] = run_ranks(rank27, 4, payload, timeout=300)
+        except BaseException as e:          # re-raised in this thread below
+            got["error"] = e
+
+    thread = threading.Thread(target=ranks_run)
+    thread.start()
+    try:
+        # the virtual mesh's and the mesh-less server's twins, meanwhile
+        v_dir = os.path.join(work, "virtual")
+        batches = [{k: v.to(dev) for k, v in b.items()} for b in host_batches]
+        vm = small_mesh(2, 2, device=dev)
+        v_drive = ckpt27_drive(torch, vm, dev, small, tcfg, batches,
+                               os.path.join(v_dir, "faulty"), list(CKPT_FAILURES))
+        like = v_drive.pop("state")
+        v_restore = {shape: ckpt27_restore(os.path.join(v_dir, "faulty"), like,
+                                           small_mesh(*shape, device=dev), small)
+                     for shape in CKPT_SHAPES + [(2, 1)]}
+        v_launch = [ckpt27_launch(["--data", "2", "--model", "2"],
+                                  os.path.join(v_dir, "launch"), 4, dev),
+                    ckpt27_launch(["--data", "4", "--model", "1"],
+                                  os.path.join(v_dir, "launch"), 8, dev)]
+        del like, batches
+        v_async = async27_serve(torch, dev, cit, stump, queries, delta)
+        v_s = time.perf_counter() - t_phase
+    finally:
+        thread.join()
+    if "error" in got:
+        raise got["error"]
+    ranks = got["ranks"]
+    ranks_s = time.perf_counter() - t_phase
+
+    def hold_blocks(g: dict, w: dict, r: int, what: str) -> None:
+        check(g.keys() == w.keys(), f"{what} rank {r}: leaves differ")
+        for k, v in w.items():
+            check(torch.equal(g[k], v if k.startswith("plain:") else v[r:r + 1]),
+                  f"{what} rank {r} {k}: not the virtual mesh's block")
+
+    # ---- 27a
+    launches = {"moe_dispatch_gather": 0, "moe_dispatch_gather_backward": 0}
+    r_dir = payload["dir"]
+    check(sorted(os.listdir(r_dir)) == ["clean", "faulty", "launch", "state"],
+          f"phase 27a: the ranks' directory holds {sorted(os.listdir(r_dir))}")
+    check(sorted(os.listdir(os.path.join(r_dir, "faulty")))
+          == sorted(os.listdir(os.path.join(v_dir, "faulty")))
+          == ["step_0", "step_12", "step_4", "step_8"],
+          "phase 27a: the driver's checkpoints are not one directory a step, 0, 4, 8 and 12")
+    a, b = (os.path.join(d, "faulty", f"step_{CKPT_STEPS}") for d in (r_dir, v_dir))
+    names = sorted(os.listdir(b))
+    match, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+    check(sorted(os.listdir(a)) == names and len(match) == len(names) and not mismatch
+          and not errors, f"phase 27a: the ranks' checkpoint differs from the virtual mesh's "
+          f"in {mismatch + errors}")
+    for r, res in enumerate(ranks):
+        clean, faulty = res["clean"], res["faulty"]
+        check(clean["restarts"] == 0 and faulty["restarts"] == len(CKPT_FAILURES),
+              f"phase 27a rank {r}: restarts {clean['restarts']} and {faulty['restarts']}")
+        by_step = dict(zip(faulty["steps"], faulty["losses"]))
+        check([by_step[i] for i in range(CKPT_STEPS)] == clean["losses"],
+              f"phase 27a rank {r}: the restarted run's losses differ from the uninterrupted run's")
+        check(clean["blocks"].keys() == faulty["blocks"].keys() and all(
+            torch.equal(faulty["blocks"][k], v) for k, v in clean["blocks"].items()),
+            f"phase 27a rank {r}: the restarted run's final blocks differ from the uninterrupted")
+        check(faulty["losses"] == v_drive["losses"] and faulty["steps"] == v_drive["steps"],
+              f"phase 27a rank {r}: the driver's losses differ from the virtual mesh's")
+        hold_blocks(faulty["blocks"], v_drive["blocks"], r, "phase 27a driver")
+        for shape, w in v_restore.items():
+            if shape in res["restore"]:
+                hold_blocks(res["restore"][shape], w, r, f"phase 27a restore onto {shape}")
+        check(all(s in res["restore"] for s in CKPT_SHAPES) and ((2, 1) in res["restore"])
+              == (r < 2), f"phase 27a rank {r}: restored onto {sorted(res['restore'])}")
+        for part, (g, w) in enumerate(zip(res["launcher"], v_launch)):
+            check(g["losses"] == w["losses"], f"phase 27a rank {r}: launcher part {part} losses "
+                  f"{g['losses']}, the virtual {w['losses']}")
+            hold_blocks(g["blocks"], w["blocks"], r, f"phase 27a launcher part {part}")
+        for run in (clean, faulty):
+            check(all(n > 0 for n in run["launches"]), f"phase 27a rank {r}: kernels 7 and 7ᵀ "
+                  f"launched {run['launches']} in the driver")
+            launches["moe_dispatch_gather"] += run["launches"][0]
+            launches["moe_dispatch_gather_backward"] += run["launches"][1]
+    check(len(v_launch[1]["losses"]) == 4, "phase 27a: the relaunch did not resume at step 4")
+    held = ranks[0]["held"]
+    check(set(held) == set(launches) and all(h["equal"] for h in held.values()),
+          f"phase 27a rank 0: kernels 7 and 7ᵀ against their plain versions {held}")
+    print(json.dumps({"phase": "27a", "config": "scaled_config(deepseek-v2-lite-16b, 0.05), top-2",
+                      "params": count_params(small), "steps": CKPT_STEPS,
+                      "failure_at": list(CKPT_FAILURES), "losses": v_drive["losses"],
+                      "restored_onto": [list(s) for s in v_restore],
+                      "launcher_losses": [v_launch[0]["losses"], v_launch[1]["losses"]],
+                      "checkpoint_files": len(names), "held_rank0": held,
+                      "driver_s": [[res["clean"]["seconds"], res["faulty"]["seconds"]]
+                                   for res in ranks],
+                      "virtual_driver_s": v_drive["seconds"], "card": smi}))
+
+    # ---- 27c
+    vp = v_async["payloads"]
+    for r, res in enumerate(ranks):
+        got_p = res["async"]["payloads"]
+        check(len(got_p) == len(vp), f"phase 27c rank {r}: {len(got_p)} tickets")
+        for (a, s, done, q), (_, _, _, p), (_, _, _, q0) in zip(got_p, vp,
+                                                                ranks[0]["async"]["payloads"]):
+            check(done and set(q) == set(p), f"phase 27c rank {r}: request {a}/{s}")
+            # csr/csc PPR and PageRank sum with atomics: within rtol 1e-3, atol
+            # 1e-6 and the stop within one iteration, as phase 26b holds them
+            same_stop = q.get("iterations") == p.get("iterations")
+            for key, w in p.items():
+                if a in ("ppr", "pagerank") and key == "iterations":
+                    check(abs(q[key] - w) <= 1, f"phase 27c rank {r} {a}/{s}: iterations")
+                elif a in ("ppr", "pagerank") and (key in ("rank", "residual") or not same_stop):
+                    np.testing.assert_allclose(q[key], w, rtol=1e-3, atol=1e-6,
+                                               err_msg=f"phase 27c rank {r} {a}/{s} {key}")
+                else:
+                    check(np.array_equal(np.asarray(q[key]), np.asarray(w)),
+                          f"phase 27c rank {r} {a}/{s}: {key} differs from the mesh-less server")
+                if a != "pagerank":     # every rank holds the same gathered rows
+                    check(np.array_equal(np.asarray(q[key]), np.asarray(q0[key])),
+                          f"phase 27c rank {r} {a}/{s}: {key} differs from rank 0's")
+        calls = [w["call"] for w in res["async"]["walls"]]
+        check(res["async"]["shares"] == len(calls),
+              f"phase 27c rank {r}: {res['async']['shares']} shares for {len(calls)} flushes")
+        check([w["tickets"] for w in res["async"]["walls"]]
+              == [w["tickets"] for w in ranks[0]["async"]["walls"]],
+              f"phase 27c rank {r}: dispatched other tickets than rank 0")
+        for snap in res["async"]["snapshots"]:
+            check(snap["admitted"] == snap["dispatched"] + snap["pending"] + snap["abandoned"]
+                  and snap["goodput"] + snap["deadline_misses"] + snap["no_deadline"]
+                  == snap["resolved"] and snap["resolved"] <= snap["dispatched"],
+                  f"phase 27c rank {r}: conservation fails in {snap}")
+        s0 = ranks[0]["async"]["slo"]
+        check(all(res["async"]["slo"][k] == s0[k] for k in ("admitted", "dispatched", "resolved")),
+              f"phase 27c rank {r}: admitted, dispatched or resolved differ from rank 0's")
+        check(res["async"]["report"] == v_async["report"], f"phase 27c rank {r}: mutate report")
+        print(json.dumps({"phase": "27c", "rank": r, "queries": len(queries) + 1,
+                          "flush_walls_ms": [[w["call"], w["tickets"], w["ms"]]
+                                             for w in res["async"]["walls"]],
+                          "shares": res["async"]["shares"],
+                          "share_bytes_received": res["async"]["share_bytes"],
+                          "slo": {k: res["async"]["slo"][k] for k in (
+                              "admitted", "dispatched", "resolved", "goodput",
+                              "deadline_misses", "no_deadline")}, "card": smi}))
+    print(json.dumps({"phase": "27c", "mesh_less": True,
+                      "flush_walls_ms": [[w["call"], w["tickets"], w["ms"]]
+                                         for w in v_async["walls"]], "card": smi}))
+
+    # ---- 27b
+    for r, res in enumerate(ranks):
+        st = res["state"]
+        check(st["equal"], f"phase 27b rank {r}: the restored blocks differ from the saved")
+        check(st["gathers"] == st["leaves"] and (st["received_bytes"] > 0) == (r == 0),
+              f"phase 27b rank {r}: {st['gathers']} gathers, {st['received_bytes']} bytes")
+        print(json.dumps({"phase": "27b", "rank": r, "arch": big.arch_id, "layers": 2,
+                          "params": count_params(big), "saved": "parameters (bf16)", **st,
+                          "laps": res["laps"], "rank_seconds": res["seconds"], "card": smi}))
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 27a: TrainDriver on 4 ranks restarted at steps 5 and 9 equals the uninterrupted "
+          f"run and the virtual mesh bit for bit; one checkpoint directory, byte for byte the "
+          f"virtual mesh's, restored onto {[list(s) for s in v_restore]}; the launcher resumed on "
+          f"(4, 1); phase 27c: {len(queries) + 1} queries on the rank tenant equal the mesh-less "
+          f"server's on every rank; phase 27b saved and restored {count_params(big):,} "
+          f"parameters; phase 27: {seconds:.1f} s (the twins {v_s:.1f} s, the ranks "
+          f"{ranks_s:.1f} s)")
+    return launches
+
+
+def stop_helpers() -> list:
+    """Stop the helper processes of the ranks' launcher (``run_ranks``'
+    fork server and multiprocessing's resource tracker), then terminate
+    any other child process still alive, so the run leaves no process
+    behind; returns the command lines of those others."""
+    import multiprocessing.forkserver
+    import multiprocessing.resource_tracker
+    import os
+    import signal
+
+    multiprocessing.forkserver._forkserver._stop()
+    multiprocessing.resource_tracker._resource_tracker._stop()
+    alive = []
+    for tid in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{tid}/children") as f:
+            for pid in f.read().split():
+                try:
+                    with open(f"/proc/{pid}/cmdline", "rb") as c:
+                        alive.append(c.read().replace(b"\0", b" ").decode().strip())
+                    os.kill(int(pid), signal.SIGTERM)
+                except OSError:         # it ended meanwhile
+                    pass
+    return alive
+
+
 def main() -> int:
     import torch
 
@@ -5190,11 +5816,15 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_main = time.perf_counter()
+    marks: list = []
 
     def mark(phases: str) -> None:
         """When each group of phases starts, in seconds of the run (the
-        1,200 s limit covers the whole run)."""
-        print(f"[{time.perf_counter() - t_main:.1f} s] phases {phases}", flush=True)
+        1,200 s limit covers the whole run); ``phase_seconds`` is each
+        group's span to the next mark."""
+        t = time.perf_counter() - t_main
+        marks.append((phases, t))
+        print(f"[{t:.1f} s] phases {phases}", flush=True)
 
     kernels = (semiring_spmv_padded, semiring_spmspv_padded)
     fused_kernels = (semiring_spmv_fused_padded, semiring_spmv_sell,
@@ -5213,18 +5843,56 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    # phase 25's ranks fork from a server that imports torch meanwhile
-    from repro_torch.launch.ranks import start_rank_server
+    # the ranks of phases 25-27 fork from a server that imports torch meanwhile
+    from repro_torch.launch.ranks import run_ranks, start_rank_server
     start_rank_server()
-    _build.build_all()
-    print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
+    built: dict = {}
+
+    def build() -> None:
+        t = time.perf_counter()
+        try:
+            _build.build_all()
+        except BaseException as e:              # re-raised once the build is joined
+            built["error"] = e
+        built["s"] = time.perf_counter() - t
+
+    def dry_run() -> None:
+        t = time.perf_counter()
+        try:
+            built["24b_s"] = run_ranks(rank24b_dryrun, 1, {"src": str(Path(__file__).resolve()
+                                                                     .parent / "src")},
+                                       timeout=600)[0]
+        except BaseException as e:              # re-raised once the thread is joined
+            built["24b_error"] = e
+        # the process's start and its imports included
+        built["24b_wall"] = time.perf_counter() - t
+
+    # phase 24b's production meshes launch no hand-written kernel: they run
+    # on the host, in a process of their own, while nvcc builds
+    helpers = [threading.Thread(target=build), threading.Thread(target=dry_run)]
+    t1 = time.perf_counter()
+    for h in helpers:
+        h.start()
+    for h in helpers:
+        h.join()
+    for key in ("error", "24b_error"):
+        if key in built:
+            raise built[key]
+    wall = time.perf_counter() - t1
+    print(f"phase 1: kernels built in {built['s']:.1f} s; phase 24b's production meshes "
+          f"{built['24b_s']:.1f} s in a process of their own ({built['24b_wall']:.1f} s with "
+          f"its start) beside the build; both in {wall:.1f} s, "
+          f"{built['s'] + built['24b_wall'] - wall:.1f} s less than one after the other")
     # per source: kernels compiled, the most registers any uses, and the
     # spill bytes (stores + loads) over all of them, from nvcc -Xptxas -v
     for src, log in _build.build_log.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
         print(f"  {src}: {len(regs)} kernels, at most {max(regs, default=0)} registers, "
-              f"{spills} spill bytes")
+              f"{spills} spill bytes, built in {_build.build_seconds.get(src, 0.0):.1f} s")
+
+    mark("20")
+    ssm_phases(torch, dev, PROMPT_LENS, MAX_NEW_TOKENS, MAX_SEQ, all_kernels)
 
     def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         """Median of ``reps`` single-call CUDA-event timings after warm-up."""
@@ -5328,7 +5996,8 @@ def main() -> int:
         row = {"kernel": "semiring_spmv_padded", "semiring": name, "graph": "cit-HP",
                "tiles": [mb, t, bm, bn], "max_abs_err": err,
                "ms": time_ms(lambda: semiring_spmv_padded(a.tiles, a.tile_cols, x, sr=sr)),
-               "plain_ms": time_ms(lambda: ref.spmv_padded_ref(a.tiles, a.tile_cols, x, sr)),
+               "plain_ms": time_ms(lambda: ref.spmv_padded_ref(a.tiles, a.tile_cols, x, sr),
+                                   reps=PLAIN_REPS, warmup=1),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": time_ms(lambda: lib @ x[:, None]) if lib is not None else None,
                "real_slots": int(lib.values().shape[0]) if lib is not None else None}
@@ -5350,7 +6019,8 @@ def main() -> int:
             row = {"kernel": "semiring_spmspv_padded", "semiring": name, "graph": "cit-HP",
                    "density": d, "n_active": n_active, "max_abs_err": err,
                    "ms": time_ms(lambda: semiring_spmspv_padded(a.tiles, meta, xd, sr=sr)),
-                   "plain_ms": time_ms(lambda: ref.spmspv_padded_ref(a.tiles, meta, xd, sr)),
+                   "plain_ms": time_ms(lambda: ref.spmspv_padded_ref(a.tiles, meta, xd, sr),
+                                       reps=PLAIN_REPS, warmup=1),
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": time_ms(lambda: lib @ xd[:, None]) if lib is not None else None}
             worst["semiring_spmspv_padded"] = max(worst["semiring_spmspv_padded"], err)
@@ -5502,7 +6172,8 @@ def main() -> int:
              "real_slots": real, "ell_slots": mb * t, "max_abs_err": err3,
              "ms": time_ms(lambda: semiring_spmv_fused_padded(a.tiles, meta3, x, sr=sr)),
              "kernel1_ms": time_ms(lambda: semiring_spmv_padded(a.tiles, a.tile_cols, x, sr=sr)),
-             "plain_ms": time_ms(lambda: ref.spmv_fused_padded_ref(a.tiles, meta3, x, sr)),
+             "plain_ms": time_ms(lambda: ref.spmv_fused_padded_ref(a.tiles, meta3, x, sr),
+                                 reps=PLAIN_REPS, warmup=1),
              "bound_ms": bound3, "bound_by": by3, "library_ms": lib_ms},
             {"kernel": "semiring_spmv_sell", "semiring": name, "graph": "cit-HP",
              "c": sell.slice_height, "sigma": sell.sigma, "slot_total": sell.slot_total,
@@ -5511,7 +6182,8 @@ def main() -> int:
              "ms": time_ms(lambda: semiring_spmv_sell(sell.tiles, sell.tile_cols, sell.row_meta,
                                                       x, sr=sr)),
              "plain_ms": time_ms(lambda: ref.spmv_sell_ref(sell.tiles, sell.tile_cols,
-                                                           sell.row_meta, x, sr)),
+                                                           sell.row_meta, x, sr),
+                                 reps=PLAIN_REPS, warmup=1),
              "bound_ms": bound4, "bound_by": by4, "library_ms": lib_ms}]
         for f, d, (y5, y5c) in zip(fronts, DENSITIES, y5s):
             meta, xd = ops._spmspv_meta(a, f, sr), ops._dense_frontier(a, f, sr)
@@ -5528,7 +6200,8 @@ def main() -> int:
                 {"kernel": "semiring_spmspv_fused_padded", "semiring": name, "graph": "cit-HP",
                  "density": d, "n_active": n_active, "max_abs_err": err5,
                  "ms": time_ms(lambda: semiring_spmspv_fused_padded(a.tiles, meta, xd, sr=sr)),
-                 "plain_ms": time_ms(lambda: ref.spmspv_padded_ref(a.tiles, meta, xd, sr)),
+                 "plain_ms": time_ms(lambda: ref.spmspv_padded_ref(a.tiles, meta, xd, sr),
+                                     reps=PLAIN_REPS, warmup=1),
                  "bound_ms": bound5, "bound_by": by5,
                  "library_ms": time_ms(lambda: lib @ xd[:, None]) if lib is not None else None})
         for row in rows:
@@ -5608,7 +6281,8 @@ def main() -> int:
                "ms": time_ms(lambda: semiring_spmv_sell(sell.tiles, sell.tile_cols,
                                                         sell.row_meta, x, sr=sr)),
                "plain_ms": time_ms(lambda: ref.spmv_sell_ref(sell.tiles, sell.tile_cols,
-                                                             sell.row_meta, x, sr), reps=3),
+                                                             sell.row_meta, x, sr),
+                                   reps=PLAIN_SLOW_REPS, warmup=1),
                "bound_ms": bound4, "bound_by": by4, "library_ms": None}
         print(json.dumps(row))
         del sell, x, y4
@@ -5716,7 +6390,7 @@ def main() -> int:
                                                             bn=bn)),
                "launch_ms": time_ms(launch_only),
                "plain_ms": time_ms(lambda: ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn),
-                                   reps=3),
+                                   reps=PLAIN_SLOW_REPS, warmup=1),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": time_ms(lib), "library": "torch.sparse.sampled_addmm",
                "library_max_abs_diff": lib_diff,
@@ -5734,7 +6408,7 @@ def main() -> int:
                "ms": time_ms(lambda: semiring_spgemm_padded(a.tiles, meta, bp, mk, sr=sr,
                                                             bn=bn)),
                "plain_ms": time_ms(lambda: ref.spgemm_padded_ref(a.tiles, meta, bp, mk, sr, bn),
-                                   reps=3),
+                                   reps=PLAIN_SLOW_REPS, warmup=1),
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         row["share_of_bound"] = bound_ms / row["ms"]
         print(json.dumps(row))
@@ -5820,7 +6494,7 @@ def main() -> int:
                                "max_abs_err": worst[k.__name__],
                                "ms": time_ms(lambda: k(a.tiles, meta, bp, mk, sr=sr, bn=bn)),
                                "plain_ms": time_ms(lambda: plain(a.tiles, meta, bp, mk, sr, bn),
-                                                   reps=3),
+                                                   reps=PLAIN_SLOW_REPS, warmup=1),
                                "bound_ms": bounds[k.__name__][0],
                                "bound_by": bounds[k.__name__][1]}
                         print(json.dumps(row))
@@ -6065,10 +6739,6 @@ def main() -> int:
     worst["moe_dispatch_gather"] = max(worst["moe_dispatch_gather"], row["max_abs_err"])
     summary["moe_dispatch_gather"] = row
 
-    # ---------------------------------------------------------------- 20
-    mark("20")
-    ssm_phases(torch, dev, PROMPT_LENS, MAX_NEW_TOKENS, MAX_SEQ, all_kernels)
-
     # ---------------------------------------------------------------- 21
     mark("21")
     t0 = time.perf_counter()
@@ -6105,8 +6775,8 @@ def main() -> int:
     for name, err in errs.items():
         worst[name] = max(worst[name], err)
     print(f"phase 24: {time.perf_counter() - t0:.1f} s")
-    mark("24b")
-    mesh_dryrun_phase(torch, mesh_rows["bytes_23a"])
+    mark("24b (the 23a cell)")
+    mesh_dryrun_cell(torch, mesh_rows["bytes_23a"])
 
     # ---------------------------------------------------------------- 25
     mark("25")
@@ -6121,6 +6791,11 @@ def main() -> int:
     for name, err in got["worst"].items():
         worst[name] = max(worst[name], err)
     del phase14, got
+
+    # ---------------------------------------------------------------- 27
+    mark("27")
+    for name, count in rank_ckpt_phases(torch, dev, cit, stump, smi).items():
+        launches[name] += count
     mark("done")
 
     sources = {"semiring_spmv_padded": ("src/repro_torch/kernels/csrc/semiring_spmv.cu",
@@ -6154,6 +6829,9 @@ def main() -> int:
                      "max_abs_err": worst[k.__name__], "ms": row["ms"],
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    phase_seconds = {name: later - t for (name, t), (_, later) in zip(marks, marks[1:])}
+    print(json.dumps({"phase_seconds": phase_seconds, "total_s": marks[-1][1],
+                      "children_stopped": stop_helpers(), "card": smi}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -6163,4 +6841,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:                # a failed run stops its helper processes too
+        stop_helpers()
+    sys.exit(code)

@@ -29,6 +29,10 @@ tensor (``jax.device_put``, or what a reduce-scatter leaves of one
 contribution). Every device's gather result is the same tensor, so on one
 card the devices share one copy of it.
 
+``gather_root`` and ``share`` serve a checkpoint and the async server's
+decisions: the full tensor of a sharding's blocks where the root writes
+it, and one host byte string from the root. Here both are local.
+
 ``row_shares``, ``all_true`` and ``gather_rows`` hold a batch row-sharded
 over an axis (the reference's ``P(axis, None)`` block in
 ``graphs/multi.py``): the rows each position owns, a stopping test over
@@ -281,6 +285,21 @@ class Mesh:
         for f in fulls[1:]:
             total = total + self.scatter_full(f, entries)
         return total
+
+    # ---- a checkpoint and a served decision ------------------------------
+
+    def gather_root(self, x: Tensor, entries) -> Tensor:
+        """The full tensor of a sharding's blocks ``x`` (``gather_full`` by
+        ``entries``) on the host, where the root writes it: here every
+        block is at hand; on a ``RankMesh`` a gather to rank 0, None on
+        the other ranks."""
+        return self.gather_full(x, entries).cpu()
+
+    def share(self, data: bytes) -> bytes:
+        """The root's ``data`` (a small host byte string: a step, a
+        decision) on every rank: here ``data`` itself; on a ``RankMesh``
+        rank 0's, broadcast."""
+        return bytes(data)
 
     def local(self, x: Tensor) -> Tensor:
         """The blocks of a [D, ...] stack of every device's that this mesh

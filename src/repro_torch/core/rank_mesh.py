@@ -36,7 +36,14 @@ same order:
   rows of the rank's position; ``all_true``, the stopping test, is an
   all-gather along the axis of one flag a position, folded on the host;
   ``gather_rows`` is one all-gather along the axis of the share's rows of
-  every tensor given, as bytes side by side, padded to ⌈B / S⌉ rows.
+  every tensor given, as bytes side by side, padded to ⌈B / S⌉ rows;
+* a checkpoint and a served decision: ``gather_root`` is one
+  ``dist.gather`` of every rank's block to rank 0 over the default group
+  (only rank 0 receives, and it alone gets the full tensor, on the host);
+  ``own_block`` is local, the rank's block of a full array (numpy or
+  torch), so a restore reads no more than it; ``share`` is two broadcasts
+  from rank 0 (a length, then the bytes) of one small host byte string:
+  a step number, or the tickets a poll dispatches.
 
 No primitive reduces on the wire: every collective moves bytes (each
 tensor is sent as its ``uint8`` view), and a ⊕ across ranks is the
@@ -116,12 +123,16 @@ class RankMesh(Mesh):
             raise ValueError(f"the nccl backend moves CUDA tensors; the blocks are on "
                              f"{self.device}")
         self.host_staged = self.backend == "gloo" and self.device.type == "cuda"
+        #: the default process group this mesh was built on: two meshes
+        #: span the same ranks exactly when they share it
+        self.world = dist.group.WORLD
         #: bytes this rank received from other ranks, and the collectives it
         #: issued, by primitive
         self.wire_bytes: Counter = Counter()
         self.calls: Counter = Counter()
         self._pinned: dict = {}
         self._positions: dict = {}
+        self._assemblers: dict = {}
         # one group per set of axes, created on every rank in the same order
         self._groups: dict = {}
         for k in range(1, len(self.grid) + 1):
@@ -352,6 +363,55 @@ class RankMesh(Mesh):
                                  f"expected [1, ...], got {tuple(full.shape)}")
             full = full[0]
         return self._block_of(full, ents, self.rank).clone()[None]
+
+    def own_block(self, full, entries):
+        """This rank's block of ``full`` (a torch tensor or a numpy array,
+        a memory map included) under the spec ``entries``: a view, so a
+        copy of it reads the block's bytes alone."""
+        ents, _ = self._entries(entries, full.ndim, ())
+        return self._block_of(full, ents, self.rank)
+
+    # ---- a checkpoint and a served decision --------------------------------
+
+    def gather_root(self, x: Tensor, entries) -> Tensor | None:
+        """The full tensor of a sharding's blocks (``gather_full`` of
+        ``x`` [1, *block] by ``entries``) on rank 0, on the host, and None
+        on every other rank: one ``dist.gather`` of every rank's block over
+        the default group. Only rank 0 receives."""
+        self._check(x)
+        b = _bytes(x[0])
+        n = b.numel()
+        src = self._stage_in(b, "send")
+        self.calls["gather_root"] += 1
+        if self.rank != 0:
+            dist.gather(src, None, dst=0)
+            return None
+        out = self._out(self.n_devices * n, "gather")
+        dist.gather(src, list(out.view(self.n_devices, n)), dst=0)
+        self.wire_bytes["gather_root"] += (self.n_devices - 1) * n
+        if out.device not in self._assemblers:      # the virtual mesh reorders the stack
+            self._assemblers[out.device] = Mesh(self.grid, self.axis_names, device=out.device)
+        stack = _from_bytes(out, x.dtype, (self.n_devices,) + tuple(x.shape[1:]))
+        return self._assemblers[out.device].gather_full(stack, entries).cpu()
+
+    def share(self, data: bytes) -> bytes:
+        """Rank 0's ``data`` on every rank (the other ranks' is ignored):
+        its length, then its bytes, broadcast from rank 0 over the default
+        group; an empty string is one broadcast."""
+        dev = self.device if self.backend == "nccl" else torch.device("cpu")
+        n = torch.tensor([len(data) if self.rank == 0 else 0], dtype=torch.int64, device=dev)
+        dist.broadcast(n, src=0)
+        k = int(n.item())
+        self.calls["share"] += 1
+        if self.rank == 0:
+            if k:
+                dist.broadcast(torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev), src=0)
+            return bytes(data)
+        buf = torch.empty(k, dtype=torch.uint8, device=dev)
+        if k:
+            dist.broadcast(buf, src=0)
+        self.wire_bytes["share"] += 8 + k
+        return buf.cpu().numpy().tobytes()
 
     def gather_positions(self, values: Sequence[Tensor], axis: Axis) -> list:
         if len(values) != 1:

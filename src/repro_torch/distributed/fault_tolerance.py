@@ -16,19 +16,33 @@ checkpoint-restart driver and straggler monitoring, on one device.
 ``TrainDriver`` takes the single-device step or a mesh step
 (``train.train_loop.make_train_step``, or the compressed step with its
 error-feedback buffer closed over) as ``step_fn``; a mesh state's blocks
-are saved as full leaves, so a checkpoint restores onto another mesh
-(``train.checkpoint.restore(..., shardings=)``, the reference's elastic
-rescale).
+are saved as full leaves, so a checkpoint restores onto another mesh:
+``run(..., shardings=)`` restores into those shardings, the reference's
+elastic rescale (``train.checkpoint.restore(..., shardings=)``).
+
+On a ``core.rank_mesh.RankMesh`` (the state's or the shardings' leaves
+lie on one) the driver runs SPMD: every rank runs the same driver with the
+same ``ckpt_dir``, ``step_fn`` and ``failure_at``. A save is the
+checkpoint's collective (rank 0 writes the one directory); before each
+read of the latest step rank 0 joins its save in flight, reads it and
+shares it with every rank (``RankMesh.share``), so every rank takes the
+same branch and restores the same step; the run ends with one more such
+share, so every rank returns after the last checkpoint is committed. A
+real crash of one rank is not this driver's: torchrun's elastic agent
+restarts the job, and the relaunch resumes from the last committed step,
+on a mesh of any shape.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import statistics
 import tempfile
 import time
 from typing import Callable, Dict, List, Optional
 
+from repro_torch.distributed.sharding import rank_mesh_of
 from repro_torch.train import checkpoint as ckpt
 
 
@@ -92,6 +106,7 @@ class TrainDriver:
         self.monitor = monitor or StragglerMonitor()
         self.restarts = 0
         self._pending_save = None
+        self._mesh = None
 
     def _save(self, step: int, params, opt_state):
         if self._pending_save is not None:
@@ -100,24 +115,34 @@ class TrainDriver:
             self.ft.ckpt_dir, step, {"params": params, "opt": opt_state},
             metadata={"step": step}, blocking=not self.ft.async_save)
 
-    def _restore(self, params, opt_state):
-        # a save still being written would leave the restore an older
-        # checkpoint: the same run, but the steps since it done again
+    def _latest_step(self) -> Optional[int]:
+        """The latest committed step, after the save in flight (a save
+        still being written would leave a restore an older checkpoint: the
+        same run, but the steps since it done again); on a ``RankMesh``
+        rank 0's, shared with every rank."""
         if self._pending_save is not None:
             self._pending_save.join()
             self._pending_save = None
-        step = ckpt.latest_step(self.ft.ckpt_dir)
+        if self._mesh is None:
+            return ckpt.latest_step(self.ft.ckpt_dir)
+        step = ckpt.latest_step(self.ft.ckpt_dir) if self._mesh.rank == 0 else None
+        return json.loads(self._mesh.share(json.dumps(step).encode()))
+
+    def _restore(self, params, opt_state, shardings=None):
+        step = self._latest_step()
         if step is None:
             return 0, params, opt_state
-        tree, _ = ckpt.restore(self.ft.ckpt_dir, step, {"params": params, "opt": opt_state})
+        tree, _ = ckpt.restore(self.ft.ckpt_dir, step, {"params": params, "opt": opt_state},
+                               shardings)
         return step, tree["params"], tree["opt"]
 
     def run(self, params, opt_state, n_steps: int,
-            failure_at: Optional[List[int]] = None) -> Dict:
+            failure_at: Optional[List[int]] = None, shardings=None) -> Dict:
         failure_at = set(failure_at or [])
         history = []
-        step, params, opt_state = self._restore(params, opt_state)
-        if ckpt.latest_step(self.ft.ckpt_dir) is None:
+        self._mesh = rank_mesh_of((params, opt_state, shardings))
+        step, params, opt_state = self._restore(params, opt_state, shardings)
+        if self._latest_step() is None:
             self._save(0, params, opt_state)     # restart anchor at step 0
         while step < n_steps:
             try:
@@ -139,8 +164,7 @@ class TrainDriver:
                 self.restarts += 1
                 if self.restarts > self.ft.max_restarts:
                     raise
-                step, params, opt_state = self._restore(params, opt_state)
-        if self._pending_save is not None:
-            self._pending_save.join()
+                step, params, opt_state = self._restore(params, opt_state, shardings)
+        self._latest_step()                     # the last save committed, on every rank
         return {"history": history, "restarts": self.restarts,
                 "final_step": step, "params": params, "opt_state": opt_state}

@@ -295,6 +295,26 @@ def shard_state(tree, shardings, dtype: torch.dtype | None = None):
     return tree_map(one, tree, shardings)
 
 
+def rank_mesh_of(tree):
+    """The ``core.rank_mesh.RankMesh`` that the ``Sharded`` and
+    ``NamedSharding`` leaves of ``tree`` lie on, or None when none lies on
+    one; every such leaf must lie on the ranks of one process group."""
+    from repro_torch.core.rank_mesh import RankMesh
+
+    found = []
+
+    def note(leaf):
+        mesh = (leaf.sharding.mesh if isinstance(leaf, Sharded)
+                else leaf.mesh if isinstance(leaf, NamedSharding) else None)
+        if isinstance(mesh, RankMesh):
+            if found and mesh.world is not found[0].world:
+                raise ValueError("the tree's leaves lie on the ranks of two process groups")
+            found.append(mesh)
+        return leaf
+    tree_map(note, tree, is_leaf=lambda x: isinstance(x, (Sharded, NamedSharding)))
+    return found[0] if found else None
+
+
 def unshard_state(tree):
     """``tree`` with every ``Sharded`` leaf gathered into its full tensor."""
     return tree_map(lambda x: x.full() if isinstance(x, Sharded) else x, tree,

@@ -2,7 +2,9 @@
 ctypes.
 
 Each source under ``csrc/`` becomes its own shared library with a plain C
-interface, compiled for ``sm_90a``. All sources that are not built yet are
+interface, compiled for ``sm_90a``; a source of ``SPLIT`` becomes one
+library for each value of its macro (``-D<macro>=<value>``), each holding
+that value's kernels alone. All libraries that are not built yet are
 compiled together, one nvcc process each. A library's file name carries a
 hash of its sources and flags, so an edited source is rebuilt and a stale
 library is never loaded. The output directory, ``kernels/build/``, is
@@ -15,7 +17,8 @@ Each C signature has its own loader, which sets the ctypes argument types:
   ``semiring_spmv_sell.cu``, ``spmspv_fused.cu``;
 * ``tile_batch_kernel`` — the same folds over a block of vectors, the
   ``*_batch`` entry points of ``semiring_spmv.cu`` and ``spmspv_tiles.cu``;
-* ``spgemm_kernel`` — the masked tile SpGEMM, ``spgemm_tiles.cu``;
+* ``spgemm_kernel`` — the masked tile SpGEMM, ``spgemm_tiles.cu``, one
+  library a semiring;
 * ``spgemm_binary_kernel`` — its tensor-core variant for 0/1 operands,
   ``spgemm_binary.cu``;
 * ``moe_dispatch_kernel`` — the MoE dispatch row gather,
@@ -35,6 +38,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
@@ -43,6 +47,10 @@ SOURCES = ("semiring_spmv.cu", "spmspv_tiles.cu", "semiring_spmv_fused.cu",
            "semiring_spmv_sell.cu", "spmspv_fused.cu", "spgemm_tiles.cu",
            "spgemm_binary.cu", "moe_dispatch.cu")
 HEADERS = ("tile_fold.cuh",)
+#: source -> (macro, n): built once for each of the macro's values 0..n-1.
+#: Kernel 6's 20 kernels (5 semirings × 4 block shapes, up to 255 registers)
+#: took ~90 s in one nvcc process, the other sources at most ~30 s
+SPLIT = {"spgemm_tiles.cu": ("SPGEMM_SEMIRING", 5)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +58,8 @@ _lock = threading.Lock()
 # nvcc's stderr (ptxas registers, spills, shared memory) per source built
 # by this process
 build_log: dict[str, str] = {}
+#: seconds from the start of the build until each source's nvcc ended
+build_seconds: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -61,46 +71,77 @@ def _nvcc() -> str:
     return path
 
 
-def _target(source: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _units() -> list:
+    """(source, its ``macro=value`` define or None) of every library."""
+    out = []
+    for s in SOURCES:
+        if s in SPLIT:
+            macro, n = SPLIT[s]
+            out += [(s, f"{macro}={v}") for v in range(n)]
+        else:
+            out.append((s, None))
+    return out
+
+
+def _unit_name(source: str, define: str | None) -> str:
+    return source if define is None else f"{source} [{define}]"
+
+
+def _target(source: str, define: str | None = None) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ((define,) if define else ())).encode())
     for name in (source, *HEADERS):
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+    tag = "" if define is None else "-" + define.split("=")[1]
+    return BUILD_DIR / f"{Path(source).stem}{tag}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> None:
-    """Compile every source whose library is missing, all nvcc processes
-    started together; raise with nvcc's output if one fails."""
+    """Compile every library that is missing, all nvcc processes started
+    together; raise with nvcc's output if one fails. ``build_log`` and
+    ``build_seconds`` are by library: the source's name, and a split
+    one's define in brackets."""
     with _lock:
-        pending = [s for s in SOURCES if not _target(s).exists()]
+        pending = [(s, d) for s, d in _units() if not _target(s, d).exists()]
         if not pending:
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
+        t0 = time.perf_counter()
         procs = []
-        for s in pending:
-            tmp = _target(s).with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
-            procs.append((s, tmp, subprocess.Popen(
+        for s, d in pending:
+            tmp = _target(s, d).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, *(() if d is None else (f"-D{d}",)), "-o", str(tmp),
+                   str(CSRC / s)]
+            procs.append((_unit_name(s, d), _target(s, d), tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        failed = []
-        for s, tmp, p in procs:
+
+        def finish(unit, p):
             out, err = p.communicate()
-            build_log[s] = out + err
+            build_seconds[unit] = time.perf_counter() - t0
+            build_log[unit] = out + err
+
+        waits = [threading.Thread(target=finish, args=(u, p)) for u, _, _, p in procs]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
+        failed = []
+        for unit, target, tmp, p in procs:
             if p.returncode != 0:
-                failed.append(f"nvcc failed on {s} (exit {p.returncode}):\n{out}{err}")
+                failed.append(f"nvcc failed on {unit} (exit {p.returncode}):\n{build_log[unit]}")
                 tmp.unlink(missing_ok=True)
             else:
-                os.replace(tmp, _target(s))
+                os.replace(tmp, target)
         if failed:
             raise RuntimeError("\n".join(failed))
 
 
-def _entry(source: str, symbol: str, argtypes: list):
-    """The C entry point ``symbol`` of ``source``, built if needed, with its
-    argument types set; every entry point returns the launch's cudaError_t."""
+def _entry(source: str, symbol: str, argtypes: list, define: str | None = None):
+    """The C entry point ``symbol`` of ``source`` (of its library for
+    ``define``, a ``SPLIT`` source's), built if needed, with its argument
+    types set; every entry point returns the launch's cudaError_t."""
     build_all()
-    fn = getattr(ctypes.CDLL(str(_target(source))), symbol)
+    fn = getattr(ctypes.CDLL(str(_target(source, define))), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -124,11 +165,16 @@ def tile_batch_kernel(source: str, symbol: str):
 
 
 @functools.lru_cache(maxsize=None)
-def spgemm_kernel():
-    """The masked tile SpGEMM: (tiles, meta, b, mask, out, path counts, T,
-    mb, nb, bm, bk, group size, semiring code, stream)."""
+def spgemm_kernel(sr_code: int):
+    """The masked tile SpGEMM of semiring ``sr_code``, from its own library:
+    (tiles, meta, b, mask, out, path counts, T, mb, nb, bm, bk, group size,
+    semiring code, stream)."""
+    macro, n = SPLIT["spgemm_tiles.cu"]
+    if not 0 <= sr_code < n:
+        raise ValueError(f"no masked tile SpGEMM for semiring code {sr_code}")
     return _entry("spgemm_tiles.cu", "semiring_spgemm_padded",
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+                  define=f"{macro}={sr_code}")
 
 
 @functools.lru_cache(maxsize=None)

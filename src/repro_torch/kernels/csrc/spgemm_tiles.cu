@@ -493,12 +493,28 @@ extern "C" int semiring_spgemm_padded(const void* tiles, const void* meta, const
   if (mb == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SPGEMM_ARGS tiles, meta, b, mask, out, counts, t_slots, mb, nb, bm, bk, s
+  // Built with -DSPGEMM_SEMIRING=<code> (kernels/_build.py builds one
+  // library a semiring, in parallel): the library holds that semiring's
+  // kernels alone, and another code returns cudaErrorInvalidValue.
+#ifndef SPGEMM_SEMIRING
+#error "spgemm_tiles.cu is built once a semiring: pass -DSPGEMM_SEMIRING=<0..4>"
+#endif
   switch (sr_code) {
+#if SPGEMM_SEMIRING == 0
     case kBoolOrAnd: return launch_semiring<kBoolOrAnd>(SPGEMM_ARGS);
+#endif
+#if SPGEMM_SEMIRING == 1
     case kMinPlus: return launch_semiring<kMinPlus>(SPGEMM_ARGS);
+#endif
+#if SPGEMM_SEMIRING == 2
     case kPlusTimes: return launch_semiring<kPlusTimes>(SPGEMM_ARGS);
+#endif
+#if SPGEMM_SEMIRING == 3
     case kMinTimes: return launch_semiring<kMinTimes>(SPGEMM_ARGS);
+#endif
+#if SPGEMM_SEMIRING == 4
     case kPlusAnd: return launch_semiring<kPlusAnd>(SPGEMM_ARGS);
+#endif
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SPGEMM_ARGS

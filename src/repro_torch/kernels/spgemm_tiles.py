@@ -110,7 +110,7 @@ def _launch(tiles: Tensor, meta: Tensor, b: Tensor, mask: Tensor, out: Tensor,
     refused."""
     mb, t, bm, bk = tiles.shape
     counts = torch.zeros(len(PATHS), dtype=torch.int64, device=tiles.device)
-    fn = _build.spgemm_kernel()
+    fn = _build.spgemm_kernel(sr.code)
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(tiles.data_ptr(), meta.data_ptr(), b.data_ptr(), mask.data_ptr(),

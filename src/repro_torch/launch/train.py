@@ -15,11 +15,15 @@ With ``--backend gloo|nccl``, under ``torchrun --nproc-per-node N`` (N =
 pod · data · model), the same mesh has one rank per device
 (``launch.mesh.rank_mesh``, from torchrun's environment): each rank holds
 its own blocks on ``cuda:LOCAL_RANK`` (or ``--device``), every mesh
-primitive is a collective, each rank checkpoints under
-``<ckpt-dir>/rank<R>`` and only rank 0 prints:
+primitive is a collective, and only rank 0 prints. The ranks checkpoint
+into the one ``--ckpt-dir`` (rank 0 writes the whole mesh's checkpoint),
+so a relaunch on a mesh of another shape resumes from its last committed
+step:
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \
-        --backend nccl --data 2 --model 2
+        --backend nccl --data 2 --model 2 --steps 50 --ckpt-dir <dir>
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --backend nccl --data 4 --model 1 --steps 100 --ckpt-dir <dir>
 """
 from __future__ import annotations
 
@@ -109,11 +113,9 @@ def main(argv=None) -> dict:
     )
 
     cfg = scaled_config(get_config(args.arch), args.scale)
-    ckpt_dir = args.ckpt_dir
     if args.backend:
         mesh = rank_mesh(args.data, args.model, args.pod, args.backend, device=args.device)
         device = mesh.device
-        ckpt_dir = os.path.join(ckpt_dir, f"rank{mesh.rank}")
     else:
         device = resolve_device(args.device)
         on_mesh = args.data > 1 or args.model > 1 or args.pod > 1 or args.compress_pod
@@ -152,7 +154,7 @@ def main(argv=None) -> dict:
         return device_batch(source.batch(step_idx, 0, 1), device)
 
     driver = TrainDriver(step_fn, batch_fn,
-                         FTConfig(ckpt_dir=ckpt_dir,
+                         FTConfig(ckpt_dir=args.ckpt_dir,
                                   ckpt_every=args.ckpt_every))
     out = driver.run(params, opt_state, args.steps)
     h = out["history"]

@@ -32,10 +32,31 @@ counters, ``stats()`` structure and cache-key strings. Three differences:
   same payloads, LRU contents and counters. Whole-graph analytics run on
   every rank, as the mesh-less server runs them, and ``mutate`` migrates
   each rank's copy of the cache on its own, from the same payloads, so
-  every rank takes the same branch. ``AsyncGraphServer`` refuses a
-  ``RankMesh`` tenant: its windows close on each process's own clock, so
-  the ranks would drain different buckets and issue different
-  collectives.
+  every rank takes the same branch.
+
+  ``AsyncGraphServer`` serves ``RankMesh`` tenants under the same
+  contract: every rank builds the same server (each with its own clock)
+  and makes the same ``add_tenant``, ``submit``, ``mutate``, ``poll``,
+  ``drain`` and ``close`` calls in the same order, so ticket ``seq``
+  numbers agree across ranks. Windows would close on each process's own
+  clock, so once a tenant is on a ``RankMesh``, rank 0 decides: each
+  ``poll()``, ``drain()`` and ``close()``, and the drain inside
+  ``mutate()``, takes the windows due on rank 0's clock in EDF order by
+  its deadlines, shares them as ``[[tenant, [seq, ...]], ...]``
+  (``RankMesh.share``; an empty decision too) and every rank pops exactly
+  those tickets in that order (``WindowScheduler.decide``), the server's
+  local tenants included. So every rank drains the same buckets in the
+  same order and issues the same traversal collectives, and every rank
+  keeps the same pending count, so the same ``submit`` is refused on
+  every rank. Each rank's SLO account judges its own tickets on its own
+  clock: ``admitted``, ``dispatched`` and ``resolved`` agree across
+  ranks, ``goodput`` and ``deadline_misses`` may not, and ``stats()``'s
+  conservation laws hold on every rank. A ticket's ``wait(timeout)`` that
+  times out abandons nothing there: it raises and the ticket stays queued
+  on every rank until a shared flush takes it. Every ``RankMesh`` tenant must
+  span the ranks of one process group. ``start()`` refuses such a server:
+  a follower rank's ``submit`` would race its own loop thread, so
+  admission could differ by rank.
 
 The request-batching idiom mirrors serve/engine.py's ServingEngine: callers
 ``submit`` requests, then ``flush`` resolves them. Two request kinds share
@@ -850,6 +871,17 @@ class AsyncGraphServer:
         self._slo: Dict[str, SLOAccount] = {}
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        #: the first RankMesh tenant's mesh: rank 0 of it decides every flush
+        self._ranks: Optional[RankMesh] = None
+
+    _THREADED_RANKS = (
+        "an AsyncGraphServer with a RankMesh tenant runs no loop thread: a follower "
+        "rank's submit would race its own loop thread, so admission could differ by "
+        "rank; drive it with poll(), drain() and close() in the same order on every rank")
+
+    def _decide(self, view) -> bytes:
+        """Rank 0's flush decision on every rank (``WindowScheduler.decide``)."""
+        return self._ranks.share(view() if self._ranks.rank == 0 else b"")
 
     # ------------------------------------------------------------ tenants
     def add_tenant(self, name: str, graph: Graph,
@@ -863,14 +895,20 @@ class AsyncGraphServer:
         ``max_wait`` overrides the server-wide latency budget."""
         if name in self._tenants:
             raise ValueError(f"tenant {name!r} already exists")
-        if isinstance(server_kwargs.get("mesh"), RankMesh):
-            raise ValueError(
-                "an AsyncGraphServer tenant cannot run on a RankMesh: its windows "
-                "close on each process's own clock, so the ranks would drain "
-                "different buckets and issue different collectives; serve it "
-                "with GraphQueryServer, whose flushes the caller orders")
+        mesh = server_kwargs.get("mesh")
+        if isinstance(mesh, RankMesh):
+            if self._thread is not None:
+                raise ValueError(self._THREADED_RANKS)
+            if self._ranks is not None and mesh.world is not self._ranks.world:
+                raise ValueError(
+                    f"tenant {name!r}'s RankMesh spans the ranks of another process "
+                    f"group than the server's other RankMesh tenants: one decision "
+                    f"cannot order both")
         server_kwargs.setdefault("cache", self.cache)
         server = GraphQueryServer(graph, **server_kwargs)
+        if isinstance(mesh, RankMesh) and self._ranks is None:
+            self._ranks = mesh
+            self.scheduler.decide = self._decide
         self.scheduler.register(name, batch_size=server.batch_size,
                                 max_wait=max_wait)
         self._tenants[name] = server
@@ -1031,7 +1069,10 @@ class AsyncGraphServer:
 
     # ----------------------------------------------------------- threaded
     def start(self) -> "AsyncGraphServer":
-        """Run the event loop on a background thread (real clock)."""
+        """Run the event loop on a background thread (real clock); a server
+        with a ``RankMesh`` tenant raises (see the module docstring)."""
+        if self._ranks is not None:
+            raise ValueError(self._THREADED_RANKS)
         if self._thread is None:
             self._stop.clear()
             self._thread = threading.Thread(

@@ -49,6 +49,23 @@ Invariants the tests pin (tests/test_torch_scheduler.py):
   ``admitted == dispatched + pending + abandoned`` per tenant, in every
   ``stats()`` snapshot).
 
+Shared decisions (``decide``): ranks of one SPMD program each run a
+scheduler, each with its own clock, and are given the same ``submit``
+calls in the same order, so ticket ``seq`` numbers agree across ranks.
+With ``decide`` set, every ``poll()`` and ``drain()`` hands it a
+function that encodes this scheduler's own choice, the windows it would
+take in EDF order as ``[[tenant, [seq, ...]], ...]``; ``decide`` returns
+the root's encoding on every rank (the root alone calls the function;
+``AsyncGraphServer`` shares it with ``RankMesh.share``), and every rank
+pops exactly those tickets, by ``seq`` and in that order, whatever its own
+clock says. So every rank flushes the same windows in the same order and
+keeps the same pending count. A decision is shared on every call, an
+empty one included: a rank that skipped it would hang the others. A
+ticket leaves its window only by such a decision: ``QueryTicket.wait``
+that times out raises and leaves the ticket queued, abandoning nothing,
+since one rank's abandonment would leave the ranks holding different
+tickets.
+
 SLO accounting (tests/test_torch_async_server.py): every ticket carries a
 ``request_id`` and the window it was batched into (``window_id``), plus
 its full timeline — admitted → dispatched → resolved — on the
@@ -61,6 +78,7 @@ account per tenant and surfaces it as ``stats(tenant)["slo"]``.
 from __future__ import annotations
 
 import itertools
+import json
 import math
 import threading
 import time
@@ -202,7 +220,9 @@ class QueryTicket:
         A timeout abandons the ticket: the scheduler counts it per
         tenant (``wait_timeouts``; ``abandoned`` too when it was still
         queued, in which case it leaves the window and will never
-        dispatch) before the TimeoutError is raised."""
+        dispatch) before the TimeoutError is raised. With shared
+        decisions (``decide``) a timeout abandons and counts nothing: the
+        ticket stays queued until a shared ``poll()`` or ``drain()``."""
         if not self._event.wait(timeout):
             if self._sched is not None:
                 self._sched._on_wait_timeout(self)
@@ -341,6 +361,9 @@ class WindowScheduler:
         self.dispatched = 0
         self.abandoned = 0
         self.depth_high_water = 0
+        #: None, or ``decide(view) -> bytes``: the root's ``view()`` on
+        #: every rank (see the module docstring)
+        self.decide: Optional[Callable[[Callable[[], bytes]], bytes]] = None
 
     # ------------------------------------------------------------- setup
     def register(self, name: str, batch_size: int = 8,
@@ -415,13 +438,7 @@ class WindowScheduler:
         conservation holds in every snapshot, not just after the
         executor returns (the global ``dispatched`` keeps its
         post-executor semantics)."""
-        tickets = sorted(tq.tickets, key=_edf_key)
-        tq.tickets = []
-        self._pending -= len(tickets)
-        tq.dispatched += len(tickets)
-        for tk in tickets:
-            tk.dispatched_at = now
-        return tickets
+        return self._take_seqs(tq, [tk.seq for tk in sorted(tq.tickets, key=_edf_key)], now)
 
     def _run(self, batches: List[Tuple[str, List[QueryTicket]]]) -> int:
         """Execute popped windows outside the lock; returns #tickets."""
@@ -434,27 +451,69 @@ class WindowScheduler:
                 self.dispatched += n
         return n
 
+    def _take_seqs(self, tq: _TenantQueue, seqs: List[int],
+                   now: float) -> List[QueryTicket]:
+        """Pop exactly the tickets ``seqs`` of a window, in that order
+        (lock held), and account for them as ``_take`` says. A ``seq``
+        this scheduler has not queued means the ranks' calls differ: it
+        raises."""
+        by_seq = {tk.seq: tk for tk in tq.tickets}
+        missing = [q for q in seqs if q not in by_seq]
+        if missing:
+            raise RuntimeError(
+                f"the shared decision dispatches tickets {missing} of tenant "
+                f"{tq.name!r} that this scheduler has not queued: the ranks' "
+                f"submit calls differ")
+        tickets = [by_seq[q] for q in seqs]
+        taken = set(seqs)
+        tq.tickets = [tk for tk in tq.tickets if tk.seq not in taken]
+        self._pending -= len(tickets)
+        tq.dispatched += len(tickets)
+        for tk in tickets:
+            tk.dispatched_at = now
+        return tickets
+
+    def _flush(self, due_only: bool, tenant: Optional[str] = None) -> int:
+        """Flush the due windows (``due_only``) or every pending window
+        (of ``tenant`` when given): this scheduler's choice, or with
+        ``decide`` the root's."""
+        def chosen(now: float) -> List[_TenantQueue]:
+            tqs = ([self._tenants[tenant]] if tenant is not None
+                   else list(self._tenants.values()))
+            if due_only:
+                return [tq for tq in tqs
+                        if (d := self._due_at(tq)) is not None and d <= now]
+            return [tq for tq in tqs if tq.tickets]
+
+        if self.decide is None:
+            with self._cond:
+                now = self.clock.now()
+                batches = [(tq.name, self._take(tq, now)) for tq in chosen(now)]
+            return self._run(batches)
+
+        def view() -> bytes:
+            with self._cond:
+                return json.dumps(
+                    [[tq.name, [tk.seq for tk in sorted(tq.tickets, key=_edf_key)]]
+                     for tq in chosen(self.clock.now())]).encode()
+
+        decision = json.loads(self.decide(view))
+        with self._cond:
+            now = self.clock.now()
+            batches = [(name, self._take_seqs(self._tenants[name], seqs, now))
+                       for name, seqs in decision]
+        return self._run(batches)
+
     def poll(self) -> int:
         """Flush every window due at ``clock.now()``; returns the number
         of tickets dispatched. The manual pump for fake-clock tests and
         the body of the threaded ``run_loop``."""
-        with self._cond:
-            now = self.clock.now()
-            batches = [(tq.name, self._take(tq, now))
-                       for tq in self._tenants.values()
-                       if (d := self._due_at(tq)) is not None and d <= now]
-        return self._run(batches)
+        return self._flush(due_only=True)
 
     def drain(self, tenant: Optional[str] = None) -> int:
         """Flush every pending window *now*, due or not — the shutdown
         and pre-mutation barrier. ``tenant`` restricts to one tenant."""
-        with self._cond:
-            now = self.clock.now()
-            tqs = ([self._tenants[tenant]] if tenant is not None
-                   else list(self._tenants.values()))
-            batches = [(tq.name, self._take(tq, now))
-                       for tq in tqs if tq.tickets]
-        return self._run(batches)
+        return self._flush(due_only=False, tenant=tenant)
 
     # ------------------------------------------------------- abandonment
     def _on_wait_timeout(self, ticket: QueryTicket) -> bool:
@@ -467,7 +526,16 @@ class WindowScheduler:
         stays exact.  A ticket that already left the window (dispatched,
         or mid-dispatch on another thread) is left alone — its executor
         will still resolve it.  Returns True when the ticket was
-        abandoned before dispatch."""
+        abandoned before dispatch.
+
+        With ``decide`` set it raises TimeoutError and leaves the ticket
+        queued: every rank holds the ticket, and only a shared decision
+        may take it out of its window."""
+        if self.decide is not None:
+            raise TimeoutError(
+                f"ticket {ticket.seq} ({ticket.tenant}/{ticket.algorithm}) stays "
+                "queued: its window is a decision the ranks share, so a wait on "
+                "one rank cannot abandon it; poll() or drain() on every rank")
         with self._cond:
             tq = self._tenants.get(ticket.tenant)
             if tq is None:

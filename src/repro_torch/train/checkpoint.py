@@ -1,5 +1,5 @@
 """Checkpoints with a manifest, an atomic commit and async saves
-(``repro.train.checkpoint``), restored onto one device.
+(``repro.train.checkpoint``), restored onto one device or any mesh.
 
 Layout: <dir>/step_<N>/
     manifest.json        {"step", "metadata", "arrays": {key: {file, shape, dtype}}}
@@ -20,10 +20,19 @@ tensor and restored into its blocks. With ``shardings`` (a tree of
 ``NamedSharding`` leaves, as ``like``) each full leaf is cut into the
 blocks of that sharding instead: a checkpoint written on one mesh
 restores onto another, the reference's elastic re-shard.
+
+On a ``core.rank_mesh.RankMesh`` a checkpoint is still one directory for
+the whole mesh, in this layout and byte for byte the virtual mesh's:
+``save`` is a collective whose leaves are gathered to rank 0, which alone
+writes; ``restore`` needs no collective, each rank memory-mapping the
+files and reading its own blocks. So a run on (2, 2) ranks restores onto
+(4, 1), (1, 4), fewer ranks or one process, and the reference's
+``latest_step`` and ``restore`` read it.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import threading
@@ -32,7 +41,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import NamedSharding, Sharded
+from repro_torch.core.rank_mesh import RankMesh
+from repro_torch.distributed.sharding import NamedSharding, Sharded, rank_mesh_of
 
 _SENTINEL = "COMMITTED"
 
@@ -57,29 +67,47 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def _to_host(leaf) -> np.ndarray:
-    """A leaf as a numpy array of its own (bf16 as uint16 bits; a
-    ``Sharded`` leaf as its full tensor)."""
-    if isinstance(leaf, Sharded):
-        leaf = leaf.full()
-    if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16)
-        return t.numpy()
-    return np.array(leaf)
+def _to_host(t: torch.Tensor, fresh: bool = False) -> np.ndarray:
+    """A tensor as a numpy array of its own (bf16 as uint16 bits); a
+    ``fresh`` host tensor is not copied again."""
+    t = t.detach()
+    if not (fresh and t.device.type == "cpu"):
+        t = t.to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def save(ckpt_dir: str, step: int, tree, metadata: Optional[dict] = None,
          blocking: bool = True) -> threading.Thread | None:
     """Write one checkpoint. The leaves are copied to the host before this
     returns; ``blocking=False`` then writes them from a daemon thread (off
-    the step's critical path) and returns it."""
+    the step's critical path) and returns it.
+
+    On a ``RankMesh`` (the tree's ``Sharded`` leaves lie on one) the save
+    is a collective: every rank calls it with the same tree. Leaf by leaf,
+    in the tree's order, each ``Sharded`` leaf is gathered to rank 0
+    (``RankMesh.gather_root``); rank 0 alone keeps the host copy, copies
+    the plain leaves and writes the one ``step_<N>`` directory, the same
+    files as the virtual mesh's. Every other rank writes nothing and
+    returns None."""
     flat = _flatten(tree)
-    host = {key: _to_host(leaf) for key, leaf in flat.items()}
-    dtypes = {key: ("bfloat16" if isinstance(leaf, (torch.Tensor, Sharded))
-                    and leaf.dtype == torch.bfloat16 else str(host[key].dtype))
-              for key, leaf in flat.items()}
+    mesh = rank_mesh_of(tree)
+    writer = mesh is None or mesh.rank == 0
+    host, dtypes = {}, {}
+    for key, leaf in flat.items():
+        if isinstance(leaf, Sharded):
+            full = leaf.sharding.mesh.gather_root(leaf.blocks, leaf.sharding.spec)
+            if full is not None:
+                host[key] = _to_host(full, fresh=True)
+        elif writer:
+            host[key] = (_to_host(leaf) if isinstance(leaf, torch.Tensor)
+                         else np.array(leaf))
+        if writer:
+            dtypes[key] = ("bfloat16" if isinstance(leaf, (torch.Tensor, Sharded))
+                           and leaf.dtype == torch.bfloat16 else str(host[key].dtype))
+    if not writer:
+        return None
 
     def write():
         tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
@@ -120,51 +148,75 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _load(path: str, entry: dict) -> torch.Tensor:
-    arr = np.load(os.path.join(path, entry["file"]))
-    if entry["dtype"] == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
+def _load(path: str, entry: dict, key: str, like, sharding):
+    """One leaf of the checkpoint at ``path`` into ``like``'s place: into
+    ``like``'s blocks (a ``Sharded``) or its storage (a tensor) in place,
+    or, with a ``NamedSharding``, a new ``Sharded`` of it; any other leaf
+    as a numpy array. The file is memory-mapped: a rank of a ``RankMesh``
+    reads its own block alone, and no more than one leaf is on the host."""
+    def as_tensor(arr: np.ndarray) -> torch.Tensor:     # bf16 from its uint16 bits
+        if entry["dtype"] == "bfloat16":
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(arr)
+
+    shape = tuple(entry["shape"])
+    dtype = (torch.bfloat16 if entry["dtype"] == "bfloat16"
+             else torch.from_numpy(np.empty(0, np.dtype(entry["dtype"]))).dtype)
+    if isinstance(like, (torch.Tensor, Sharded)) and (
+            shape != tuple(like.shape) or dtype != like.dtype):
+        raise ValueError(f"checkpoint leaf {key}: {dtype} {shape}, "
+                         f"expected {like.dtype} {tuple(like.shape)}")
+    mapped = math.prod(shape) > 0
+    arr = np.load(os.path.join(path, entry["file"]), mmap_mode="r" if mapped else None)
+    target = (sharding if isinstance(sharding, NamedSharding)
+              else like.sharding if isinstance(like, Sharded) else None)
+    if target is None:
+        full = as_tensor(np.array(arr))
+        if not isinstance(like, torch.Tensor):
+            return full.numpy()
+        with torch.no_grad():
+            like.copy_(full)
+        return like
+    mesh = target.mesh
+    if isinstance(mesh, RankMesh):
+        own = np.array(mesh.own_block(arr, target.spec))
+        blocks = as_tensor(own).to(mesh.device)[None]
+    else:
+        blocks = target.shard(as_tensor(np.array(arr)))
+    del arr
+    if isinstance(sharding, NamedSharding):
+        return Sharded(blocks, target, shape)
+    with torch.no_grad():
+        like.blocks.copy_(blocks)
+    return like
 
 
-def _rebuild(like, loaded: Dict[str, torch.Tensor], prefix: str = "", shardings=None):
-    """``like``'s structure with each tensor leaf overwritten in place by its
-    loaded array (shape and dtype checked) and any other leaf replaced; a
-    leaf whose ``shardings`` entry is a ``NamedSharding`` comes back as a
-    new ``Sharded`` in that sharding, in ``like``'s dtype."""
+def _rebuild(like, load, prefix: str = "", shardings=None):
+    """``like``'s structure with each leaf replaced by ``load(key, leaf,
+    its shardings entry)``, leaf by leaf in the tree's order."""
     def sub(key):   # the shardings of a child: keyed as ``like``'s (positions for tuples)
         return None if shardings is None else shardings[key]
     if isinstance(like, dict):
-        return {k: _rebuild(v, loaded, f"{prefix}/{k}" if prefix else str(k), sub(k))
+        return {k: _rebuild(v, load, f"{prefix}/{k}" if prefix else str(k), sub(k))
                 for k, v in like.items()}
     if _is_namedtuple(like):
-        return type(like)(*(_rebuild(v, loaded, f"{prefix}/{k}" if prefix else k, sub(i))
+        return type(like)(*(_rebuild(v, load, f"{prefix}/{k}" if prefix else k, sub(i))
                             for i, (k, v) in enumerate(zip(like._fields, like))))
     if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(v, loaded, f"{prefix}/{i}" if prefix else str(i), sub(i))
+        return type(like)(_rebuild(v, load, f"{prefix}/{i}" if prefix else str(i), sub(i))
                           for i, v in enumerate(like))
-    src = loaded[prefix]
-    if not isinstance(like, (torch.Tensor, Sharded)):
-        return src.numpy()
-    if tuple(src.shape) != tuple(like.shape) or src.dtype != like.dtype:
-        raise ValueError(f"checkpoint leaf {prefix}: {src.dtype} {tuple(src.shape)}, "
-                         f"expected {like.dtype} {tuple(like.shape)}")
-    if isinstance(shardings, NamedSharding):
-        return Sharded.of(src, shardings)
-    with torch.no_grad():
-        if isinstance(like, Sharded):
-            like.blocks.copy_(like.sharding.shard(src))
-        else:
-            like.copy_(src)
-    return like
+    return load(prefix, like, shardings)
 
 
 def restore(ckpt_dir: str, step: int, like, shardings=None):
     """Load checkpoint ``step`` into ``like``'s tensors (in place), or, with
     ``shardings``, into new blocks of those shardings; returns (the tree,
-    the saved metadata)."""
+    the saved metadata). No collective: on a ``RankMesh`` each rank reads
+    the manifest and then, leaf by leaf, its own block of each file."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    loaded = {key: _load(path, manifest["arrays"][key]) for key in _flatten(like)}
-    return _rebuild(like, loaded, shardings=shardings), manifest["metadata"]
+    arrays = manifest["arrays"]
+    tree = _rebuild(like, lambda key, leaf, sh: _load(path, arrays[key], key, leaf, sh),
+                    shardings=shardings)
+    return tree, manifest["metadata"]

@@ -25,7 +25,8 @@ fork server) and run ``torch_rank_multi_cases.run_multi``: 4 ranks on
   ``partitioned_matvec`` on the 8-rank (2, 4) mesh builds the rank's part
   alone and equals block ``rank`` of the virtual mesh's call;
 * a ``RankMesh`` and a ``Mesh`` of one layout get different runners, and
-  an ``AsyncGraphServer`` tenant on a ``RankMesh`` raises.
+  an ``AsyncGraphServer`` tenant on a world-of-one ``RankMesh`` serves the
+  virtual tenant's payloads, each flush one shared decision.
 """
 import importlib
 
@@ -39,6 +40,7 @@ from repro_torch.core.rank_mesh import RankMesh
 from repro_torch.graphs import multi as tmulti
 from repro_torch.launch.ranks import run_ranks
 from repro_torch.serve.graph_engine import AsyncGraphServer, GraphQueryServer
+from repro_torch.serve.scheduler import FakeClock
 from test_torch_multi_mesh import REF_CASES, reference  # noqa: F401
 from torch_rank_cases import position
 
@@ -255,7 +257,8 @@ def test_partitioned_matvec_on_a_rank_mesh(rank_runs, graph, algorithm, kernel):
 
 def test_a_world_of_one_and_the_async_server(graph, engines, tmp_path):
     """On one gloo rank: the rank mesh's bfs_multi equals the mesh-less
-    run and gets a runner of its own; an async tenant on it raises."""
+    run and gets a runner of its own; an async tenant on it serves what a
+    tenant on the virtual mesh serves, rank 0 sharing each decision."""
     import torch.distributed as tdist
     tdist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
                              world_size=1)
@@ -268,10 +271,17 @@ def test_a_world_of_one_and_the_async_server(graph, engines, tmp_path):
         assert_fields_equal(tuple(tmulti.bfs_multi(eng, src, mesh=m)), want, "world 1")
         assert len(eng.__dict__["_multi_runners"]) == before + 1
         assert m.calls["gather_rows"] == 1 and m.calls["all_true"] >= 1
-        srv = AsyncGraphServer()
-        with pytest.raises(ValueError, match="RankMesh"):
-            srv.add_tenant("ranks", graph, device="cpu", mesh=m)
+        srv = AsyncGraphServer(clock=FakeClock())
+        srv.add_tenant("ranks", graph, device="cpu", mesh=m)
         srv.add_tenant("virtual", graph, device="cpu", mesh=Mesh((1,), ("batch",),
                                                                  device="cpu"))
+        shares = m.calls["share"]
+        tickets = [(srv.submit("ranks", a, s), srv.submit("virtual", a, s))
+                   for a, s in cases.QUERIES]
+        srv.close()
+        assert m.calls["share"] == shares + 1            # close: one shared decision
+        for (a, s), (tr, tv) in zip(cases.QUERIES, tickets):
+            assert tr.done() and tv.done()
+            assert_payload_equal(tr.result, tv.result, f"world 1 {a}/{s}")
     finally:
         tdist.destroy_process_group()

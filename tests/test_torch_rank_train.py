@@ -16,8 +16,8 @@ transpose), from the reference's initial weights:
 * each rank runs the forward of its own (pod, data) position's rows
   alone, the virtual mesh every position's;
 * the launcher with ``--backend gloo`` on the 4 ranks: every rank's
-  losses equal the virtual-mesh launcher's, and each rank checkpoints
-  under its own directory.
+  losses equal the virtual-mesh launcher's, and the ranks checkpoint into
+  the one directory they share.
 """
 import pytest
 import torch

@@ -382,6 +382,6 @@ def run_train(rank: int, world: int, init: str, ref_path: str, kind: str, steps:
     out = {"steps": train_steps(mesh, kind, dict(np.load(ref_path)), steps)}
     if kind == "plain":
         out["launcher"] = launcher_losses(["--backend", "gloo"], ckpt_dir)
-        out["launcher_ckpt"] = sorted(os.listdir(os.path.join(ckpt_dir, f"rank{rank}")))
+        out["launcher_ckpt"] = sorted(os.listdir(ckpt_dir))
         assert not tdist.is_initialized()
     return out

@@ -68,7 +68,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi.splitlines()[0]}")
     t0 = time.perf_counter()
-    _build.spgemm_kernel()
+    _build.build_all()
     print(f"built kernel 6 in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
 
